@@ -1,0 +1,199 @@
+"""Kernel K1: raw sEEG -> dequantized, smoothed logMel frames.
+
+Port of ``closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py``
+(``FrontendOps``, ``make_frontend_ops``, ``epilogue_constants`` and the fused
+``frontend_decode_mels``).  The CUDA source is ``csrc/frontend_decode.cu``;
+its header note says how the TPU kernel's sequential grid was split for a
+GPU.  ``frontend_decode_mels_plain`` is the same function in plain torch.
+
+Per schedule period (the frame grid repeats every P frames spanning exactly
+Ls samples; Ls is the filter's block length) the fused computation is: the
+48-state filter chain y = Tmat u + Cpow s, s <- A_L s + Pmat u; log-power
+log(S_win [y_prev; y]^2 + 0.01); the 5-tap context stack folded into 5 LDA
+products; first-max over the 9 class slots; median select; sigma-0.5
+smoothing as a matrix.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import _build, framing, smoothing
+from .iir import BlockedIIR, _boundary_states
+
+
+@dataclasses.dataclass
+class FrontendOps:
+    """Kernel constants, float32 (built host-side in float64)."""
+
+    Tmat: torch.Tensor    # (Ls, Ls) causal Toeplitz of the combined chain
+    Cpow: torch.Tensor    # (Ls, S)
+    Pmat: torch.Tensor    # (S, Ls)
+    A_L: torch.Tensor     # (S, S)
+    S_win: torch.Tensor   # (P, 2*Ls) window selection in span coordinates
+    prefix: torch.Tensor  # (Ls,) period 0's previous chunk: [zeros, zf_prefix]
+    starts: torch.Tensor  # (P,) int32 first span column of each window
+    win: int              # window length (samples)
+    tail: int             # samples at the end of the previous chunk that windows reach
+
+    @property
+    def Ls(self) -> int:
+        return self.Tmat.shape[0]
+
+    @property
+    def P(self) -> int:
+        return self.S_win.shape[0]
+
+
+def _to_f32_ftz(a: torch.Tensor) -> torch.Tensor:
+    """Cast to float32 with subnormal results flushed to (signed) zero, as
+    the JAX package's XLA cast does: the kernel constants are then the same
+    bytes, and the kernel never meets a subnormal operand."""
+    x = a.to(torch.float32)
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0, x)
+
+
+def make_frontend_ops(op: BlockedIIR, zf_prefix: np.ndarray, frame_ms: float,
+                      shift_ms: float, sr: float, device=None) -> FrontendOps | None:
+    """Kernel constants; None if the schedule does not fit (the filter's block
+    length must be one schedule period and every window must lie in the
+    previous-plus-current chunk span)."""
+    win = framing.frame_size(frame_ms, sr)
+    prefill = len(zf_prefix)
+    table = framing.shift_table(frame_ms, shift_ms, sr)
+    P = len(table)
+    Ls = int(table.sum())
+    if op.block != Ls or win + prefill > 2 * Ls:
+        return None
+    ends = framing.streaming_frame_ends(frame_ms, shift_ms, sr, 10 * Ls)[:P]
+    S_win = np.zeros((P, 2 * Ls), np.float64)
+    starts = np.zeros(P, np.int32)
+    for i, e in enumerate(ends):
+        p = int(e) - win - prefill + Ls
+        if p < 0 or p + win > 2 * Ls:
+            return None
+        S_win[i, p : p + win] = 1.0
+        starts[i] = p
+    prefix = np.zeros(Ls, np.float64)
+    prefix[Ls - prefill :] = np.asarray(zf_prefix)
+    f32 = lambda a: _to_f32_ftz(torch.as_tensor(a, device=device))
+    return FrontendOps(Tmat=f32(op.Tmat), Cpow=f32(op.Cpow), Pmat=f32(op.Pmat),
+                       A_L=f32(op.A_L), S_win=f32(S_win), prefix=f32(prefix),
+                       starts=torch.as_tensor(starts, device=device), win=win,
+                       tail=max(0, Ls - int(starts.min())))
+
+
+def epilogue_constants(lda_coef_full, intercept, valid, classes, medians, gauss_kernel,
+                       n_channels: int, model_order: int = 4):
+    """Rearrange the decode epilogue's parameters for the fused kernel:
+
+    * ``W5`` (M*C, K*B): LDA weights, rows tap-major (row m*C+c = channel c,
+      tap m oldest-first), columns k-major (col k*B+b);
+    * ``bm`` (1, K*B): intercept, with -1e30 on invalid slots;
+    * ``med_slot`` (K, B): medians pre-indexed by each slot's class label;
+    * ``smoothM`` (B, B): the sigma-0.5 'reflect' smoothing as a matrix.
+    All float32."""
+    B, K, D = lda_coef_full.shape
+    M = model_order + 1
+    C = n_channels
+    W = lda_coef_full.reshape(B, K, C, M)            # stacked index d = c*M + m
+    W5 = W.permute(3, 2, 1, 0).reshape(M * C, K * B)
+    bm = torch.where(valid, intercept, torch.full_like(intercept, -1e30))
+    bm = bm.T.reshape(1, K * B)
+    med_slot = torch.take_along_dim(medians, classes.long(), dim=1).T  # (K, B)
+    eye = torch.eye(B, dtype=medians.dtype, device=medians.device)
+    smoothM = smoothing.gaussian_smooth(eye, gauss_kernel.to(medians.dtype))
+    f32 = lambda a: a.to(torch.float32).contiguous()
+    return f32(W5), f32(bm), f32(med_slot), f32(smoothM)
+
+
+def frontend_decode_mels_plain(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
+                               W5: torch.Tensor, bm: torch.Tensor, med_slot: torch.Tensor,
+                               smoothM: torch.Tensor, n_frames: int, model_order: int = 4,
+                               step_size: int = 5) -> torch.Tensor:
+    """Plain torch version of the kernel, in the dtype of ``eeg``."""
+    T, C = eeg.shape
+    dt = eeg.dtype
+    Ls, P = ops.Ls, ops.P
+    K_slots, B = med_slot.shape
+    depth = model_order * step_size
+    Kp = -(-n_frames // P)
+    need = Kp * Ls
+    u = torch.nn.functional.pad(eeg, (0, 0, 0, max(0, need - T)))[:need].reshape(Kp, Ls, C)
+    Tmat, Cpow, Pmat, A_L = (a.to(dt) for a in (ops.Tmat, ops.Cpow, ops.Pmat, ops.A_L))
+    q = torch.einsum("sl,klc->ksc", Pmat, u)
+    s_before, _ = _boundary_states(A_L, q, s0.to(dt))
+    y = torch.einsum("ls,ksc->klc", Cpow, s_before) + torch.einsum("tj,kjc->ktc", Tmat, u)
+    y_prev = torch.cat([ops.prefix.to(dt)[None, :, None].expand(1, Ls, C), y[:-1]], dim=0)
+    span = torch.cat([y_prev, y], dim=1)                      # (Kp, 2Ls, C)
+    F = torch.log(torch.einsum("pt,ktc->kpc", ops.S_win.to(dt), span * span) + 0.01)
+    F = F.reshape(Kp * P, C)
+    Fp = torch.cat([F.new_zeros((depth, C)), F], dim=0)
+    W5 = W5.to(dt)
+    scores = bm.to(dt).expand(Kp * P, -1)
+    for m in range(model_order + 1):
+        scores = scores + Fp[m * step_size : m * step_size + Kp * P] @ W5[m * C : (m + 1) * C]
+    slot = torch.argmax(scores.reshape(Kp * P, K_slots, B), dim=1)  # first max
+    deq = torch.gather(med_slot.to(dt), 0, slot)                     # (rows, B)
+    return (deq @ smoothM.to(dt))[:n_frames]
+
+
+def frontend_decode_mels(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
+                         W5: torch.Tensor, bm: torch.Tensor, med_slot: torch.Tensor,
+                         smoothM: torch.Tensor, n_frames: int, model_order: int = 4,
+                         step_size: int = 5) -> torch.Tensor:
+    """Raw eeg (T, C) + initial filter state s0 (S, C) -> logMel frames
+    (n_frames, B).  A CPU tensor runs the plain version; a CUDA tensor
+    launches ``csrc/frontend_decode.cu`` (float32) or raises."""
+    if eeg.device.type == "cpu":
+        return frontend_decode_mels_plain(ops, eeg, s0, W5, bm, med_slot, smoothM,
+                                          n_frames, model_order, step_size)
+    dev = eeg.device
+    if dev.type != "cuda":
+        raise ValueError(f"frontend_decode_mels: unsupported device {dev}")
+    T, C = eeg.shape
+    Ls, P = ops.Ls, ops.P
+    S = ops.A_L.shape[0]
+    K_slots, B = med_slot.shape
+    M = model_order + 1
+    if K_slots != 9 or not 1 <= B <= 128 or S > 64:
+        raise ValueError(f"frontend_decode_mels kernel takes 9 class slots, <= 128 mel "
+                         f"bins and <= 64 filter states; got {K_slots}, {B}, {S}")
+    expect = {"eeg": (eeg, (T, C)), "s0": (s0, (S, C)), "W5": (W5, (M * C, K_slots * B)),
+              "bm": (bm, (1, K_slots * B)), "med_slot": (med_slot, (K_slots, B)),
+              "smoothM": (smoothM, (B, B))}
+    for name, (t, shape) in expect.items():
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"frontend_decode_mels: {name} must be a contiguous float32 "
+                             f"tensor of shape {shape} on {dev}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if ops.Tmat.device != dev:
+        raise ValueError(f"frontend_decode_mels: constants on {ops.Tmat.device}, data on {dev}")
+    Kp = -(-n_frames // P)
+    if Kp == 0:
+        return eeg.new_empty((0, B))
+    need = Kp * Ls
+    u = eeg[:need] if T >= need else torch.nn.functional.pad(eeg, (0, 0, 0, need - T))
+    u = u.contiguous()
+    q = torch.empty((Kp, S, C), dtype=torch.float32, device=dev)
+    sb = torch.empty_like(q)
+    F = torch.empty((Kp * P, C), dtype=torch.float32, device=dev)
+    mel = torch.empty((Kp * P, B), dtype=torch.float32, device=dev)
+    h = ops.Tmat[:, 0].contiguous()           # Tmat[t, j] = h[t - j]
+    pmatT = ops.Pmat.T.contiguous()
+    aT = ops.A_L.T.contiguous()
+    fn = _build.bind(_build.load("frontend_decode"), "frontend_decode_mels", 16, 10)
+    args = (u, s0, pmatT, aT, h, ops.Cpow.contiguous(), ops.prefix, ops.starts, W5, bm,
+            med_slot, smoothM, q, sb, F, mel)
+    err = fn(*(a.data_ptr() for a in args), Kp, Ls, S, C, P, ops.win, ops.tail, B, M, step_size,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "frontend_decode_mels")
+    frontend_decode_mels.launches += 1
+    return mel[:n_frames]
+
+
+frontend_decode_mels.launches = 0

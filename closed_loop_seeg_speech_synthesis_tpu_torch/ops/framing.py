@@ -1,0 +1,151 @@
+"""Frame schedules, windowed log-power features, and context stacking.
+
+Host half: numpy copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/framing.py``
+(``frame_size``, ``warm_start_prefill``, ``exact_frame_ends``,
+``streaming_frame_ends``, ``shift_table``, ``periodic_window_matrix``); the
+schedules are bit-identical (tests/test_torch_host_builders.py).
+
+Frame k ends at ``round_half_even(fsize + k * shift_samples)`` on the
+reference's absolute-time grid (FrameBuffer.py:177), computed in exact
+rational arithmetic; at 1024 Hz the grid repeats every 25 frames spanning
+exactly 256 samples.  Features are ``log(sum(x^2) + 0.01)`` per window and
+channel, stacked over 5 taps spaced 5 frames, channel-major.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+
+# ---------------------------------------------------------------------------
+# Host-side schedules (exact reference arithmetic)
+# ---------------------------------------------------------------------------
+
+
+def frame_size(frame_ms: float, sr: float) -> int:
+    """int((frame_ms / 1000) * sr) — FrameBuffer.py:27."""
+    return int((float(frame_ms) / 1000.0) * float(sr))
+
+
+def warm_start_prefill(frame_ms: float, shift_ms: float, sr: float) -> int:
+    """Zero-fill length for warm-started buffers — FrameBuffer.py:96."""
+    return frame_size(frame_ms, sr) - int((float(shift_ms) / 1000.0) * float(sr))
+
+
+def _exact_shift(shift_ms: float, sr: float) -> Fraction:
+    """shift_ms * sr / 1000 as an exact Fraction of the decimal float reprs."""
+    return Fraction(str(float(shift_ms))) * Fraction(str(float(sr))) / 1000
+
+
+def exact_frame_ends(frame_ms: float, shift_ms: float, sr: float, n: int) -> np.ndarray:
+    """The first ``n`` frame ends on the exact streaming grid:
+    e_k = N_k + tie(k), N_k = fsize + (k*p)//q, x.5 ties round to even."""
+    fsize = frame_size(frame_ms, sr)
+    shift = _exact_shift(shift_ms, sr)
+    p, q = shift.numerator, shift.denominator
+    k = np.arange(n, dtype=np.int64)
+    N = fsize + (k * p) // q
+    rem = (k * p) % q
+    up = (2 * rem > q) | ((2 * rem == q) & (N % 2 == 1))
+    return N + up.astype(np.int64)
+
+
+def streaming_frame_ends(frame_ms: float, shift_ms: float, sr: float, total_len: int) -> np.ndarray:
+    """All frame end positions e_k <= total_len on the streaming grid
+    (``total_len`` counts samples including any warm-start prefill)."""
+    fsize = frame_size(frame_ms, sr)
+    if total_len < fsize:
+        return np.zeros(0, dtype=np.int64)
+    shift = _exact_shift(shift_ms, sr)
+    n_max = int((total_len - fsize) / shift) + 2
+    ends = exact_frame_ends(frame_ms, shift_ms, sr, n_max)
+    return ends[ends <= total_len]
+
+
+def shift_table(frame_ms: float, shift_ms: float, sr: float, check_horizon: int = 64) -> np.ndarray:
+    """Exact periodic diff table d[i] = e_{k+1} - e_k for k = i (mod period);
+    the period is q or 2q for shift_samples = p/q reduced."""
+    shift = _exact_shift(shift_ms, sr)
+    q = shift.denominator
+    n = 2 * q * check_horizon + 4
+    ends = exact_frame_ends(frame_ms, shift_ms, sr, n + 1)
+    d = np.diff(ends)
+    for P in (q, 2 * q):
+        reps = np.tile(d[:P], len(d) // P + 1)[: len(d)]
+        if np.array_equal(d, reps):
+            return d[:P].astype(np.int32)
+    raise AssertionError(
+        f"exact frame schedule at sr={sr}, shift={shift_ms} ms did not repeat "
+        f"with period {q} or {2*q}")
+
+
+def periodic_window_matrix(ends: np.ndarray, win: int):
+    """(S (P, 2*Ls), Ls, P, origin) 0/1 window-selection matrix of a periodic
+    schedule (e_{i+P} = e_i + Ls), or None if the schedule is not usable."""
+    ends = np.asarray(ends)
+    if len(ends) < 2:
+        return None
+    d = np.diff(ends)
+    for P in range(1, min(len(d), 4096) + 1):
+        cand = d[:P]
+        reps = np.tile(cand, len(d) // P + 1)[: len(d)]
+        if np.array_equal(reps, d):
+            Ls = int(cand.sum())
+            if win > Ls:
+                return None
+            S = np.zeros((P, 2 * Ls), dtype=np.float64)
+            origin = int(ends[0]) - win
+            for i in range(P):
+                lo = int(ends[i]) - win - origin
+                S[i, lo : lo + win] = 1.0
+            return S, Ls, P, origin
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Device ops (torch)
+# ---------------------------------------------------------------------------
+
+
+def windowed_logpower(x: torch.Tensor, ends: torch.Tensor, win: int) -> torch.Tensor:
+    """log(sum(x[e-win:e]**2, axis=0) + 0.01) for each frame end e.
+    x: (T, C); ends: (N,) integer frame ends (exclusive) -> (N, C)."""
+    sums = (x * x).unfold(0, win, 1).sum(-1)  # (T-win+1, C); row s covers [s, s+win)
+    return torch.log(sums[ends.long() - win] + 0.01)
+
+
+def windowed_logpower_periodic(x: torch.Tensor, S: torch.Tensor, Ls: int, n_frames: int,
+                               origin: int) -> torch.Tensor:
+    """log(window sum of squares + 0.01) on a periodic grid: one
+    (P, 2*Ls) @ (2*Ls, C) product per period.  x: (T, C) -> (n_frames, C)."""
+    P = S.shape[0]
+    w = x * x
+    T, C = w.shape
+    n_periods = -(-n_frames // P)
+    need = origin + (n_periods + 1) * Ls
+    wp = torch.nn.functional.pad(w, (0, 0, 0, max(0, need - T)))[origin : origin + (n_periods + 1) * Ls]
+    a = wp[: n_periods * Ls].reshape(n_periods, Ls, C)
+    b = wp[Ls:].reshape(n_periods, Ls, C)
+    span = torch.cat([a, b], dim=1)  # (K, 2*Ls, C)
+    sums = torch.einsum("pt,ktc->kpc", S.to(x.dtype), span)
+    sums = sums.reshape(n_periods * P, C)[:n_frames]
+    return torch.log(sums + 0.01)
+
+
+def stack_context(F: torch.Tensor, model_order: int = 4, step_size: int = 5,
+                  zero_pad: bool = True) -> torch.Tensor:
+    """out[j] = [F[j - m*step] for m = model_order..0] per channel,
+    channel-major flattened (taps oldest-first within a channel).
+    zero_pad=True is the streaming warm start (missing history is zeros)."""
+    depth = model_order * step_size
+    if zero_pad:
+        Fp = torch.cat([F.new_zeros((depth,) + tuple(F.shape[1:])), F], dim=0)
+    else:
+        Fp = F
+    n_out = Fp.shape[0] - depth
+    taps = [Fp[m * step_size : m * step_size + n_out] for m in range(model_order + 1)]
+    stacked = torch.stack(taps, dim=1)  # (N, taps, C) oldest-first
+    return stacked.transpose(1, 2).reshape(n_out, -1)

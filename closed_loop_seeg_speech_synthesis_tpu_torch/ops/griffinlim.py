@@ -1,0 +1,121 @@
+"""Streaming Griffin-Lim vocoder, batched over blocks (torch).
+
+Port of the streaming half of ``closed_loop_seeg_speech_synthesis_tpu/ops/griffinlim.py``
+(reference ``livenodes/GriffinLim.py:64-174``): per 10 ms logMel frame, an
+8-iteration Griffin-Lim on a 480-sample block built from the last two mel
+frames (two 256-point Blackman frames, hop 160), then overlap-add with
+window-sum normalization, 160 samples per frame.  The reference's phase term
+is ``exp(angle(x))`` without the ``1j`` (GriffinLim.py:93), kept behind
+``phase_bug=True``.
+
+Deviation: ``default_rand_init`` draws from a ``torch.Generator``, not JAX's
+threefry ``fold_in(key, block)`` stream, so the same seed gives other
+waveforms than the JAX package.  Every entry point also takes ``rand_init``
+as an array; the parity tests pass in the inits JAX drew.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from . import mel as mel_ops
+from .stft import RDFT, blackman, make_rdft
+
+FFT_SIZE = 256
+HOP = 160
+BLOCK_SAMPLES = 3 * HOP  # 480: blockLen = 2*contextWidth + 1 frames of 160
+
+
+@dataclasses.dataclass
+class StreamingGLOps:
+    """Constants of the streaming vocoder."""
+
+    rdft: RDFT
+    window: torch.Tensor      # (FFT_SIZE,) blackman
+    ola_window: torch.Tensor  # (BLOCK_SAMPLES,) blackman over the block
+    Minv: torch.Tensor        # (n_mel, FFT_SIZE // 2 + 1)
+
+
+def make_streaming_gl_ops(n_mel: int = 40, sample_rate: float = 16000.0,
+                          dtype=torch.float64, device=None) -> StreamingGLOps:
+    _, Minv = mel_ops.mel_matrices(FFT_SIZE // 2 + 1, n_mel, sample_rate)
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return StreamingGLOps(rdft=make_rdft(FFT_SIZE, dtype, device),
+                          window=to(blackman(FFT_SIZE)),
+                          ola_window=to(blackman(BLOCK_SAMPLES)), Minv=to(Minv))
+
+
+def _gl_iteration(wav: torch.Tensor, spec: torch.Tensor, ops: StreamingGLOps,
+                  phase_bug: bool) -> torch.Tensor:
+    """One Griffin-Lim iteration on (B, 480) given target |spec| (B, 2, 129)."""
+    f0 = wav[:, 0:FFT_SIZE] * ops.window
+    f1 = wav[:, HOP : HOP + FFT_SIZE] * ops.window
+    frames = torch.stack([f0, f1], dim=1)  # (B, 2, N)
+    xr, xi = ops.rdft.rfft(frames)         # (B, 2, K)
+    if phase_bug:
+        ang = torch.atan2(xi, xr)
+        # bins 0 and N/2 are exactly real: np.angle gives 0 or +pi there; an
+        # atan2 of a -0.0 imag would give -pi and blow exp(angle) up by e^2pi
+        edge = torch.where(xr[..., [0, -1]] < 0, math.pi, 0.0).to(ang.dtype)
+        ang = torch.cat([edge[..., :1], ang[..., 1:-1], edge[..., 1:]], dim=-1)
+        zr = spec * torch.exp(ang)
+        zi = torch.zeros_like(zr)
+    else:
+        r = torch.sqrt(xr * xr + xi * xi)
+        safe = r > 0
+        inv = torch.where(safe, 1.0 / torch.where(safe, r, torch.ones_like(r)), torch.zeros_like(r))
+        zr = spec * torch.where(safe, xr * inv, torch.ones_like(r))
+        zi = spec * (xi * inv)
+    t = ops.rdft.irfft(zr, zi) * ops.window  # (B, 2, N)
+    # in-block overlap-add; samples [416:480) stay zero (GriffinLim.py:69-74)
+    pad = torch.nn.functional.pad
+    return (pad(t[:, 0, :], (0, BLOCK_SAMPLES - FFT_SIZE))
+            + pad(t[:, 1, :], (HOP, BLOCK_SAMPLES - HOP - FFT_SIZE)))
+
+
+def streaming_gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: StreamingGLOps,
+                        num_iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
+    """log_mels (N, n_mel); block b uses frames [b, b+1]; rand_init (N-1, 480).
+    Returns the reconstructed block waveforms (N-1, 480), pre-OLA."""
+    spec_frames = mel_ops.from_log_mels(log_mels, ops.Minv)          # (N, K)
+    spec = torch.stack([spec_frames[:-1], spec_frames[1:]], dim=1)   # (B, 2, K)
+    wav = rand_init.to(spec.dtype)
+    for _ in range(num_iterations):
+        wav = _gl_iteration(wav, spec, ops, phase_bug)
+    return wav
+
+
+def overlap_add_stream(re: torch.Tensor, ops: StreamingGLOps) -> torch.Tensor:
+    """Chunk b = re[b][0:160] + re[b-1][160:320] + re[b-2][320:480], divided
+    by the matching Blackman segment sums where nonzero (GriffinLim.py:144-166).
+    re: (B, 480) -> audio (B*160,)."""
+    B = re.shape[0]
+    w = ops.ola_window
+    s0, s1, s2 = re[:, :HOP], re[:, HOP : 2 * HOP], re[:, 2 * HOP :]
+    z = re.new_zeros((1, HOP))
+    acc = s0 + torch.cat([z, s1[:-1]], 0) + torch.cat([z, z, s2[:-2]], 0)
+    rows = torch.arange(B, device=re.device)[:, None]
+    wsum = (w[None, :HOP] + (rows >= 1).to(re.dtype) * w[None, HOP : 2 * HOP]
+            + (rows >= 2).to(re.dtype) * w[None, 2 * HOP :])
+    out = torch.where(wsum != 0, acc / torch.where(wsum != 0, wsum, torch.ones_like(wsum)), acc)
+    return out.reshape(-1)
+
+
+def to_int16(audio: torch.Tensor, norm_factor: float) -> torch.Tensor:
+    """int16(clip(x / (norm*1.01), -0.99, 0.99) * 32767), truncating toward
+    zero as C does — GriffinLim.py:174."""
+    x = torch.clamp(audio / (norm_factor * 1.01), -0.99, 0.99) * (2**15 - 1)
+    return x.to(torch.int16)
+
+
+def default_rand_init(num_blocks: int, generator: torch.Generator | None = None,
+                      dtype=torch.float64, device=None) -> torch.Tensor:
+    """Uniform [0, 1) block inits (num_blocks, 480) from ``generator``
+    (seed 0 on ``device`` when None)."""
+    if generator is None:
+        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+    return torch.rand((num_blocks, BLOCK_SAMPLES), generator=generator, dtype=dtype,
+                      device=generator.device)

@@ -1,0 +1,148 @@
+"""The port's numpy copies of the host-side builders produce arrays equal to
+the JAX package's, element for element, at 1024 and 2048 Hz."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from closed_loop_seeg_speech_synthesis_tpu.models import lda as j_lda
+from closed_loop_seeg_speech_synthesis_tpu.ops import filter_design as j_fd
+from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
+from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
+from closed_loop_seeg_speech_synthesis_tpu.ops import iir as j_iir
+from closed_loop_seeg_speech_synthesis_tpu.ops import mel as j_mel
+from closed_loop_seeg_speech_synthesis_tpu.ops import smoothing as j_sm
+from closed_loop_seeg_speech_synthesis_tpu.ops import stft as j_stft
+from closed_loop_seeg_speech_synthesis_tpu.ops.pallas_frontend import epilogue_constants as j_epi
+from closed_loop_seeg_speech_synthesis_tpu.runtime import pipeline as j_pipe
+
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as t_fd
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import framing as t_fr
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir as t_iir
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import mel as t_mel
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import smoothing as t_sm
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import stft as t_stft
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend import epilogue_constants as t_epi
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
+
+RATES = [1024.0, 2048.0]
+
+
+def _eq(a, b):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape, a.dtype, b.dtype)
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_schedules_equal(sr):
+    assert t_fr.frame_size(50, sr) == j_fr.frame_size(50, sr)
+    assert t_fr.warm_start_prefill(50, 10, sr) == j_fr.warm_start_prefill(50, 10, sr)
+    _eq(t_fr.exact_frame_ends(50, 10, sr, 777), j_fr.exact_frame_ends(50, 10, sr, 777))
+    total = int(sr * 3) + 41
+    ends = j_fr.streaming_frame_ends(50, 10, sr, total)
+    _eq(t_fr.streaming_frame_ends(50, 10, sr, total), ends)
+    _eq(t_fr.shift_table(50, 10, sr), j_fr.shift_table(50, 10, sr))
+    win = j_fr.frame_size(50, sr)
+    tp, jp = t_fr.periodic_window_matrix(ends, win), j_fr.periodic_window_matrix(ends, win)
+    _eq(tp[0], jp[0])
+    assert tp[1:] == jp[1:]
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_filter_chain_equal(sr):
+    """SOS design, warm-start constants and the blocked operators at the
+    schedule period (the front-end kernel's block)."""
+    tc, jc = t_fd.high_gamma_bank(sr), j_fd.high_gamma_bank(sr)
+    for a, b in zip(tc, jc):
+        _eq(a, b)
+    prefill = j_fr.warm_start_prefill(50, 10, sr)
+    t_ss, t_warm = t_iir.make_warmstart_chain(tc, prefill)
+    j_ss, j_warm = j_iir.make_warmstart_chain(jc, prefill)
+    for name in ("A", "B", "C"):
+        _eq(getattr(t_ss, name), getattr(j_ss, name))
+    assert t_ss.D == j_ss.D
+    for name in ("zi_scale", "s_const", "zf_prefix"):
+        _eq(getattr(t_warm, name), getattr(j_warm, name))
+    L = int(j_fr.shift_table(50, 10, sr).sum())
+    t_op = t_iir.make_blocked_iir(t_ss, L, torch.float64)
+    j_op = j_iir.make_blocked_iir(j_ss, L, jnp.float64)
+    for name in ("Cpow", "Tmat", "Pmat", "A_L", "Apow", "B", "C", "D", "A"):
+        _eq(getattr(t_op, name), getattr(j_op, name))
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_frontend_ops_equal(sr):
+    """K1's constants (Tmat/Cpow/Pmat/A_L, S_win, prefix) as the JAX
+    package builds them for its fused kernel."""
+    C = 4
+    lda = j_lda.LDAParams(coef=jnp.zeros((40, 9, 20)), intercept=jnp.zeros((40, 9)),
+                          classes=jnp.zeros((40, 9), jnp.int32), valid=jnp.ones((40, 9), bool))
+    j_dec = j_pipe.build_decoder_params(j_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=jnp.float64),
+                                        lda, np.zeros((40, 9)), np.arange(20))
+    loaded = t_params.from_arrays(np.zeros((40, 9, 20)), np.zeros((40, 9)),
+                                  np.zeros((40, 9), np.int32), np.ones((40, 9), bool),
+                                  np.zeros((40, 9)), np.arange(20), [])
+    t_dec = t_pipe.build_decoder_params(t_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=torch.float64),
+                                        loaded["lda"], loaded["medians"], loaded["select"])
+    for name in ("Tmat", "Cpow", "Pmat", "A_L", "S_win", "prefix"):
+        _eq(getattr(t_dec.frontend_ops, name), getattr(j_dec.frontend_ops, name))
+    for name in ("filt_zi_scale", "filt_s_const", "zf_prefix", "gauss_kernel"):
+        _eq(getattr(t_dec, name), getattr(j_dec, name))
+    _eq(t_dec.shift_table, j_dec.shift_table)
+    # every window of the schedule is one run of `win` ones starting at `starts`
+    S = t_dec.frontend_ops.S_win.numpy()
+    for i, p in enumerate(t_dec.frontend_ops.starts.numpy()):
+        assert S[i, p : p + t_dec.frontend_ops.win].all() and S[i].sum() == t_dec.frontend_ops.win
+
+
+def test_vocoder_constants_equal():
+    """Minv, the RDFT matrices, both Blackman windows and the output
+    low-pass blocked at 160 (K2) and 4096 (plain path)."""
+    j_ops = j_gl.make_streaming_gl_ops(40, 16000.0, jnp.float64)
+    t_ops = t_gl.make_streaming_gl_ops(40, 16000.0, torch.float64)
+    for name in ("window", "ola_window", "Minv"):
+        _eq(getattr(t_ops, name), getattr(j_ops, name))
+    for name in ("F_cos", "F_sin", "I_cos", "I_sin"):
+        _eq(getattr(t_ops.rdft, name), getattr(j_ops.rdft, name))
+        _eq(getattr(t_stft.make_rdft(256, torch.float32), name),
+            getattr(j_stft.make_rdft(256, jnp.float32), name))
+    _eq(t_stft.blackman(480), j_stft.blackman(480))
+    for a, b in zip(t_mel.mel_matrices(129, 40, 16000.0), j_mel.mel_matrices(129, 40, 16000.0)):
+        _eq(a, b)
+    sos = t_fd.gl_output_lowpass_sos()
+    _eq(sos, j_fd.gl_output_lowpass_sos())
+    for block in (160, 4096):
+        t_op = t_iir.make_blocked_iir(t_iir.sos_to_statespace(sos), block, torch.float64)
+        j_op = j_iir.make_blocked_iir(j_iir.sos_to_statespace(sos), block, jnp.float64)
+        for name in ("Cpow", "Tmat", "Pmat", "A_L"):
+            _eq(getattr(t_op, name), getattr(j_op, name))
+
+
+def test_smoothing_tables_equal(rng):
+    _eq(t_sm.gaussian_kernel1d(0.5), j_sm.gaussian_kernel1d(0.5))
+    _eq(t_sm.reflect_positions(40, 2), j_sm.reflect_positions(40, 2))
+    med = np.sort(rng.randn(40, 5), axis=1)
+    for a, b in zip(t_sm.exact_smooth_table(med), j_sm.exact_smooth_table(med)):
+        _eq(a, b)
+
+
+def test_epilogue_constants_equal(rng):
+    """W5 / bm / med_slot / smoothM for the fused front-end kernel."""
+    C, M = 6, 5
+    coef_full = rng.randn(40, 9, M * C)
+    intercept = rng.randn(40, 9)
+    valid = rng.rand(40, 9) > 0.1
+    classes = np.tile(np.arange(9, dtype=np.int32), (40, 1))
+    medians = np.sort(rng.randn(40, 9), axis=1)
+    kern = j_sm.gaussian_kernel1d(0.5)
+    j_out = j_epi(jnp.asarray(coef_full), jnp.asarray(intercept), jnp.asarray(valid),
+                  jnp.asarray(classes), jnp.asarray(medians), jnp.asarray(kern), C)
+    t_out = t_epi(torch.as_tensor(coef_full), torch.as_tensor(intercept), torch.as_tensor(valid),
+                  torch.as_tensor(classes), torch.as_tensor(medians), torch.as_tensor(kern), C)
+    for a, b in zip(t_out, j_out):
+        _eq(a, b)

@@ -1,0 +1,144 @@
+"""The replay slice end to end: the port against the JAX package, both in
+float64 on the CPU with the same Griffin-Lim inits (drawn by JAX and passed
+in).  The spectrogram is gathered from the same exactly-rounded smoothing
+lattice by the same labels, so it is bit-equal; the audio passes through the
+chaotic exp(angle) Griffin-Lim iteration evaluated in another summation
+order, so it is held within 1 int16 LSB."""
+
+import configparser
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+
+from closed_loop_seeg_speech_synthesis_tpu.cli import decode as j_decode
+from closed_loop_seeg_speech_synthesis_tpu.models import lda as j_lda
+from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
+from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
+
+from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as t_decode
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _session_arrays(rng, C_total, bad, n_feats=20):
+    C = C_total - len(bad)
+    valid = np.ones((40, 9), bool)
+    valid[5, 3] = False
+    valid[22, 0] = False
+    return dict(lda_coef=rng.randn(40, 9, n_feats) * 0.3, lda_intercept=rng.randn(40, 9),
+                lda_classes=np.tile(np.arange(9, dtype=np.int32), (40, 1)), lda_valid=valid,
+                medians=np.sort(rng.randn(40, 9), axis=1),
+                select=rng.permutation(5 * C)[:n_feats], bad_channels=np.asarray(bad))
+
+
+def _jax_rand_init(n_samples, sr):
+    prefill = j_fr.warm_start_prefill(50, 10, sr)
+    n = len(j_fr.streaming_frame_ends(50, 10, sr, n_samples + prefill))
+    return np.asarray(j_gl.default_rand_init(jax.random.PRNGKey(0), n - 1, 0, jnp.float64))
+
+
+@pytest.mark.parametrize("sr", [1024.0, 2048.0])
+def test_offline_decoding_matches_jax(rng, sr):
+    """perform_offline_decoding in both packages: bad channels excluded, the
+    same LDA / medians / select (converted by from_arrays)."""
+    C_total, bad = 10, [2, 7]
+    arrs = _session_arrays(rng, C_total, bad)
+    eeg = rng.randn(int(sr * 3), C_total) * 10.0
+    j_loaded = {"medians": arrs["medians"], "bad_channels": arrs["bad_channels"],
+                "select": arrs["select"],
+                "lda": j_lda.LDAParams(coef=jnp.asarray(arrs["lda_coef"]),
+                                       intercept=jnp.asarray(arrs["lda_intercept"]),
+                                       classes=jnp.asarray(arrs["lda_classes"]),
+                                       valid=jnp.asarray(arrs["lda_valid"]))}
+    spec_j, audio_j, _, _ = j_decode.perform_offline_decoding(
+        j_loaded, eeg, sr, 10.0, dtype=jnp.float64)  # key None: PRNGKey(0)
+    spec_t, audio_t, _, _ = t_decode.perform_offline_decoding(
+        t_params.from_arrays(**arrs), eeg, sr, 10.0, rand_init=_jax_rand_init(len(eeg), sr))
+    spec_t, audio_t = spec_t.numpy(), audio_t.numpy()
+    assert spec_t.shape == spec_j.shape == (len(spec_j), 40) and spec_t.dtype == np.float64
+    assert np.array_equal(spec_t, np.asarray(spec_j))
+    assert audio_t.shape == audio_j.shape == ((len(spec_j) - 1) * 160,)
+    assert audio_t.dtype == np.int16
+    assert np.abs(audio_t.astype(int) - np.asarray(audio_j).astype(int)).max() <= 1
+
+
+def test_decode_cli_matches_jax_cli(rng, tmp_path):
+    """Both CLIs replay the same file with the same params.h5 and write
+    spectrogram.npy / audio.wav within the slice's tolerances."""
+    import h5py
+    from scipy.io import wavfile
+
+    sr, C_total, bad = 1024, 6, [4]
+    arrs = _session_arrays(rng, C_total, bad)
+    session = tmp_path / "storage" / "demo"
+    session.mkdir(parents=True)
+    with h5py.File(session / "params.h5", "w") as hf:
+        hf.create_dataset("bad_channels", data=np.asarray(bad, np.int64))
+        hf.create_dataset("medians_array", data=arrs["medians"])
+        hf.create_dataset("select", data=np.asarray(arrs["select"], np.int64))
+        for name in ("lda_coef", "lda_intercept", "lda_classes", "lda_valid"):
+            hf.create_dataset(name, data=arrs[name])
+    eeg = (rng.randn(4 * sr, C_total) * 10.0).astype(np.float32)
+    seeg_file = tmp_path / "replay.hdf"
+    with h5py.File(seeg_file, "w") as hf:
+        hf.create_dataset("sEEG", data=eeg)
+        hf.create_dataset("sEEG_sr", data=sr, dtype=np.int32)
+    cfg = configparser.ConfigParser()
+    cfg["General"] = {"storage_dir": str(tmp_path / "storage"), "session": "demo"}
+    cfg["Decoding"] = {"stream_name": "dev_sEEG", "griffin_lim_norm": "10", "run": "replay",
+                       "overwrite_on_rerun": "True"}
+    cfg_path = tmp_path / "experiment.ini"
+    with open(cfg_path, "w") as f:
+        cfg.write(f)
+    inits = tmp_path / "inits.npy"
+    np.save(inits, _jax_rand_init(len(eeg), float(sr)))
+
+    j_dir = j_decode.main([str(cfg_path), "--seeg_file", str(seeg_file), "--run", "jax"])
+    t_dir = t_decode.main([str(cfg_path), "--seeg_file", str(seeg_file), "--run", "torch",
+                           "--device", "cpu", "--rand_init", str(inits)])
+    for f in ["audio.wav", "sEEG.hdf", "spectrogram.npy", "decode.ini", "decode.log"]:
+        assert os.path.exists(os.path.join(t_dir, f)), f
+    spec_j = np.load(os.path.join(j_dir, "spectrogram.npy"))
+    spec_t = np.load(os.path.join(t_dir, "spectrogram.npy"))
+    assert np.array_equal(spec_t, spec_j)
+    rate_j, audio_j = wavfile.read(os.path.join(j_dir, "audio.wav"))
+    rate_t, audio_t = wavfile.read(os.path.join(t_dir, "audio.wav"))
+    assert rate_t == rate_j == 16000 and audio_t.dtype == audio_j.dtype == np.int16
+    assert audio_t.shape == audio_j.shape
+    assert np.abs(audio_t.astype(int) - audio_j.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("argv", [["--persistent"], ["--vocoder", "exact-host"],
+                                  ["--profile", "prof"], []])
+def test_decode_cli_rejects_unported_modes(tmp_path, argv):
+    """Online mode (no seeg_file), --persistent, --profile and the exact-host
+    vocoder are not ported: the CLI says so and stops."""
+    cfg = configparser.ConfigParser()
+    cfg["General"] = {"storage_dir": str(tmp_path), "session": "demo"}
+    cfg["Decoding"] = {"stream_name": "dev_sEEG", "griffin_lim_norm": "10", "run": "r"}
+    cfg_path = tmp_path / "experiment.ini"
+    with open(cfg_path, "w") as f:
+        cfg.write(f)
+    with pytest.raises(SystemExit) as exc:
+        t_decode.main([str(cfg_path), *argv])
+    assert exc.value.code == 2
+
+
+def test_port_imports_no_jax():
+    """The port and its CLI import neither jax nor the JAX package."""
+    code = ("import sys; import closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.split('.')[0] == 'closed_loop_seeg_speech_synthesis_tpu']; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
