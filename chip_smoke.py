@@ -5,21 +5,40 @@ on one NVIDIA GPU.  Run from the repository root:
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and the torch/CUDA versions.
-2. Builds both CUDA kernels from ``csrc/`` and prints the build seconds.
-3. Holds each kernel against its plain torch version on the card, at the
-   shapes of the main path: K1 (sEEG -> mel frames) on a 30-minute
-   128-channel 1024 Hz session and on 60 s at 2048 Hz; K2 (mel frames ->
-   int16 audio) without iterations, with the converging phase estimator and
-   with the reference's exp(angle) estimator (quality-gated, it is chaotic).
-4. Drives the main path, the offline replay decode, through
+2. Builds both CUDA sources from ``csrc/`` (in parallel, one nvcc each) and
+   prints the build seconds.
+3. Holds each of the four kernels against its plain torch version on the
+   card, at the shapes of its path: K1 (sEEG -> mel frames) and K3 (sEEG ->
+   log-power features) on a 30-minute 128-channel 1024 Hz session and on
+   60 s at 2048 Hz; K2 (mel frames -> int16 audio) and K4 (mel frames ->
+   Griffin-Lim blocks) without iterations, with the converging phase
+   estimator and with the reference's exp(angle) estimator (quality-gated,
+   it is chaotic).
+4. Drives the offline replay decode through
    ``cli.decode.perform_offline_decoding`` at 128 ch / 1024 Hz / 30 min with
-   both launch counters set to 0 first, checks that both kernels launched
-   and that the outputs are finite and shaped right, and times the kernel
-   path against the plain torch path with CUDA events.
+   the launch counters set to 0 first, checks that K1 and K2 launched and
+   that the outputs are finite and shaped right, and times the kernel path
+   against the plain torch path with CUDA events.
 5. Decodes the session's first minute on the card and through the float64
    CPU path (the one held bit-equal to the JAX package by the tests) and
    holds the card inside the f32 label-flip budget.
-6. Runs ``cli.decode.main`` end to end on files in a temporary directory
+6. Drives the split replay decode (``use_cuda_epilogue=False,
+   use_cuda_gl_tail=False``) the same way: K3 and K4 launch, K1 and K2 do
+   not, and the output stays inside the f32 budget of the fused path.
+7. Feeds 60 s of the session packet by packet (32 samples) through
+   ``runtime.online.OnlineDecoder`` at full width: K4 launches once a
+   packet, the output has the offline decode's shapes and stays inside its
+   f32 budget, ``chunk_steps=4`` is bit-identical to 1; prints the
+   per-packet latency percentiles.  Holds K4 against its plain version at
+   the step's own shapes (1-4 blocks, one ragged CUDA block) on the
+   session's mel frames, and the online audio against a run of the same
+   packets with the plain Griffin-Lim.
+8. Closes the loop over the native NSX transport:
+   ``cli.dev_streamer.stream_eeg`` feeds 20 s to
+   ``cli.decode.perform_online_decoding`` in a thread; the received sEEG
+   equals what was sent and the output equals a direct ``OnlineDecoder``
+   run of the same packets.
+9. Runs ``cli.decode.main`` end to end on files in a temporary directory
    when h5py is installed.
 
 Any failure exits nonzero.  The line before the last is the kernels' JSON
@@ -27,19 +46,24 @@ record, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits 1 and prints no result.
 """
 
+import concurrent.futures
+import configparser
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 
 import numpy as np
 
 SR, C, MINUTES, MINUTES_2048 = 1024, 128, 30, 1
+ONLINE_S, LOOP_S, PACKET = 60, 20, 32
 N_FEATS, GL_NORM = 150, 10.0
 AGREE_RTOL, AGREE_ATOL, AGREE_MIN = 1e-5, 1e-6, 0.999   # tests/test_pallas_kernels.py:125-126
 FLIP_RTOL, FLIP_ATOL, FLIP_MAX = 1e-4, 1e-5, 0.02       # tests/test_f32_error_budget.py:51-53
+K3_ATOL, K4_ATOL, WITHIN_MIN = 1e-4, 2e-4, 0.999         # tests/test_pallas_kernels.py:76, :24
 
 
 def say(*args):
@@ -110,6 +134,8 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import dev_streamer
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, cuda_frontend, cuda_gl, framing
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
     from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params, pipeline
@@ -122,8 +148,9 @@ def main():
         f"{torch.cuda.device_count()} device(s)")
 
     say("== build")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        list(pool.map(_build.load, ("frontend_decode", "gl_audio")))
     for name in ("frontend_decode", "gl_audio"):
-        _build.load(name)
         say(f"  {name}: built in {_build.build_info[name]['seconds']:.2f} s "
             f"({_build.build_info[name]['library']})")
 
@@ -169,11 +196,31 @@ def main():
     k1_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels_plain(*k1_args))
     say(f"  time at {MINUTES} min: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
 
+    # ---- K3: kernel vs plain at the split path's shapes -------------------
+    say("== K3 frontend_logpower vs plain")
+
+    def k3_check(args, label):
+        F_k = cuda_frontend.frontend_logpower(*args)
+        F_p = cuda_frontend.frontend_logpower_plain(*args)
+        err = (F_k - F_p).abs()
+        within = (err <= K3_ATOL).double().mean().item()
+        say(f"  {label}: {within:.6f} of features within {K3_ATOL}, max abs err {err.max().item():.3e}")
+        check(F_k.shape == F_p.shape == (args[3], args[1].shape[1])
+              and bool(torch.isfinite(F_k).all()), f"K3 {label} shape, finite")
+        check(within >= WITHIN_MIN, f"K3 {label} within atol {K3_ATOL} on >= 99.9%")
+        return err.max().item()
+
+    k3_args = k1_args[:3] + (n_frames,)
+    k3_err = k3_check(k3_args, f"1024 Hz, {MINUTES} min")
+    k3_check(k1_args2[:3] + (k1_args2[7],), f"2048 Hz, {MINUTES_2048} min")
+    k3_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower(*k3_args))
+    k3_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower_plain(*k3_args))
+    say(f"  time at {MINUTES} min: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms")
+
     # ---- K2: kernel vs plain at the main path's shapes --------------------
     say("== K2 gl_audio vs plain")
     lm = mel_k.contiguous()
-    rand = gl.default_rand_init(n_frames - 1, torch.Generator(device=dev).manual_seed(0),
-                                torch.float32, dev)
+    rand = gl.default_rand_init(n_frames - 1, 0, 0, torch.float32, dev)
     ops = dec.gl_audio_ops
     # without iterations the block's sample 0 meets the Blackman end value
     # (-1.4e-17) unwindowed: zero that one init sample (tests/test_torch_kernels.py)
@@ -201,17 +248,50 @@ def main():
     k2_plain_ms = cuda_ms(torch, lambda: cuda_gl.gl_audio_plain(lm, rand, ops, GL_NORM, 8, True))
     say(f"  time at {MINUTES} min: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
 
+    # ---- K4: kernel vs plain at the split path's shapes -------------------
+    say("== K4 gl_blocks vs plain")
+    gops = dec.gl_audio_ops
+    e0 = (cuda_gl.gl_blocks(lm, rand0, gops, 0, True) - cuda_gl.gl_blocks_plain(lm, rand0, gops, 0, True)).abs()
+    say(f"  iterations=0: max abs err {e0.max().item():.3e}")
+    check(e0.max().item() <= K4_ATOL, f"K4 iterations=0 within atol {K4_ATOL}")
+    e1 = (cuda_gl.gl_blocks(lm, rand, gops, 8, False) - cuda_gl.gl_blocks_plain(lm, rand, gops, 8, False)).abs()
+    within4 = (e1 <= K4_ATOL).double().mean().item()
+    k4_err = e1.max().item()
+    say(f"  phase_bug=False, 8 iterations: {within4:.6f} of samples within {K4_ATOL}, max abs err {k4_err:.3e}")
+    check(within4 >= WITHIN_MIN, f"K4 phase_bug=False within atol {K4_ATOL} on >= 99.9%")
+    ola_k = gl.overlap_add_stream(cuda_gl.gl_blocks(lm, rand, gops, 8, True), gops.gl)
+    ola_p = gl.overlap_add_stream(cuda_gl.gl_blocks_plain(lm, rand, gops, 8, True), gops.gl)
+    att4_k, att4_p = attainment(torch, ola_k, lm, gops.gl), attainment(torch, ola_p, lm, gops.gl)
+    r4 = corr(torch, hop_energy(torch, ola_k), hop_energy(torch, ola_p))
+    say(f"  phase_bug=True, 8 iterations: attainment kernel {att4_k:.4f} plain {att4_p:.4f}, "
+        f"per-hop energy r {r4:.4f}")
+    check(att4_k <= 1.1 * att4_p and r4 > 0.9, "K4 phase_bug=True quality gate")
+    k4_ms = cuda_ms(torch, lambda: cuda_gl.gl_blocks(lm, rand, gops, 8, True))
+    k4_plain_ms = cuda_ms(torch, lambda: cuda_gl.gl_blocks_plain(lm, rand, gops, 8, True))
+    say(f"  time at {MINUTES} min: kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms")
+
     # ---- the main path --------------------------------------------------
     say(f"== main path: cli.decode.perform_offline_decoding, {C} ch, {SR} Hz, {MINUTES} min")
     torch.cuda.synchronize()
-    cuda_frontend.frontend_decode_mels.launches = 0
-    cuda_gl.gl_audio.launches = 0
+    counters = {"frontend_decode_mels": cuda_frontend.frontend_decode_mels,
+                "frontend_logpower": cuda_frontend.frontend_logpower,
+                "gl_audio": cuda_gl.gl_audio, "gl_blocks": cuda_gl.gl_blocks}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    zero_counts()
     spec, audio, _, _ = cli.perform_offline_decoding(loaded, eeg, SR, GL_NORM, device=dev)
-    torch.cuda.synchronize()
-    launches = {"frontend_decode_mels": cuda_frontend.frontend_decode_mels.launches,
-                "gl_audio": cuda_gl.gl_audio.launches}
+    launches = read_counts()
     say(f"  launches: {launches}")
-    check(all(n >= 1 for n in launches.values()), "both kernels launched on the main path")
+    check(launches["frontend_decode_mels"] >= 1 and launches["gl_audio"] >= 1,
+          "K1 and K2 launched on the fused replay path")
     N = spec.shape[0]
     check(N == n_frames and spec.shape == (N, 40) and audio.shape == ((N - 1) * 160,),
           f"shapes spec {tuple(spec.shape)} audio {tuple(audio.shape)}")
@@ -257,6 +337,143 @@ def main():
     say(f"  card f32 vs CPU f64: label flips {flips_ref:.6f}, audio per-hop energy r {r_ref:.4f}")
     check(card_spec.shape == ref_spec.shape and flips_ref < FLIP_MAX and r_ref > 0.9,
           "card output within the f32 budget of the float64 path")
+
+    # ---- the split replay path --------------------------------------------
+    say(f"== split path: perform_offline_decoding(use_cuda_epilogue=False, use_cuda_gl_tail=False), "
+        f"{C} ch, {SR} Hz, {MINUTES} min")
+    split = dict(use_cuda_epilogue=False, use_cuda_gl_tail=False)
+    zero_counts()
+    spec_s, audio_s, _, _ = cli.perform_offline_decoding(loaded, eeg, SR, GL_NORM, device=dev, **split)
+    split_launches = read_counts()
+    say(f"  launches: {split_launches}")
+    check(split_launches["frontend_logpower"] >= 1 and split_launches["gl_blocks"] >= 1
+          and split_launches["frontend_decode_mels"] == 0 and split_launches["gl_audio"] == 0,
+          "K3 and K4 launched on the split path, K1 and K2 not")
+    check(spec_s.shape == spec.shape and audio_s.shape == audio.shape
+          and bool(torch.isfinite(spec_s).all()), "split path shapes, finite")
+    _, flips_s, _ = mel_agreement(torch, spec_s, spec)
+    r_s = corr(torch, hop_energy(torch, audio_s), hop_energy(torch, audio))
+    say(f"  split vs fused: label flips {flips_s:.6f}, audio per-hop energy r {r_s:.4f}")
+    check(flips_s < FLIP_MAX and r_s > 0.9, "split path within the f32 budget of the fused path")
+    cfg_split = dataclasses.replace(cfg, **split)
+    split_runs = {"fused": [], "split": []}
+    for which in ("fused", "split", "split", "fused"):
+        c = cfg_split if which == "split" else cfg
+        split_runs[which].append(cuda_ms(torch, lambda: pipeline.offline_decode(dec, c, eeg), reps=1))
+    split_ms = {k: float(np.mean(v)) for k, v in split_runs.items()}
+    say(f"  decode time (CUDA events, params built): split {split_runs['split']} ms, "
+        f"fused {split_runs['fused']} ms")
+    say(f"  xRT: split {duration_s / (split_ms['split'] / 1e3):.1f}, "
+        f"fused {duration_s / (split_ms['fused'] / 1e3):.1f}")
+
+    # ---- the online step --------------------------------------------------
+    say(f"== online: OnlineDecoder.process_packet, {C} ch, {SR} Hz, {PACKET}-sample packets, "
+        f"{ONLINE_S} s")
+    inits_cpu = gl.default_rand_init(500, 1000, 0, torch.float32)
+    check(torch.equal(gl.default_rand_init(500, 1000, 0, torch.float32, dev).cpu(), inits_cpu)
+          and torch.equal(gl.default_rand_init(500, 1000, 0, torch.float64, dev).cpu(),
+                          gl.default_rand_init(500, 1000, 0, torch.float64)),
+          "default_rand_init bit-equal on the CPU and the card (f32, f64)")
+    n_pkts = ONLINE_S * SR // PACKET
+    head_on = eeg[: n_pkts * PACKET]
+    packets = head_on.cpu().numpy().reshape(n_pkts, PACKET, C)
+    cfg_on, dec_on = cli._build_decoder(loaded, SR, C, GL_NORM, torch.float32, dev, PACKET, **split)
+
+    def run_online(chunk_steps, c=cfg_on):
+        d = online.OnlineDecoder(c, dec_on, chunk_steps=chunk_steps)
+        d.warmup()
+        zero_counts()
+        for p in packets:
+            d.process_packet(p)
+        out = d.results()
+        return d, out, read_counts()
+
+    dec1, (spec_on, audio_on, recv_on), on_launches = run_online(1)
+    say(f"  launches: {on_launches}")
+    check(on_launches["gl_blocks"] >= n_pkts, f"K4 launched on every one of {n_pkts} packets")
+    lat = dec1.tracer.latencies("packet_in", "step_done") * 1e3
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    say(f"  per-packet latency (packet_in -> outputs on the host): p50 {p50:.3f} ms, "
+        f"p95 {float(np.percentile(lat, 95)):.3f} ms, p99 {p99:.3f} ms, max {float(lat.max()):.3f} ms "
+        f"over {len(lat)} packets")
+    spec_ref, audio_ref = pipeline.offline_decode(dec_on, cfg_on, head_on)
+    check(spec_on.shape == tuple(spec_ref.shape) and audio_on.shape == tuple(audio_ref.shape),
+          f"online shapes spec {spec_on.shape} audio {audio_on.shape} == offline's")
+    _, flips_on, _ = mel_agreement(torch, torch.as_tensor(spec_on), spec_ref.cpu())
+    r_on = corr(torch, hop_energy(torch, torch.as_tensor(audio_on)), hop_energy(torch, audio_ref.cpu()))
+    say(f"  online vs offline split path: label flips {flips_on:.6f}, audio per-hop energy r {r_on:.4f}")
+    check(flips_on < FLIP_MAX and r_on > 0.9, "online step within the f32 budget of the offline decode")
+    _, (spec_c4, audio_c4, _), _ = run_online(4)
+    check(np.array_equal(spec_c4, spec_on) and np.array_equal(audio_c4, audio_on),
+          "chunk_steps=4 bit-identical to chunk_steps=1")
+
+    # K4 at the step's own shapes: B = 1..4 blocks of consecutive mel frames
+    # of this session with their block-indexed inits, one CUDA block of 8
+    # with the ragged tile masked
+    gops_on = dec_on.gl_audio_ops
+    small = {"iterations=0": [], "phase_bug=False": [], "phase_bug=True": []}
+    for k in range(0, spec_ref.shape[0] - 5, 59):
+        for B in range(1, 5):
+            lm_b = spec_ref[k : k + B + 1].contiguous()
+            r_b = gl.block_rand(torch.arange(k, k + B, device=dev), 0, torch.float32)
+            for name, its, bug in (("iterations=0", 0, True), ("phase_bug=False", 8, False),
+                                   ("phase_bug=True", 8, True)):
+                small[name].append((cuda_gl.gl_blocks(lm_b, r_b, gops_on, its, bug)
+                                    - cuda_gl.gl_blocks_plain(lm_b, r_b, gops_on, its, bug))
+                                   .abs().reshape(-1))
+    small = {name: torch.cat(v) for name, v in small.items()}
+    for name, e in small.items():
+        say(f"  K4 at B = 1..4, {name}: {(e <= K4_ATOL).double().mean().item():.6f} of "
+            f"{e.numel()} samples within {K4_ATOL}, max abs err {e.max().item():.3e}")
+    check(small["iterations=0"].max().item() <= K4_ATOL,
+          f"K4 at B = 1..4 iterations=0 within atol {K4_ATOL}")
+    for name in ("phase_bug=False", "phase_bug=True"):
+        check((small[name] <= K4_ATOL).double().mean().item() >= WITHIN_MIN,
+              f"K4 at B = 1..4 {name} within atol {K4_ATOL} on >= 99.9%")
+
+    # the same packets with the plain Griffin-Lim in the step
+    _, (spec_pg, audio_pg, _), pg_launches = run_online(
+        1, dataclasses.replace(cfg_on, use_cuda_gl=False))
+    d_pg = np.abs(audio_on.astype(np.int64) - audio_pg.astype(np.int64))
+    within_pg = float((d_pg <= 1).mean())
+    say(f"  online K4 vs plain Griffin-Lim: {within_pg:.6f} of samples within 1 LSB, "
+        f"max {int(d_pg.max())} LSB, K4 launches {pg_launches['gl_blocks']} in the plain run")
+    check(pg_launches["gl_blocks"] == 0 and np.array_equal(spec_pg, spec_on)
+          and audio_pg.shape == audio_on.shape, "plain Griffin-Lim run: no K4, same spectrogram")
+    check(within_pg >= WITHIN_MIN, "online audio through K4 within 1 LSB of the plain "
+          "Griffin-Lim on >= 99.9% of samples")
+
+    # ---- the closed loop over the NSX transport ----------------------------
+    say(f"== loopback: dev_streamer.stream_eeg -> perform_online_decoding over NSX, {LOOP_S} s")
+    n_loop = LOOP_S * SR // PACKET
+    sent = packets[:n_loop].reshape(-1, C)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["NSX_REGISTRY_DIR"] = tmp
+        config = configparser.ConfigParser()
+        config["Decoding"] = {"stream_name": "smoke_sEEG", "griffin_lim_norm": str(int(GL_NORM))}
+        result, error = {}, []
+
+        def decode():
+            try:
+                result["out"] = cli.perform_online_decoding(
+                    config, loaded, GL_NORM, tmp, max_packets=n_loop, backend="nsx", device=dev)
+            except BaseException as e:  # reported below; the phase fails
+                error.append(e)
+
+        t = threading.Thread(target=decode)
+        t.start()
+        dev_streamer.stream_eeg(sent, SR, "smoke_sEEG", asap=True, backend="nsx",
+                                wait_for_consumers=60.0)
+        t.join(timeout=300)
+        check(not t.is_alive() and not error, f"online decode over NSX finished {error}")
+    spec_l, audio_l, recv_l, sr_l = result["out"]
+    check(sr_l == SR and np.array_equal(recv_l, sent), "received sEEG equals what was sent")
+    d_ref = online.OnlineDecoder(*cli._build_decoder(loaded, SR, C, GL_NORM, torch.float32, dev, PACKET))
+    for p in packets[:n_loop]:
+        d_ref.process_packet(p)
+    spec_d, audio_d, _ = d_ref.results()
+    check(np.array_equal(spec_l, spec_d) and np.array_equal(audio_l, audio_d),
+          f"loopback output {spec_l.shape} equals a direct OnlineDecoder run")
 
     # ---- the CLI end to end -----------------------------------------------
     try:
@@ -304,6 +521,16 @@ def main():
          "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:153",
          "launches": launches["gl_audio"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "frontend_logpower", "route": "cuda",
+         "source": "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/frontend_decode.cu",
+         "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py:94",
+         "launches": split_launches["frontend_logpower"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "gl_blocks", "route": "cuda",
+         "source": "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu",
+         "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:141",
+         "launches": split_launches["gl_blocks"] + on_launches["gl_blocks"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -1,20 +1,25 @@
-"""Decoding CLI, offline (replay) mode.
+"""Decoding CLI (public surface of reference ``decode.py``).
 
 Port of ``closed_loop_seeg_speech_synthesis_tpu/cli/decode.py``:
 
     python -m closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode config.ini \\
-        --seeg_file replay.hdf [--run ...] [--session ...] [--gl_norm ...] \\
-        [--device cuda|cpu] [--rand_init inits.npy]
+        [--seeg_file replay.hdf] [--run ...] [--session ...] [--gl_norm ...] \\
+        [--device cuda|cpu] [--rand_init inits.npy] \\
+        [--backend lsl|nsx] [--max_packets N] [--dispatch-chunk K]
 
-Decodes a recorded sEEG file (datasets ``sEEG``, ``sEEG_sr``) with the
-session's ``params.h5`` and writes the same artifacts as the JAX CLI into
-``<storage_dir>/<session>/<run>/``: audio.wav, spectrogram.npy, sEEG.hdf,
-decode.ini, decode.log, and decoding.png when matplotlib is installed.
+Offline mode (``--seeg_file`` or Development->seeg_file): decodes a recorded
+sEEG file (datasets ``sEEG``, ``sEEG_sr``).  Online mode (no seeg_file):
+pulls the config's Decoding->stream_name stream (LSL, or the native NSX
+transport), runs the closed loop packet by packet and logs markers in a side
+thread.  Both use the session's ``params.h5`` and write the JAX CLI's
+artifacts into ``<storage_dir>/<session>/<run>/``: audio.wav,
+spectrogram.npy, sEEG.hdf, decode.ini, decode.log, decoding.png when
+matplotlib is installed, and online first_timestamp.npy and markers.csv.
 
-Not ported yet, and rejected with an error: online mode (no seeg_file),
-``--persistent``, ``--profile``, ``--dispatch-chunk`` and
-``--vocoder exact-host``.  h5py is imported where files are read or
-written; matplotlib where the plot is drawn.
+``--device cuda`` fails where there is no GPU; nothing falls back to the
+CPU.  Not ported, and rejected with an error: ``--persistent``,
+``--profile`` and ``--vocoder exact-host``.  h5py is imported where files
+are read or written; matplotlib where the plot is drawn.
 """
 
 from __future__ import annotations
@@ -22,14 +27,17 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import threading
 
 import numpy as np
 import torch
 
 from ..io import config as config_mod
 from ..io.utils import in_offline_mode
+from ..runtime import online
 from ..runtime import params as params_io
 from ..runtime import pipeline
+from ..runtime.audio import make_sink
 
 logger = logging.getLogger("cli.decode")
 
@@ -53,23 +61,27 @@ def plot_streamed_data(spectrogram, audio, filename):
     plt.close(fig)
 
 
-def _build_decoder(loaded, sr, n_channels_total, gl_norm, dtype, device):
+def _build_decoder(loaded, sr, n_channels_total, gl_norm, dtype, device, packet_size=32,
+                   **options):
+    """(DecoderConfig, DecoderParams); ``options`` are further DecoderConfig
+    fields (e.g. ``use_cuda_epilogue=False`` for the split front end)."""
     n_used = n_channels_total - len(loaded["bad_channels"])
-    cfg = pipeline.DecoderConfig(sr=float(sr), n_channels=n_used, gl_norm=float(gl_norm),
-                                 dtype=dtype)
+    cfg = pipeline.DecoderConfig(sr=float(sr), n_channels=n_used, packet_size=packet_size,
+                                 gl_norm=float(gl_norm), dtype=dtype, **options)
     dec = pipeline.build_decoder_params(cfg, loaded["lda"], loaded["medians"],
                                         loaded["select"], device=device)
     return cfg, dec
 
 
 def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=None,
-                             rand_init=None, generator=None, vocoder="device"):
+                             rand_init=None, seed=0, vocoder="device", **options):
     """Batch replay (reference decode.py:71-96).
 
     eeg: (T, C) array or tensor including bad channels.  ``device`` defaults
     to the tensor's device (the CPU for an array); ``dtype`` to float64 on
-    the CPU and float32 on CUDA.  Returns (spectrogram, audio) tensors plus
-    the input and its rate."""
+    the CPU and float32 on CUDA.  ``options`` are further DecoderConfig
+    fields.  Returns (spectrogram, audio) tensors plus the input and its
+    rate."""
     if vocoder != "device":
         raise NotImplementedError(f"vocoder={vocoder!r} is not ported yet; use 'device'")
     eeg_t = torch.as_tensor(eeg)
@@ -78,11 +90,66 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
     mask = np.ones(eeg_t.shape[1], bool)
     mask[np.asarray(loaded["bad_channels"], int)] = False
     used = eeg_t if mask.all() else eeg_t[:, torch.as_tensor(mask, device=eeg_t.device)]
-    cfg, dec = _build_decoder(loaded, sfreq, eeg_t.shape[1], gl_norm, dtype, device)
-    spec, audio = pipeline.offline_decode(dec, cfg, used, rand_init=rand_init,
-                                          generator=generator)
+    cfg, dec = _build_decoder(loaded, sfreq, eeg_t.shape[1], gl_norm, dtype, device, **options)
+    spec, audio = pipeline.offline_decode(dec, cfg, used, rand_init=rand_init, seed=seed)
     logger.info("Decoding completed.")
     return spec, audio, eeg, sfreq
+
+
+def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
+                            max_packets=None, backend=None, dtype=None, device=None,
+                            chunk_steps=1, rand_init=None):
+    """Closed loop against a live stream (reference decode.py:99-149).
+
+    ``device`` defaults to the CPU, ``dtype`` to float64 on the CPU and
+    float32 on CUDA.  ``chunk_steps=K`` decodes K buffered packets per call
+    (bit-identical output, (K-1) packet periods more playout latency).
+    ``rand_init``: a (n_blocks, 480) table of Griffin-Lim inits indexed by
+    global block index; by default the block-indexed inits of seed 0.
+    Returns (spectrogram, audio, received sEEG, rate) as numpy arrays."""
+    from ..runtime.streams import StreamInlet
+
+    device = torch.device(device or "cpu")
+    dtype = dtype or pipeline.default_compute_dtype(device)
+    stream_name = config["Decoding"]["stream_name"]
+    inlet = StreamInlet(stream_name, backend=backend)
+    sfreq = int(inlet.nominal_srate)
+    packet_size = 64 if sfreq == 2048 else 32
+    logger.info("Using a sampling rate of %s, packet size %d.", sfreq, packet_size)
+    cfg, dec = _build_decoder(loaded, sfreq, inlet.channels, gl_norm, dtype, device, packet_size)
+    sink = make_sink("auto", wav_path=None, sample_rate=cfg.audio_sr)
+    decoder = online.OnlineDecoder(cfg, dec, bad_channels=loaded["bad_channels"], sink=sink,
+                                   chunk_steps=chunk_steps,
+                                   rand_source=0 if rand_init is None else rand_init)
+
+    stop = stop_event or threading.Event()
+    # marker logging off the hot path, in a daemon thread (the reference
+    # forks a process, decode.py:128-137; the logger is IO-bound)
+    marker_stop = threading.Event()
+    marker_thread = threading.Thread(
+        target=online.read_markers,
+        args=(run_dir, config["Decoding"].get("marker_stream_name", "SingleWordsMarkerStream")),
+        kwargs={"stop_event": marker_stop, "backend": backend},
+        daemon=True,
+    )
+    marker_thread.start()
+    logger.info("Started marker logger thread")
+    try:
+        if stop_event is None and max_packets is None:
+            waiter = threading.Thread(target=lambda: (input("Press Enter to stop decoding...\n"),
+                                                      stop.set()))
+            waiter.daemon = True
+            waiter.start()
+        spectrogram, audio, received = decoder.run_stream(
+            inlet, stop_event=stop, max_packets=max_packets,
+            store_first_timestamp_to=os.path.join(run_dir, "first_timestamp.npy"), backend=backend)
+    finally:
+        marker_stop.set()
+        marker_thread.join(timeout=3)
+        sink.close()
+    decoder.latency_report()
+    logger.info("Decoding completed.")
+    return spectrogram, audio, received, sfreq
 
 
 def store_decoding_to_file(run_dir, config, spectrogram, output_audio, received_sEEG, sfreq):
@@ -108,7 +175,7 @@ def store_decoding_to_file(run_dir, config, spectrogram, output_audio, received_
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser("Decode a recorded sEEG file with a pretrained model.")
+    parser = argparse.ArgumentParser("Decode an sEEG stream or file with a pretrained model.")
     parser.add_argument("config", help="Path to config file.")
     parser.add_argument("--storage_dir")
     parser.add_argument("--stream_name")
@@ -116,25 +183,36 @@ def main(argv=None):
     parser.add_argument("--gl_norm")
     parser.add_argument("--run")
     parser.add_argument("--session")
-    parser.add_argument("--seeg_file", help="Decode from file (the only mode ported).")
+    parser.add_argument("--seeg_file", help="Decode from file instead of the live stream.")
     parser.add_argument("--device", default=None,
                         help="torch device; default cuda when available, else cpu.")
     parser.add_argument("--rand_init", metavar="NPY", default=None,
-                        help="(n_frames-1, 480) Griffin-Lim inits; default: drawn from "
-                             "a torch.Generator seeded 0.")
-    for flag in ("--backend", "--max_packets", "--dispatch-chunk", "--profile"):
-        parser.add_argument(flag, default=None, help="online/profiling: not ported yet")
-    parser.add_argument("--persistent", action="store_true", help="not ported yet")
+                        help="Griffin-Lim inits, one 480-sample row per block (offline: "
+                             "(n_frames-1, 480); online: indexed by global block index); "
+                             "default: block-indexed inits of seed 0.")
+    parser.add_argument("--backend", choices=["lsl", "nsx"], default=None,
+                        help="online: stream transport (default lsl when pylsl imports)")
+    parser.add_argument("--max_packets", type=int, default=None,
+                        help="online: stop after N packets (else Enter stops)")
+    parser.add_argument("--dispatch-chunk", type=int, default=1, metavar="K",
+                        help="online: decode K buffered packets per call; (K-1) packet "
+                             "periods more playout latency")
+    parser.add_argument("--profile", default=None, help="not ported")
+    parser.add_argument("--persistent", action="store_true", help="not ported")
     parser.add_argument("--vocoder", choices=["device", "exact-host"], default="device",
-                        help="'exact-host' is not ported yet")
+                        help="'exact-host' is not ported")
     args = parser.parse_args(argv)
-    for flag in ("backend", "max_packets", "dispatch_chunk", "profile"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet")
+    if args.profile is not None:
+        parser.error("--profile is not ported")
     if args.persistent:
-        parser.error("--persistent (online mode) is not ported yet")
+        parser.error("--persistent (one device dispatch per session) is not ported")
     if args.vocoder != "device":
-        parser.error("--vocoder exact-host is not ported yet")
+        parser.error("--vocoder exact-host is not ported")
+    if args.dispatch_chunk < 1:
+        parser.error("--dispatch-chunk must be >= 1")
+    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda: no CUDA device is available")
 
     config = config_mod.load_config(args.config)
     config_mod.merge_args(config, {
@@ -146,9 +224,6 @@ def main(argv=None):
         ("General", "session"): args.session,
         ("Development", "seeg_file"): args.seeg_file,
     })
-    if not in_offline_mode(config):
-        parser.error("online decoding is not ported yet: give --seeg_file (or "
-                     "Development->seeg_file) to replay a recording")
 
     session_dir = config_mod.session_dir(config)
     if not os.path.isdir(session_dir):
@@ -157,20 +232,25 @@ def main(argv=None):
     config_mod.make_output_dir(run_dir, config.getboolean("Decoding", "overwrite_on_rerun", fallback=True))
     config_mod.setup_logging(os.path.join(run_dir, "decode.log"))
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
     dtype = pipeline.default_compute_dtype(device)
     loaded = params_io.load_params(os.path.join(session_dir, "params.h5"), dtype=dtype)
     logger.info("Ignoring channel indices: [%s]", " ".join(map(str, loaded["bad_channels"])))
     gl_norm = config.getint("Decoding", "griffin_lim_norm")
     rand_init = np.load(args.rand_init) if args.rand_init else None
 
-    import h5py
+    if in_offline_mode(config):
+        import h5py
 
-    with h5py.File(config["Development"]["seeg_file"], "r") as hf:
-        eeg = hf["sEEG"][:]
-        sfreq = int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
-    spectrogram, audio, received, sfreq = perform_offline_decoding(
-        loaded, eeg, sfreq, gl_norm, dtype=dtype, device=device, rand_init=rand_init)
+        with h5py.File(config["Development"]["seeg_file"], "r") as hf:
+            eeg = hf["sEEG"][:]
+            sfreq = int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
+        spectrogram, audio, received, sfreq = perform_offline_decoding(
+            loaded, eeg, sfreq, gl_norm, dtype=dtype, device=device, rand_init=rand_init)
+    else:
+        spectrogram, audio, received, sfreq = perform_online_decoding(
+            config, loaded, gl_norm, run_dir, backend=args.backend,
+            max_packets=args.max_packets, dtype=dtype, device=device,
+            chunk_steps=args.dispatch_chunk, rand_init=rand_init)
     store_decoding_to_file(run_dir, config, spectrogram, audio, received, sfreq)
     return run_dir
 

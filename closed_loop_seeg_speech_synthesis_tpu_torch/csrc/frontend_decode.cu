@@ -1,8 +1,13 @@
-// Fused replay front end: raw sEEG (T, C) -> dequantized, smoothed logMel
-// frames (n_frames, B).  Plain float32 FMA (no TF32, no mma), sm_90a.
-//
-// Replaces: closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py
-//   _make_decode_kernel (entry frontend_decode_mels).
+// Replay front end, two entry points.  Plain float32 FMA (no TF32, no mma),
+// sm_90a.
+//   frontend_decode_mels: raw sEEG (T, C) -> dequantized, smoothed logMel
+//     frames (n_frames, B); launches 1-4 below.
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py
+//     _make_decode_kernel (entry frontend_decode_mels).
+//   frontend_logpower: raw sEEG (T, C) -> log-power features (n_frames, C),
+//     the split front end; launches 1-3 below, the same code.
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py
+//     _frontend_kernel (entry frontend_logpower).
 //
 // What bounds it on an H100: arithmetic.  At 128 channels the filter chain's
 // per-period Toeplitz product (Ls^2/2 FMAs per channel), the state input
@@ -251,7 +256,38 @@ __global__ void epilogue_kernel(const float* __restrict__ F, const float* __rest
   }
 }
 
+// Launches 1-3: F (Kp*P, C) from u (Kp*Ls, C); q and sb are scratch.
+cudaError_t launch_logpower(const float* u, const float* s0, const float* pmatT, const float* aT,
+                            const float* h, const float* cpow, const float* prefix,
+                            const int* starts, float* q, float* sb, float* F, int Kp, int Ls,
+                            int S, int C, int P, int win, int tail, cudaStream_t stream) {
+  cudaError_t err;
+  const size_t q_smem = (size_t)Ls * (QCT + S) * sizeof(float);
+  cudaFuncSetAttribute(period_inputs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
+  period_inputs_kernel<<<dim3(Kp, (C + QCT - 1) / QCT), QCT * QSG, q_smem, stream>>>(
+      u, pmatT, q, Ls, S, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t s_smem = (size_t)(S * S + 2 * S * SCT) * sizeof(float);
+  boundary_scan_kernel<<<(C + SCT - 1) / SCT, S * SCT, s_smem, stream>>>(q, s0, aT, sb, Kp, S, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t f_smem = (size_t)(Ls + 2 * Ls * FCT + (tail + Ls) * FCT + 2 * S * FCT) * sizeof(float);
+  cudaFuncSetAttribute(features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f_smem);
+  features_kernel<<<dim3(Kp, (C + FCT - 1) / FCT), FCT * FRG, f_smem, stream>>>(
+      u, sb, h, cpow, prefix, starts, F, Ls, S, C, P, win, tail);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int frontend_logpower(
+    const float* u, const float* s0, const float* pmatT, const float* aT, const float* h,
+    const float* cpow, const float* prefix, const int* starts, float* q, float* sb, float* F,
+    int Kp, int Ls, int S, int C, int P, int win, int tail, cudaStream_t stream) {
+  return (int)launch_logpower(u, s0, pmatT, aT, h, cpow, prefix, starts, q, sb, F, Kp, Ls, S, C,
+                              P, win, tail, stream);
+}
 
 extern "C" int frontend_decode_mels(
     const float* u, const float* s0, const float* pmatT, const float* aT, const float* h,
@@ -259,25 +295,10 @@ extern "C" int frontend_decode_mels(
     const float* med, const float* smoothM, float* q, float* sb, float* F, float* mel,
     int Kp, int Ls, int S, int C, int P, int win, int tail, int B, int M, int step,
     cudaStream_t stream) {
-  cudaError_t err;
+  cudaError_t err = launch_logpower(u, s0, pmatT, aT, h, cpow, prefix, starts, q, sb, F, Kp, Ls,
+                                    S, C, P, win, tail, stream);
+  if (err != cudaSuccess) return (int)err;
   const int n_rows = Kp * P;
-
-  const size_t q_smem = (size_t)Ls * (QCT + S) * sizeof(float);
-  cudaFuncSetAttribute(period_inputs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
-  period_inputs_kernel<<<dim3(Kp, (C + QCT - 1) / QCT), QCT * QSG, q_smem, stream>>>(
-      u, pmatT, q, Ls, S, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t s_smem = (size_t)(S * S + 2 * S * SCT) * sizeof(float);
-  boundary_scan_kernel<<<(C + SCT - 1) / SCT, S * SCT, s_smem, stream>>>(q, s0, aT, sb, Kp, S, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t f_smem = (size_t)(Ls + 2 * Ls * FCT + (tail + Ls) * FCT + 2 * S * FCT) * sizeof(float);
-  cudaFuncSetAttribute(features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f_smem);
-  features_kernel<<<dim3(Kp, (C + FCT - 1) / FCT), FCT * FRG, f_smem, stream>>>(
-      u, sb, h, cpow, prefix, starts, F, Ls, S, C, P, win, tail);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
   const int depth = (M - 1) * step;
   const size_t e_smem =
       (size_t)(M * ECK * KS * B + (EF + depth) * ECK + EF * B + B * B) * sizeof(float);

@@ -1,8 +1,13 @@
-// Fused vocoder: logMel frames (B+1, n_mel) + block inits (B, 480) -> int16
-// audio (B*160,).  Plain float32 FMA (no TF32, no mma), sm_90a.
-//
-// Replaces: closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py
-//   _gl_audio_kernel (entry gl_audio_pallas).
+// Vocoder, two entry points.  Plain float32 FMA (no TF32, no mma), sm_90a.
+//   gl_audio: logMel frames (B+1, n_mel) + block inits (B, 480) -> int16
+//     audio (B*160,); launches 1-3 below.
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py
+//     _gl_audio_kernel (entry gl_audio_pallas).
+//   gl_blocks: the same inputs -> reconstructed blocks (B, 480) before the
+//     overlap-add; launch 1 alone, with either phase estimator.  The split
+//     vocoder and the online step (B = 4 blocks a packet) call it.
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py
+//     _gl_kernel (entry gl_blocks_pallas).
 //
 // What bounds it on an H100: fp32 arithmetic in the Griffin-Lim loop, and
 // the L2 traffic of its DFT operands.  Each iteration of each 480-sample
@@ -233,7 +238,27 @@ __global__ void __launch_bounds__(HOP) lowpass_kernel(
   out[(size_t)b * HOP + n] = (short)(int)v;  // C conversion truncates toward zero
 }
 
+cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
+                             const float* fm, const float* im, const float* fnyq,
+                             const float* inyq, const float* win, float* G, int B, int NM,
+                             int iterations, int phase_bug, cudaStream_t stream) {
+  const size_t smem = (size_t)(NB * BLK + FFT * NF + FFT * XS + NF * (NBIN + 1) + NF * NM +
+                               FFT + 2 * NF) * sizeof(float);
+  cudaFuncSetAttribute(gl_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  gl_blocks_kernel<<<(B + NB - 1) / NB, FFT, smem, stream>>>(lm, rnd, minv, fm, im, fnyq, inyq,
+                                                             win, G, B, NM, iterations, phase_bug);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int gl_blocks(const float* lm, const float* rnd, const float* minv, const float* fm,
+                         const float* im, const float* fnyq, const float* inyq, const float* win,
+                         float* G, int B, int NM, int iterations, int phase_bug,
+                         cudaStream_t stream) {
+  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM, iterations,
+                               phase_bug, stream);
+}
 
 extern "C" int gl_audio(const float* lm, const float* rnd, const float* minv, const float* fm,
                         const float* im, const float* fnyq, const float* inyq, const float* win,
@@ -241,13 +266,9 @@ extern "C" int gl_audio(const float* lm, const float* rnd, const float* minv, co
                         const float* cpow, const float* h, float* G, float* CH, float* Q,
                         short* out, int B, int NM, int S, int n_pow, int iterations,
                         int phase_bug, float denom, cudaStream_t stream) {
-  cudaError_t err;
-  const size_t smem = (size_t)(NB * BLK + FFT * NF + FFT * XS + NF * (NBIN + 1) + NF * NM +
-                               FFT + 2 * NF) * sizeof(float);
-  cudaFuncSetAttribute(gl_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  gl_blocks_kernel<<<(B + NB - 1) / NB, FFT, smem, stream>>>(lm, rnd, minv, fm, im, fnyq, inyq,
-                                                             win, G, B, NM, iterations, phase_bug);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
+                                     iterations, phase_bug, stream);
+  if (err != cudaSuccess) return (int)err;
   ola_kernel<<<B, HOP, 0, stream>>>(G, winv, pmatT, CH, Q, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   lowpass_kernel<<<B, HOP, 0, stream>>>(CH, Q, apow, cpow, h, out, S, n_pow, denom);

@@ -1,17 +1,19 @@
-"""Kernel K1: raw sEEG -> dequantized, smoothed logMel frames.
+"""Kernels K1 and K3: raw sEEG -> logMel frames, and raw sEEG -> log-power
+features.
 
 Port of ``closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py``
-(``FrontendOps``, ``make_frontend_ops``, ``epilogue_constants`` and the fused
-``frontend_decode_mels``).  The CUDA source is ``csrc/frontend_decode.cu``;
-its header note says how the TPU kernel's sequential grid was split for a
-GPU.  ``frontend_decode_mels_plain`` is the same function in plain torch.
+(``FrontendOps``, ``make_frontend_ops``, ``epilogue_constants``, the fused
+``frontend_decode_mels`` and the split ``frontend_logpower``).  The CUDA
+source of both is ``csrc/frontend_decode.cu``; its header note says how the
+TPU kernels' sequential grid was split for a GPU.  ``frontend_decode_mels_plain``
+and ``frontend_logpower_plain`` are the same functions in plain torch.
 
 Per schedule period (the frame grid repeats every P frames spanning exactly
-Ls samples; Ls is the filter's block length) the fused computation is: the
+Ls samples; Ls is the filter's block length) the computation is: the
 48-state filter chain y = Tmat u + Cpow s, s <- A_L s + Pmat u; log-power
-log(S_win [y_prev; y]^2 + 0.01); the 5-tap context stack folded into 5 LDA
-products; first-max over the 9 class slots; median select; sigma-0.5
-smoothing as a matrix.
+log(S_win [y_prev; y]^2 + 0.01) (where K3 stops); the 5-tap context stack
+folded into 5 LDA products; first-max over the 9 class slots; median select;
+sigma-0.5 smoothing as a matrix.
 """
 
 from __future__ import annotations
@@ -110,16 +112,13 @@ def epilogue_constants(lda_coef_full, intercept, valid, classes, medians, gauss_
     return f32(W5), f32(bm), f32(med_slot), f32(smoothM)
 
 
-def frontend_decode_mels_plain(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
-                               W5: torch.Tensor, bm: torch.Tensor, med_slot: torch.Tensor,
-                               smoothM: torch.Tensor, n_frames: int, model_order: int = 4,
-                               step_size: int = 5) -> torch.Tensor:
-    """Plain torch version of the kernel, in the dtype of ``eeg``."""
+def _logpower_plain(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
+                    n_frames: int) -> torch.Tensor:
+    """Log-power rows of whole periods (ceil(n_frames / P) * P, C), in the
+    dtype of ``eeg``."""
     T, C = eeg.shape
     dt = eeg.dtype
     Ls, P = ops.Ls, ops.P
-    K_slots, B = med_slot.shape
-    depth = model_order * step_size
     Kp = -(-n_frames // P)
     need = Kp * Ls
     u = torch.nn.functional.pad(eeg, (0, 0, 0, max(0, need - T)))[:need].reshape(Kp, Ls, C)
@@ -130,23 +129,102 @@ def frontend_decode_mels_plain(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Te
     y_prev = torch.cat([ops.prefix.to(dt)[None, :, None].expand(1, Ls, C), y[:-1]], dim=0)
     span = torch.cat([y_prev, y], dim=1)                      # (Kp, 2Ls, C)
     F = torch.log(torch.einsum("pt,ktc->kpc", ops.S_win.to(dt), span * span) + 0.01)
-    F = F.reshape(Kp * P, C)
+    return F.reshape(Kp * P, C)
+
+
+def frontend_logpower_plain(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
+                            n_frames: int) -> torch.Tensor:
+    """Plain torch version of kernel K3, in the dtype of ``eeg``."""
+    return _logpower_plain(ops, eeg, s0, n_frames)[:n_frames]
+
+
+def frontend_decode_mels_plain(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
+                               W5: torch.Tensor, bm: torch.Tensor, med_slot: torch.Tensor,
+                               smoothM: torch.Tensor, n_frames: int, model_order: int = 4,
+                               step_size: int = 5) -> torch.Tensor:
+    """Plain torch version of kernel K1, in the dtype of ``eeg``."""
+    C = eeg.shape[1]
+    dt = eeg.dtype
+    K_slots, B = med_slot.shape
+    depth = model_order * step_size
+    F = _logpower_plain(ops, eeg, s0, n_frames)
+    rows = F.shape[0]
     Fp = torch.cat([F.new_zeros((depth, C)), F], dim=0)
     W5 = W5.to(dt)
-    scores = bm.to(dt).expand(Kp * P, -1)
+    scores = bm.to(dt).expand(rows, -1)
     for m in range(model_order + 1):
-        scores = scores + Fp[m * step_size : m * step_size + Kp * P] @ W5[m * C : (m + 1) * C]
-    slot = torch.argmax(scores.reshape(Kp * P, K_slots, B), dim=1)  # first max
-    deq = torch.gather(med_slot.to(dt), 0, slot)                     # (rows, B)
+        scores = scores + Fp[m * step_size : m * step_size + rows] @ W5[m * C : (m + 1) * C]
+    slot = torch.argmax(scores.reshape(rows, K_slots, B), dim=1)  # first max
+    deq = torch.gather(med_slot.to(dt), 0, slot)                  # (rows, B)
     return (deq @ smoothM.to(dt))[:n_frames]
+
+
+def _check_inputs(what: str, dev: torch.device, ops: FrontendOps, tensors: dict) -> None:
+    """Raise unless every tensor is contiguous float32 of its shape on ``dev``
+    and the kernel's limits hold."""
+    if ops.A_L.shape[0] > 64:
+        raise ValueError(f"{what} kernel takes <= 64 filter states; got {ops.A_L.shape[0]}")
+    for name, (t, shape) in tensors.items():
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous float32 tensor of shape "
+                             f"{shape} on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if ops.Tmat.device != dev:
+        raise ValueError(f"{what}: constants on {ops.Tmat.device}, data on {dev}")
+
+
+def _launch_args(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor, Kp: int):
+    """Pointers and sizes shared by both entry points, through the features
+    F (Kp*P, C), and F itself."""
+    T, C = eeg.shape
+    Ls, P, S = ops.Ls, ops.P, ops.A_L.shape[0]
+    dev = eeg.device
+    need = Kp * Ls
+    u = eeg[:need] if T >= need else torch.nn.functional.pad(eeg, (0, 0, 0, need - T))
+    u = u.contiguous()
+    q = torch.empty((Kp, S, C), dtype=torch.float32, device=dev)
+    sb = torch.empty_like(q)
+    F = torch.empty((Kp * P, C), dtype=torch.float32, device=dev)
+    h = ops.Tmat[:, 0].contiguous()           # Tmat[t, j] = h[t - j]
+    ptrs = (u, s0, ops.Pmat.T.contiguous(), ops.A_L.T.contiguous(), h, ops.Cpow.contiguous(),
+            ops.prefix, ops.starts)
+    return ptrs, (q, sb, F), (Kp, Ls, S, C, P, ops.win, ops.tail), F
+
+
+def frontend_logpower(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
+                      n_frames: int) -> torch.Tensor:
+    """Kernel K3: raw eeg (T, C) + initial filter state s0 (S, C) -> log-power
+    feature rows (n_frames, C).  A CPU tensor runs the plain version; a CUDA
+    tensor launches ``csrc/frontend_decode.cu`` (float32) or raises."""
+    if eeg.device.type == "cpu":
+        return frontend_logpower_plain(ops, eeg, s0, n_frames)
+    dev = eeg.device
+    if dev.type != "cuda":
+        raise ValueError(f"frontend_logpower: unsupported device {dev}")
+    T, C = eeg.shape
+    S = ops.A_L.shape[0]
+    _check_inputs("frontend_logpower", dev, ops, {"eeg": (eeg, (T, C)), "s0": (s0, (S, C))})
+    Kp = -(-n_frames // ops.P)
+    if Kp == 0:
+        return eeg.new_empty((0, C))
+    ptrs, scratch, sizes, F = _launch_args(ops, eeg, s0, Kp)
+    fn = _build.bind(_build.load("frontend_decode"), "frontend_logpower", 11, 7)
+    err = fn(*(a.data_ptr() for a in ptrs + scratch), *sizes,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "frontend_logpower")
+    frontend_logpower.launches += 1
+    return F[:n_frames]
+
+
+frontend_logpower.launches = 0
 
 
 def frontend_decode_mels(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
                          W5: torch.Tensor, bm: torch.Tensor, med_slot: torch.Tensor,
                          smoothM: torch.Tensor, n_frames: int, model_order: int = 4,
                          step_size: int = 5) -> torch.Tensor:
-    """Raw eeg (T, C) + initial filter state s0 (S, C) -> logMel frames
-    (n_frames, B).  A CPU tensor runs the plain version; a CUDA tensor
+    """Kernel K1: raw eeg (T, C) + initial filter state s0 (S, C) -> logMel
+    frames (n_frames, B).  A CPU tensor runs the plain version; a CUDA tensor
     launches ``csrc/frontend_decode.cu`` (float32) or raises."""
     if eeg.device.type == "cpu":
         return frontend_decode_mels_plain(ops, eeg, s0, W5, bm, med_slot, smoothM,
@@ -155,42 +233,24 @@ def frontend_decode_mels(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"frontend_decode_mels: unsupported device {dev}")
     T, C = eeg.shape
-    Ls, P = ops.Ls, ops.P
     S = ops.A_L.shape[0]
     K_slots, B = med_slot.shape
     M = model_order + 1
-    if K_slots != 9 or not 1 <= B <= 128 or S > 64:
-        raise ValueError(f"frontend_decode_mels kernel takes 9 class slots, <= 128 mel "
-                         f"bins and <= 64 filter states; got {K_slots}, {B}, {S}")
-    expect = {"eeg": (eeg, (T, C)), "s0": (s0, (S, C)), "W5": (W5, (M * C, K_slots * B)),
-              "bm": (bm, (1, K_slots * B)), "med_slot": (med_slot, (K_slots, B)),
-              "smoothM": (smoothM, (B, B))}
-    for name, (t, shape) in expect.items():
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"frontend_decode_mels: {name} must be a contiguous float32 "
-                             f"tensor of shape {shape} on {dev}; got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if ops.Tmat.device != dev:
-        raise ValueError(f"frontend_decode_mels: constants on {ops.Tmat.device}, data on {dev}")
-    Kp = -(-n_frames // P)
+    if K_slots != 9 or not 1 <= B <= 128:
+        raise ValueError(f"frontend_decode_mels kernel takes 9 class slots and <= 128 mel "
+                         f"bins; got {K_slots}, {B}")
+    _check_inputs("frontend_decode_mels", dev, ops,
+                  {"eeg": (eeg, (T, C)), "s0": (s0, (S, C)), "W5": (W5, (M * C, K_slots * B)),
+                   "bm": (bm, (1, K_slots * B)), "med_slot": (med_slot, (K_slots, B)),
+                   "smoothM": (smoothM, (B, B))})
+    Kp = -(-n_frames // ops.P)
     if Kp == 0:
         return eeg.new_empty((0, B))
-    need = Kp * Ls
-    u = eeg[:need] if T >= need else torch.nn.functional.pad(eeg, (0, 0, 0, need - T))
-    u = u.contiguous()
-    q = torch.empty((Kp, S, C), dtype=torch.float32, device=dev)
-    sb = torch.empty_like(q)
-    F = torch.empty((Kp * P, C), dtype=torch.float32, device=dev)
-    mel = torch.empty((Kp * P, B), dtype=torch.float32, device=dev)
-    h = ops.Tmat[:, 0].contiguous()           # Tmat[t, j] = h[t - j]
-    pmatT = ops.Pmat.T.contiguous()
-    aT = ops.A_L.T.contiguous()
+    ptrs, scratch, sizes, _ = _launch_args(ops, eeg, s0, Kp)
+    mel = torch.empty((Kp * ops.P, B), dtype=torch.float32, device=dev)
     fn = _build.bind(_build.load("frontend_decode"), "frontend_decode_mels", 16, 10)
-    args = (u, s0, pmatT, aT, h, ops.Cpow.contiguous(), ops.prefix, ops.starts, W5, bm,
-            med_slot, smoothM, q, sb, F, mel)
-    err = fn(*(a.data_ptr() for a in args), Kp, Ls, S, C, P, ops.win, ops.tail, B, M, step_size,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*(a.data_ptr() for a in ptrs + (W5, bm, med_slot, smoothM) + scratch + (mel,)),
+             *sizes, B, M, step_size, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "frontend_decode_mels")
     frontend_decode_mels.launches += 1
     return mel[:n_frames]

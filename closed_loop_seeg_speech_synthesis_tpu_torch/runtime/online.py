@@ -1,0 +1,300 @@
+"""Online closed-loop decoding: the host event loop around the step.
+
+Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/online.py``
+(``PacketRebuffer``, ``_pump_stream``, ``OnlineDecoder``, ``read_markers``).
+A stream inlet is re-blocked into fixed ``packet_size`` packets; each packet
+is moved to the decoder's device once and decoded by one call of
+``pipeline.make_online_step``; decoded spectrogram frames and int16 audio
+chunks come back to the host, and the audio goes to the sink through the
+bounded-drop queue.  Per-packet latency is traced for the closed loop's
+p99 < 10 ms budget.  The JAX package's ``PersistentOnlineDecoder`` (one
+device dispatch for the whole session) is not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+
+import numpy as np
+import torch
+
+from . import pipeline
+from .audio import BufferSink
+from .streams import StreamInlet
+from .tracing import StageTracer
+
+logger = logging.getLogger("runtime.online")
+
+
+class PacketRebuffer:
+    """Accumulates arbitrary inlet chunks into exact packet_size packets
+    (the amplifier nominally sends whole packets; LSL may split/merge)."""
+
+    def __init__(self, packet_size: int, n_channels: int):
+        self.packet_size = packet_size
+        # preallocated: no per-chunk np.concatenate on the 10 ms hot path
+        self._buf = np.zeros((max(8 * packet_size, 1024), n_channels), np.float32)
+        self._n = 0
+
+    def push(self, chunk: np.ndarray):
+        chunk = np.asarray(chunk, np.float32)
+        if chunk.size:
+            need = self._n + len(chunk)
+            if need > len(self._buf):  # oversized burst: grow once, stays rare
+                grown = np.zeros((max(2 * len(self._buf), need), self._buf.shape[1]),
+                                 np.float32)
+                grown[: self._n] = self._buf[: self._n]
+                self._buf = grown
+            self._buf[self._n : need] = chunk
+            self._n = need
+        out = []
+        ps = self.packet_size
+        k = 0
+        while self._n - k >= ps:
+            out.append(self._buf[k : k + ps].copy())
+            k += ps
+        if k:
+            rem = self._n - k
+            if rem:
+                self._buf[:rem] = self._buf[k : self._n]
+            self._n = rem
+        return out
+
+
+def _pump_stream(inlet: StreamInlet, rebuf: PacketRebuffer, packet_size: int,
+                 on_packet, stop_event, max_packets, store_first_timestamp_to,
+                 idle_timeout: float) -> int:
+    """Shared inlet loop of both online decoders: pull chunks, re-block into
+    packets, invoke ``on_packet`` per packet.  The ``max_packets`` cutoff is
+    chunk-granular (the whole rebuffered chunk is processed before checking)
+    so both dispatch modes decode identical packet sets from the same stream.
+    Returns the packet count."""
+    first_ts = None
+    idle = 0.0
+    n = 0
+    while not (stop_event and stop_event.is_set()):
+        try:
+            chunk, ts = inlet.pull_chunk(max_samples=max(packet_size, 64), timeout=0.25)
+        except ConnectionError:
+            # stream producer went away (amplifier restart): stop cleanly
+            # with everything decoded so far (lsl_socket.py:44-49 policy)
+            logger.warning("stream closed; stopping decode with %d packets", n)
+            break
+        if chunk.shape[0] == 0:
+            idle += 0.25
+            if max_packets is not None and idle > idle_timeout:
+                break
+            continue
+        idle = 0.0
+        if first_ts is None and ts:
+            first_ts = ts
+            if store_first_timestamp_to:
+                np.save(store_first_timestamp_to, np.asarray(first_ts))
+        for packet in rebuf.push(chunk):
+            on_packet(packet)
+            n += 1
+        if max_packets is not None and n >= max_packets:
+            break
+    return n
+
+
+class OnlineDecoder:
+    """Per-packet decoding on the params' device.
+
+    Each packet is moved to the device once and decoded by one call of the
+    step (``pipeline.make_online_step``); its outputs are read back to the
+    host, and the audio goes to the sink.
+
+    ``pipelined=True`` emits each packet's outputs when the NEXT packet
+    arrives, so the device computes while the host waits for the amplifier;
+    it costs one packet period of playout latency.
+
+    ``chunk_steps=K`` (K > 1) buffers K packets and decodes them with one
+    call of ``pipeline.make_online_multi_step`` (K steps of the same step
+    function, so the output is bit-identical to K = 1) and one read-back; it
+    costs (K-1) packet periods of playout latency.  Composes with
+    ``pipelined``.  The stream tail (< K packets at stop) drains through the
+    single step.
+
+    ``rand_source`` is the step's: an int seed or a table of block inits
+    indexed by global block index.  A table must cover every block the
+    stream emits: the decoder raises before it would emit audio of a block
+    past the table's end."""
+
+    def __init__(self, cfg: pipeline.DecoderConfig, dec_params, bad_channels=(),
+                 rand_source=0, sink=None, tracer=None, pipelined: bool = False,
+                 chunk_steps: int = 1):
+        self.cfg = cfg
+        self.params = dec_params
+        self.device = dec_params.device
+        self.bad_channels = np.asarray(bad_channels, int)
+        self.sink = sink or BufferSink()
+        self.tracer = tracer or StageTracer(enabled=True)
+        self.step = pipeline.make_online_step(dec_params, cfg, rand_source)
+        self.n_rand_rows = None if isinstance(rand_source, int) else len(rand_source)
+        self.carry = pipeline.init_online_carry(dec_params, cfg)
+        self.pipelined = pipelined
+        self.chunk_steps = int(chunk_steps)
+        if self.chunk_steps < 1:
+            raise ValueError("chunk_steps must be >= 1")
+        self.multi_step = (pipeline.make_online_multi_step(dec_params, cfg, step=self.step)
+                           if self.chunk_steps > 1 else None)
+        self._chunk_buf = []   # packets awaiting a full K-chunk dispatch
+        self._pending = None   # outputs of the last step, not yet read back
+        self.spec_frames = []
+        self.audio_chunks = []
+        self.received = []
+        self._warm = False
+
+    def _select(self, packet: np.ndarray) -> np.ndarray:
+        if len(self.bad_channels):
+            return np.delete(packet, self.bad_channels, axis=1)
+        return packet
+
+    def _to_device(self, packets) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(packets)).to(device=self.device, dtype=self.cfg.dtype)
+
+    def warmup(self):
+        """Run the step (and the K-step) once on zeros outside the realtime
+        path, then reset the carry: warmup must not advance state."""
+        P, C = self.cfg.packet_size, self.cfg.n_channels
+        self.step(self.carry, torch.zeros((P, C), dtype=self.cfg.dtype, device=self.device))
+        if self.multi_step is not None:
+            self.multi_step(self.carry, torch.zeros((self.chunk_steps, P, C),
+                                                    dtype=self.cfg.dtype, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.carry = pipeline.init_online_carry(self.params, self.cfg)
+        self._warm = True
+
+    def reset(self):
+        """Reset all streaming state: the equivalent of the reference's
+        cross-process ``FrameBuffer.reset_buffer()`` flag for feeder restarts
+        (FrameBuffer.py:52-57)."""
+        self.carry = pipeline.init_online_carry(self.params, self.cfg)
+        self._pending = None
+        self._chunk_buf = []
+        self.spec_frames, self.audio_chunks, self.received = [], [], []
+
+    def _emit(self, out):
+        """Read step outputs (single or K-stacked) back to the host and hand
+        the audio to the sink.  Leading axes beyond the slot axis are
+        flattened: steps are in order and slots are in order within a step,
+        so the valid rows in sequence are the decoded stream.  The copies to
+        the host wait for the device."""
+        spec = out["spec"].cpu().numpy()
+        sv = out["spec_valid"].cpu().numpy().reshape(-1)
+        spec = spec.reshape(-1, spec.shape[-1])
+        audio = out["audio"].cpu().numpy()
+        av = out["audio_valid"].cpu().numpy().reshape(-1)
+        audio = audio.reshape(-1, audio.shape[-1])
+        self.tracer.mark("step_done")
+        n_blocks = len(self.audio_chunks) + int(av.sum())
+        if self.n_rand_rows is not None and n_blocks > self.n_rand_rows:
+            raise ValueError(f"the Griffin-Lim init table has {self.n_rand_rows} rows; "
+                             f"the stream has reached block {n_blocks - 1}")
+        for i in np.nonzero(sv)[0]:
+            self.spec_frames.append(spec[i])
+        for i in np.nonzero(av)[0]:
+            self.audio_chunks.append(audio[i])
+            self.sink.write(audio[i])
+        self.tracer.mark("audio_out")
+
+    def _dispatch(self, out):
+        if self.pipelined:
+            # emit the PREVIOUS outputs, computed while this packet arrived;
+            # leave these on the device
+            prev, self._pending = self._pending, out
+            if prev is not None:
+                self._emit(prev)
+        else:
+            self._emit(out)
+
+    def process_packet(self, packet: np.ndarray):
+        """One fixed-size raw packet (packet_size, all_channels) -> outputs."""
+        if not self._warm:
+            self.warmup()
+        self.received.append(packet)
+        sel = self._select(packet)
+        if self.multi_step is not None:
+            self._chunk_buf.append(sel)
+            if len(self._chunk_buf) < self.chunk_steps:
+                return
+            pkts = np.stack(self._chunk_buf)
+            self._chunk_buf = []
+            self.tracer.mark("packet_in")
+            self.carry, out = self.multi_step(self.carry, self._to_device(pkts))
+            self._dispatch(out)
+            return
+        self.tracer.mark("packet_in")
+        self.carry, out = self.step(self.carry, self._to_device(sel))
+        self._dispatch(out)
+
+    def flush(self):
+        """Drain the pipelined/chunked tail (call at stream end)."""
+        if self._pending is not None:
+            out, self._pending = self._pending, None
+            self._emit(out)
+        # tail packets short of a full K-chunk: single steps
+        for sel in self._chunk_buf:
+            self.carry, out = self.step(self.carry, self._to_device(sel))
+            self._emit(out)
+        self._chunk_buf = []
+
+    def run_stream(self, stream, stop_event: threading.Event | None = None,
+                   max_packets: int | None = None, store_first_timestamp_to: str | None = None,
+                   backend=None, idle_timeout: float = 30.0):
+        """Pull from a live stream until stopped (decode.py:99-149).
+
+        ``stream``: a StreamInlet or a stream name to resolve."""
+        inlet = StreamInlet(stream, backend=backend) if isinstance(stream, str) else stream
+        rebuf = PacketRebuffer(self.cfg.packet_size, inlet.channels)
+        self.warmup()
+        _pump_stream(inlet, rebuf, self.cfg.packet_size, self.process_packet,
+                     stop_event, max_packets, store_first_timestamp_to, idle_timeout)
+        return self.results()
+
+    def results(self):
+        self.flush()
+        spectrogram = np.asarray(self.spec_frames) if self.spec_frames else np.zeros((0, self.cfg.n_mel))
+        audio = np.concatenate(self.audio_chunks) if self.audio_chunks else np.zeros(0, np.int16)
+        received = np.vstack(self.received) if self.received else np.zeros((0, 0))
+        return spectrogram, audio, received
+
+    def latency_report(self):
+        p = self.tracer.percentiles("packet_in", "step_done")
+        logger.info("per-packet latency: p50=%.3fms p95=%.3fms p99=%.3fms",
+                    p[50] * 1e3, p[95] * 1e3, p[99] * 1e3)
+        return p
+
+
+def read_markers(run_dir: str, stream_name: str = "SingleWordsMarkerStream",
+                 stop_event=None, backend=None, timeout: float = 10.0):
+    """Marker logger (twin of local/marker.py): appends
+    ``walltime,stream_timestamp,label`` rows to markers.csv, flushing each
+    sample; run in a side process/thread to stay off the decode hot path
+    (decode.py:128-137)."""
+    import datetime
+    import os
+
+    try:
+        inlet = StreamInlet(stream_name, timeout=timeout, backend=backend)
+    except TimeoutError:
+        logger.warning("marker stream %r not found; marker logging disabled", stream_name)
+        return
+    path = os.path.join(run_dir, "markers.csv")
+    # truncate like the reference (local/marker.py opens "w"): reruns into the
+    # same run_dir must not mix stale markers into DecodingRun trial starts
+    with open(path, "w") as f:
+        while not (stop_event and stop_event.is_set()):
+            try:
+                label, ts = inlet.pull_string(timeout=0.25)
+            except ConnectionError:
+                logger.info("marker stream closed; marker logging done")
+                break
+            if label is None:
+                continue
+            wall = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S.%f")
+            f.write(f"{wall},{ts},{label}\n")
+            f.flush()

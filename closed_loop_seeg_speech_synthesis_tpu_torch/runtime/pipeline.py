@@ -1,20 +1,30 @@
-"""The decoder's offline replay path (torch).
+"""The decoder: offline replay and the online closed-loop step (torch).
 
-Port of the offline half of ``closed_loop_seeg_speech_synthesis_tpu/runtime/pipeline.py``:
+Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/pipeline.py``:
 ``DecoderConfig``, ``DecoderParams``, ``build_decoder_params``,
-``_exact_smooth_fields``, ``_streaming_filter_chain``, ``_frames_to_mel`` and
-``offline_decode``.  The reference's streaming output is chunk-size
-invariant (filters carry state, frames sit on an absolute-time grid), so a
-recorded session decodes as one batch: warm-started filter chain ->
-windowed log-power -> context stack -> LDA -> dequantization + smoothing ->
-Griffin-Lim -> overlap-add -> low-pass -> int16.
+``_exact_smooth_fields``, ``_streaming_filter_chain``, ``_frames_to_mel``,
+``offline_decode``, ``OnlineCarry``, ``init_online_carry``,
+``make_online_step`` and ``make_online_multi_step``.
 
-Kernel selection follows the JAX package (pipeline.py:325-374), with "the
-tensors lie on a CUDA device" in place of "the backend is a TPU": in
-float32 on CUDA the front end runs kernel K1 (``ops.cuda_frontend``) and the
-vocoder kernel K2 (``ops.cuda_gl``); otherwise the plain torch stages run.
-The split variants of the JAX package (``use_pallas_epilogue=False``,
-``use_pallas_gl_tail=False``) are not ported yet.
+* ``offline_decode`` decodes a recorded session as one batch.  The
+  reference's streaming output is chunk-size invariant (filters carry state,
+  frames sit on an absolute-time grid): warm-started filter chain ->
+  windowed log-power -> context stack -> LDA -> dequantization + smoothing ->
+  Griffin-Lim -> overlap-add -> low-pass -> int16.
+* ``make_online_step`` returns ``step(carry, packet)``, one amplifier packet
+  (32 samples at 1024 Hz, 64 at 2048 Hz) of the closed loop; the carry holds
+  every piece of streaming state.  Given the same Griffin-Lim inits it
+  decodes a session to the offline decode's output.
+
+Kernel selection follows the JAX package (pipeline.py:325-388), with "the
+tensors lie on a CUDA device" in place of "the backend is a TPU": in float32
+on CUDA the offline front end runs kernel K1 (``cuda_frontend.frontend_decode_mels``)
+or, with ``use_cuda_epilogue=False``, kernel K3 (``cuda_frontend.frontend_logpower``)
+followed by the plain context stack and LDA; the offline vocoder runs K2
+(``cuda_gl.gl_audio``) or, with ``use_cuda_gl_tail=False``, K4
+(``cuda_gl.gl_blocks``) followed by the plain overlap-add, low-pass and int16.
+The online step's Griffin-Lim phase runs K4 the same way.  Everything else,
+and every stage on the CPU, is plain torch.
 """
 
 from __future__ import annotations
@@ -30,13 +40,19 @@ from ..ops import filter_design as fd
 from ..ops import framing, iir, smoothing
 from ..ops import griffinlim as gl
 from ..ops.cuda_frontend import (FrontendOps, epilogue_constants, frontend_decode_mels,
-                                 make_frontend_ops)
-from ..ops.cuda_gl import GLAudioOps, gl_audio, make_gl_audio_ops
+                                 frontend_logpower, make_frontend_ops)
+from ..ops.cuda_gl import GLAudioOps, gl_audio, gl_blocks, gl_blocks_plain, make_gl_audio_ops
 
 
 def default_compute_dtype(device) -> torch.dtype:
     """float64 on the CPU (the golden numerics), float32 on CUDA (the kernels)."""
     return torch.float64 if torch.device(device).type == "cpu" else torch.float32
+
+
+def max_frames_per_packet(packet_size: int, shift_table: np.ndarray) -> int:
+    """Worst-case frames emitted per packet: floor((P-1)/min_shift) + 1
+    (4 for 32 @ 1024 Hz and 64 @ 2048 Hz)."""
+    return int((packet_size - 1) // int(np.min(shift_table))) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +61,7 @@ class DecoderConfig:
 
     sr: float                       # sEEG sampling rate (1024 / 2048)
     n_channels: int                 # channels after bad-channel exclusion
+    packet_size: int = 32           # amplifier chunk (decode.py:115-116)
     line_noise: int = 50
     frame_len_ms: float = 50.0
     frame_shift_ms: float = 10.0
@@ -57,8 +74,10 @@ class DecoderConfig:
     audio_sr: int = 16000
     iir_block: int = 256
     dtype: Any = torch.float32
-    use_cuda_frontend: bool = True  # kernel K1 for float32 CUDA decodes
-    use_cuda_gl: bool = True        # kernel K2 for float32 CUDA decodes
+    use_cuda_frontend: bool = True  # kernels K1/K3 for float32 CUDA decodes
+    use_cuda_epilogue: bool = True  # K1 (fused epilogue) rather than K3 + plain LDA
+    use_cuda_gl: bool = True        # kernels K2/K4 for float32 CUDA decodes
+    use_cuda_gl_tail: bool = True   # K2 (fused tail) rather than K4 + plain tail
 
     @property
     def win(self) -> int:
@@ -78,6 +97,7 @@ class DecoderParams:
     """Device-resident decoder parameters (everything trained or designed)."""
 
     filt_op: iir.BlockedIIR           # combined high-gamma chain (one pass)
+    filt_op_pkt: iir.BlockedIIR       # same system at packet block length (online)
     filt_zi_scale: torch.Tensor       # (S,) x0-proportional init part
     filt_s_const: torch.Tensor        # (S,) warm-start constant init part
     zf_prefix: torch.Tensor           # (prefill,) zero-fill output prefix
@@ -88,7 +108,8 @@ class DecoderParams:
     medians: torch.Tensor             # (n_mel, n_intervals)
     gauss_kernel: torch.Tensor        # (5,)
     gl_ops: gl.StreamingGLOps
-    gl_audio_ops: GLAudioOps          # K2 constants (low-pass at block 160)
+    gl_audio_ops: GLAudioOps          # K2/K4 constants; its low-pass at block 160
+                                      # is also the online step's
     lowpass_op_batch: iir.BlockedIIR  # output low-pass at block 4096 (plain path)
     shift_table: torch.Tensor         # (period,) int32 frame shifts
     frontend_ops: Optional[FrontendOps]
@@ -123,6 +144,7 @@ def build_decoder_params(cfg: DecoderConfig, lda_params: lda_mod.LDAParams,
     coef_full[:, :, sel] = coef
     return DecoderParams(
         filt_op=filt_op,
+        filt_op_pkt=iir.make_blocked_iir(combined, cfg.packet_size, dt, device),
         filt_zi_scale=to(warm.zi_scale),
         filt_s_const=to(warm.s_const),
         zf_prefix=to(warm.zf_prefix),
@@ -183,15 +205,15 @@ def _frames_to_mel(params: DecoderParams, stacked: torch.Tensor) -> torch.Tensor
     return smoothing.gaussian_smooth(deq, params.gauss_kernel)
 
 
-def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg,
-                   rand_init=None, generator: Optional[torch.Generator] = None):
+def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg, rand_init=None,
+                   seed: int = 0):
     """Decode a full recorded session.
 
     eeg: (T, n_channels) raw sEEG (bad channels already excluded), array or
-    tensor.  rand_init: (N-1, 480) Griffin-Lim inits, drawn from ``generator``
-    when None.  Returns (spectrogram (N, n_mel), audio int16 ((N-1)*160,)) as
-    tensors on the params' device.  The reference's file-replay decode
-    (decode.py:71-96).
+    tensor.  rand_init: (N-1, 480) Griffin-Lim inits, ``gl.default_rand_init``
+    of ``seed`` when None.  Returns (spectrogram (N, n_mel), audio int16
+    ((N-1)*160,)) as tensors on the params' device.  The reference's
+    file-replay decode (decode.py:71-96).
     """
     dev, dt = params.device, cfg.dtype
     x = torch.as_tensor(eeg).to(device=dev, dtype=dt)
@@ -199,13 +221,14 @@ def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg,
     ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr, T + cfg.prefill)
     n_frames = len(ends)
     if rand_init is None:
-        rand_init = gl.default_rand_init(n_frames - 1, generator, dt, dev)
+        rand_init = gl.default_rand_init(n_frames - 1, 0, seed, dt, dev)
     rand_init = torch.as_tensor(rand_init).to(device=dev, dtype=dt)
     pw = framing.periodic_window_matrix(ends, cfg.win)
     on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
 
-    if (cfg.use_cuda_frontend and on_cuda_f32 and params.frontend_ops is not None
-            and pw is not None):
+    use_k1 = (cfg.use_cuda_frontend and on_cuda_f32 and params.frontend_ops is not None
+              and pw is not None)
+    if use_k1 and cfg.use_cuda_epilogue:
         # K1: eeg -> mel frames (filter chain, log-power, context stack, LDA,
         # dequantization, smoothing)
         consts = epilogue_constants(params.lda_coef_full, params.lda.intercept,
@@ -215,24 +238,218 @@ def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg,
                                           _initial_state(params, x).contiguous(), *consts,
                                           n_frames, cfg.model_order, cfg.step_size)
     else:
-        s_cat, _ = _streaming_filter_chain(params, cfg, x)
-        if pw is not None:
+        if use_k1:
+            # K3: eeg -> log-power features (filter chain, log-power)
+            F = frontend_logpower(params.frontend_ops, x.contiguous(),
+                                  _initial_state(params, x).contiguous(), n_frames)
+        elif pw is not None:
+            s_cat, _ = _streaming_filter_chain(params, cfg, x)
             S, Ls, P, origin = pw
             F = framing.windowed_logpower_periodic(s_cat, torch.as_tensor(S, dtype=dt, device=dev),
                                                    Ls, n_frames, origin)
         else:
+            s_cat, _ = _streaming_filter_chain(params, cfg, x)
             F = framing.windowed_logpower(s_cat, torch.as_tensor(ends, device=dev), cfg.win)
         stacked = framing.stack_context(F, cfg.model_order, cfg.step_size, zero_pad=True)
         mel_frames = _frames_to_mel(params, stacked)
 
-    if cfg.use_cuda_gl and on_cuda_f32:
+    use_k2 = cfg.use_cuda_gl and on_cuda_f32
+    if use_k2 and cfg.use_cuda_gl_tail:
         # K2: GL iterations + overlap-add + low-pass + int16
         audio = gl_audio(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
                          float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug)
         return mel_frames, audio
-    re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
-                                cfg.gl_iterations, cfg.phase_bug)
+    if use_k2:
+        # K4: GL iterations only; the tail below is plain
+        re = gl_blocks(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
+                       cfg.gl_iterations, cfg.phase_bug)
+    else:
+        re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
+                                    cfg.gl_iterations, cfg.phase_bug)
     raw = gl.overlap_add_stream(re, params.gl_ops)
     lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
                             raw.new_zeros((params.lowpass_op_batch.dim, 1)))
     return mel_frames, gl.to_int16(lp[:, 0], cfg.gl_norm)
+
+
+# ---------------------------------------------------------------------------
+# Online step: the closed-loop path
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class OnlineCarry:
+    """All streaming state of the decoder.  A step returns a new carry and
+    never writes into the tensors of the one it was given."""
+
+    filt_state: torch.Tensor      # (S, C) combined chain state
+    started: torch.Tensor         # bool: the first packet applies the closed-form init
+    hist: torch.Tensor            # (win, C) last framed-signal samples
+    sample_count: torch.Tensor    # int64, includes the prefill
+    frame_k: torch.Tensor         # int64 frames emitted so far
+    next_e: torch.Tensor          # int64 next frame end position
+    stack_ring: torch.Tensor      # (stack_len, C) feature history, chronological
+    prev_mel: torch.Tensor        # (n_mel,) last emitted mel frame
+    ola_acc: torch.Tensor         # (2, 160) pending overlap-add contributions
+    ola_wacc: torch.Tensor        # (2, 160) their window sums
+    lowpass_state: torch.Tensor   # (S_lp, 1)
+
+
+def init_online_carry(params: DecoderParams, cfg: DecoderConfig) -> OnlineCarry:
+    """The carry before the first packet (pipeline.py:453-475)."""
+    dt, dev = cfg.dtype, params.device
+    C, win = cfg.n_channels, cfg.win
+    stack_len = cfg.model_order * cfg.step_size + 1
+    # the last filter's prefill zero-response is the initial history (the
+    # frame buffer's zero-fill, FrameBuffer.py:94-98); the x0-dependent part
+    # of the chain state is applied on the first packet
+    hist = torch.zeros((win, C), dtype=dt, device=dev)
+    hist[win - cfg.prefill :] = params.zf_prefix[:, None]
+    long = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+    return OnlineCarry(
+        filt_state=torch.zeros((params.filt_op_pkt.dim, C), dtype=dt, device=dev),
+        started=torch.tensor(False, device=dev),
+        hist=hist,
+        sample_count=long(cfg.prefill),
+        frame_k=long(0),
+        next_e=long(win),
+        stack_ring=torch.zeros((stack_len, C), dtype=dt, device=dev),
+        prev_mel=torch.zeros((cfg.n_mel,), dtype=dt, device=dev),
+        ola_acc=torch.zeros((2, gl.HOP), dtype=dt, device=dev),
+        ola_wacc=torch.zeros((2, gl.HOP), dtype=dt, device=dev),
+        lowpass_state=torch.zeros((params.gl_audio_ops.lp.dim, 1), dtype=dt, device=dev),
+    )
+
+
+def make_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0):
+    """Returns ``step(carry, packet) -> (carry, outputs)`` (pipeline.py:478-583).
+
+    packet: (packet_size, n_channels) raw sEEG chunk, a tensor on the params'
+    device.  outputs: 'spec' (n_slots, n_mel), 'spec_valid' (n_slots,),
+    'audio' (n_slots, 160) int16, 'audio_valid' (n_slots,), n_slots =
+    ``max_frames_per_packet``; rows whose valid flag is False are filler.
+
+    rand_source: an int seed, whose block inits are ``gl.block_rand`` of the
+    global block index (so the default online and offline decodes agree), or
+    an (n_blocks, 480) table indexed by global block index.  The step reads
+    no device value to check the table's length: blocks past its end reuse
+    its last row (``online.OnlineDecoder`` raises before it emits one).
+
+    Shapes are static, valid masks select with ``torch.where``, and nothing
+    in the step reads a device value on the host.
+    """
+    dt, dev = cfg.dtype, params.device
+    win, P = cfg.win, cfg.packet_size
+    table = params.shift_table.to(torch.int64)
+    period = int(table.shape[0])
+    if period == 0:
+        raise ValueError("decoder params carry an empty shift table; rebuild them with "
+                         "build_decoder_params (the exact grid is periodic at every rate)")
+    n_slots = max_frames_per_packet(P, table.cpu().numpy())
+    stack_len = cfg.model_order * cfg.step_size + 1
+    slots = torch.arange(n_slots, device=dev)
+    taps = torch.arange(0, stack_len, cfg.step_size, device=dev)
+    offs = torch.arange(win, device=dev)
+    w_ola = params.gl_ops.ola_window
+    w_ola0, w_ola1, w_ola2 = w_ola[: gl.HOP], w_ola[gl.HOP : 2 * gl.HOP], w_ola[2 * gl.HOP :]
+    lp = params.gl_audio_ops.lp
+    if isinstance(rand_source, int):
+        rand_rows = lambda ids: gl.block_rand(ids, rand_source, dt)
+    else:
+        if not torch.is_tensor(rand_source):
+            rand_source = torch.from_numpy(np.array(rand_source))
+        rand_table = rand_source.to(device=dev, dtype=dt)
+        rand_rows = lambda ids: rand_table.index_select(0, ids.clamp(max=rand_table.shape[0] - 1))
+    on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
+    gl_fn = gl_blocks if cfg.use_cuda_gl and on_cuda_f32 else gl_blocks_plain
+
+    def step(carry: OnlineCarry, packet: torch.Tensor):
+        x = packet.to(dt)
+        # --- combined filter chain (closed-form init on the first packet) ---
+        s0 = torch.where(carry.started, carry.filt_state, _initial_state(params, x))
+        y, s_new = iir.iir_blocked(params.filt_op_pkt, x, s0)
+        buf = torch.cat([carry.hist, y], dim=0)          # (win + P, C); buf[p] is
+        cnt = carry.sample_count                         # sample cnt - win + p
+
+        # --- phase 1: the frames this packet completes.  Frames are emitted
+        # in order, so slot s's frame ends where slot s-1's did plus the next
+        # shift, and the valid slots are a prefix ---
+        shifts = table[(carry.frame_k + slots) % period]
+        ends = carry.next_e + torch.cumsum(shifts, 0) - shifts
+        valid = ends <= cnt + P
+        n_valid = valid.sum()
+        start = torch.clamp(ends - cnt, 0, P)
+        window = buf[start[:, None] + offs[None, :]]     # (n_slots, win, C)
+        f_rows = torch.log((window * window).sum(1) + 0.01)
+        # the ring after slot s is rows [m_s, m_s + stack_len) of the history
+        # followed by the new rows, m_s = valid slots up to s
+        ext = torch.cat([carry.stack_ring, f_rows], dim=0)
+        m = torch.cumsum(valid.long(), 0)
+        stacked = ext[m[:, None] + taps[None, :]]        # (n_slots, taps, C)
+        stacked = stacked.transpose(1, 2).reshape(n_slots, -1)  # channel-major
+
+        # --- phase 2: LDA + dequantization for all slots at once ---
+        mels = _frames_to_mel(params, stacked)           # (n_slots, n_mel)
+
+        # --- phase 3: Griffin-Lim on the blocks of consecutive mel pairs ---
+        mel_seq = torch.cat([carry.prev_mel[None], mels], dim=0)
+        block_ids = carry.frame_k + slots - 1
+        has_block = valid & (block_ids >= 0)
+        rand = rand_rows(block_ids.clamp(min=0))
+        re_all = gl_fn(mel_seq.contiguous(), rand.contiguous(), params.gl_audio_ops,
+                       cfg.gl_iterations, cfg.phase_bug)  # (n_slots, 480)
+
+        # --- phase 4: overlap-add + low-pass per emitted chunk ---
+        ola_acc, ola_wacc, lp_state = carry.ola_acc, carry.ola_wacc, carry.lowpass_state
+        audio = []
+        for s in range(n_slots):
+            re, hb = re_all[s], has_block[s]
+            acc = ola_acc[0] + re[: gl.HOP]
+            wsum = ola_wacc[0] + w_ola0
+            chunk = torch.where(wsum != 0, acc / torch.where(wsum != 0, wsum, 1.0), acc)
+            y_lp = lp.Cpow @ lp_state[:, 0] + lp.Tmat @ chunk
+            audio.append(gl.to_int16(y_lp, cfg.gl_norm))
+            new_acc = torch.stack([ola_acc[1] + re[gl.HOP : 2 * gl.HOP], re[2 * gl.HOP :]])
+            new_wacc = torch.stack([ola_wacc[1] + w_ola1, w_ola2])
+            ola_acc = torch.where(hb, new_acc, ola_acc)
+            ola_wacc = torch.where(hb, new_wacc, ola_wacc)
+            lp_state = torch.where(hb, lp.A_L @ lp_state + lp.Pmat @ chunk[:, None], lp_state)
+
+        new_carry = OnlineCarry(
+            filt_state=s_new,
+            started=torch.ones_like(carry.started),
+            hist=buf[-win:],
+            sample_count=cnt + P,
+            frame_k=carry.frame_k + n_valid,
+            next_e=carry.next_e + (shifts * valid).sum(),
+            stack_ring=ext[n_valid + torch.arange(stack_len, device=dev)],
+            # index_select: indexing by a 0-d tensor would read it on the host
+            prev_mel=torch.where(n_valid > 0, mel_seq.index_select(0, n_valid.reshape(1))[0],
+                                 carry.prev_mel),
+            ola_acc=ola_acc,
+            ola_wacc=ola_wacc,
+            lowpass_state=lp_state,
+        )
+        outputs = {"spec": mels, "spec_valid": valid,
+                   "audio": torch.stack(audio), "audio_valid": has_block}
+        return new_carry, outputs
+
+    return step
+
+
+def make_online_multi_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0,
+                           step=None):
+    """``multi(carry, packets (K, packet_size, n_channels)) -> (carry, outputs)``
+    with the per-step outputs stacked on a leading K axis: K calls of the
+    same step function in order, so the decoded stream is bit-identical to K
+    single steps (pipeline.py:586-611).  ``step`` reuses the caller's step."""
+    step = step or make_online_step(params, cfg, rand_source)
+
+    def multi(carry: OnlineCarry, packets: torch.Tensor):
+        outs = []
+        for packet in packets:
+            carry, out = step(carry, packet)
+            outs.append(out)
+        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return multi

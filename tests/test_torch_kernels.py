@@ -1,4 +1,4 @@
-"""The two kernel modules against the JAX package.
+"""The two kernel modules (kernels K1-K4) against the JAX package.
 
 On the CPU each wrapper runs its plain torch version, which is held here
 against the JAX Pallas kernels run in interpret mode (as
@@ -18,8 +18,9 @@ from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
 from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
 from closed_loop_seeg_speech_synthesis_tpu.ops import iir as j_iir
 from closed_loop_seeg_speech_synthesis_tpu.ops.pallas_frontend import (
-    epilogue_constants as j_epilogue_constants, frontend_decode_mels as j_frontend_decode_mels)
-from closed_loop_seeg_speech_synthesis_tpu.ops.pallas_gl import gl_audio_pallas
+    epilogue_constants as j_epilogue_constants, frontend_decode_mels as j_frontend_decode_mels,
+    frontend_logpower as j_frontend_logpower)
+from closed_loop_seeg_speech_synthesis_tpu.ops.pallas_gl import gl_audio_pallas, gl_blocks_pallas
 from closed_loop_seeg_speech_synthesis_tpu.runtime import pipeline as j_pipe
 
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl
@@ -144,6 +145,76 @@ def test_gl_audio_plain_matches_pallas_f32_no_iterations(rng):
     assert np.abs(audio_t.astype(int) - audio_j.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("sr", [1024.0, 2048.0])
+def test_logpower_plain_matches_pallas(rng, sr):
+    """K3's plain version (the wrapper on a CPU tensor) against the JAX
+    kernel in interpret mode, f32: within atol 1e-4, the gate of
+    tests/test_pallas_kernels.py:76."""
+    C = 6
+    eeg = rng.randn(int(sr * 2) + 33, C).astype(np.float32)
+    cfg = j_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=jnp.float32)
+    dummy = j_lda.LDAParams(coef=jnp.zeros((40, 9, 20)), intercept=jnp.zeros((40, 9)),
+                            classes=jnp.zeros((40, 9), jnp.int32), valid=jnp.ones((40, 9), bool))
+    dec = j_pipe.build_decoder_params(cfg, dummy, np.zeros((40, 9)), np.arange(20))
+    nf = len(j_fr.streaming_frame_ends(50, 10, sr, eeg.shape[0] + cfg.prefill))
+    x = jnp.asarray(eeg)
+    s0 = dec.filt_zi_scale[:, None] * x[0][None, :] + dec.filt_s_const[:, None]
+    F_j = np.asarray(j_frontend_logpower(dec.frontend_ops, x, s0, nf, interpret=True))
+
+    loaded = t_params.from_arrays(np.zeros((40, 9, 20)), np.zeros((40, 9)),
+                                  np.zeros((40, 9), np.int32), np.ones((40, 9), bool),
+                                  np.zeros((40, 9)), np.arange(20), [], dtype=torch.float32)
+    tcfg = t_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=torch.float32)
+    tdec = t_pipe.build_decoder_params(tcfg, loaded["lda"], loaded["medians"], loaded["select"])
+    xt = torch.as_tensor(eeg)
+    before = cuda_frontend.frontend_logpower.launches
+    F_t = cuda_frontend.frontend_logpower(tdec.frontend_ops, xt, t_pipe._initial_state(tdec, xt), nf)
+    assert cuda_frontend.frontend_logpower.launches == before  # CPU: plain version
+    assert F_t.shape == F_j.shape == (nf, C) and F_t.dtype == torch.float32
+    np.testing.assert_allclose(F_t.numpy(), F_j, atol=1e-4)
+
+
+@pytest.mark.parametrize("phase_bug", [True, False])
+def test_gl_blocks_plain_matches_pallas(rng, phase_bug):
+    """K4's plain version (the wrapper on a CPU tensor) against the JAX
+    kernel in interpret mode, f32, as tests/test_pallas_kernels.py:15-24
+    runs it: within atol 2e-4."""
+    lm = (rng.randn(20, 40) * 0.5 - 1.0).astype(np.float32)
+    rand = rng.rand(19, 480).astype(np.float32)
+    re_j = np.asarray(gl_blocks_pallas(jnp.asarray(lm), jnp.asarray(rand),
+                                       j_gl.make_streaming_gl_ops(dtype=jnp.float32), 8, phase_bug,
+                                       tile=8, interpret=True))
+    before = cuda_gl.gl_blocks.launches
+    re_t = cuda_gl.gl_blocks(torch.as_tensor(lm), torch.as_tensor(rand),
+                             _gl_audio_ops(torch.float32), 8, phase_bug)
+    assert cuda_gl.gl_blocks.launches == before
+    assert re_t.shape == re_j.shape == (19, 480) and re_t.dtype == torch.float32
+    np.testing.assert_allclose(re_t.numpy(), re_j, atol=2e-4)
+
+
+@pytest.mark.parametrize("phase_bug", [True, False])
+def test_gl_blocks_plain_matches_jax_f64(rng, phase_bug):
+    """float64, K4's plain version against the JAX package's
+    streaming_gl_blocks.  The converging estimator: rtol 1e-9.  Under the
+    exp(angle) quirk the angle of a near-zero bin is ill-conditioned, so
+    another summation order moves a block by ~1e-8 from the first iteration
+    on (NUMERICS.md deviation 3): within 1e-7 of the blocks' scale, as
+    tests/test_torch_ops.py holds the stage."""
+    lm = rng.randn(12, 40) * 0.5 - 1.0
+    rand = rng.rand(11, 480)
+    re_j = np.asarray(j_gl.streaming_gl_blocks(jnp.asarray(lm), jnp.asarray(rand),
+                                               j_gl.make_streaming_gl_ops(dtype=jnp.float64), 8,
+                                               phase_bug))
+    re_t = cuda_gl.gl_blocks_plain(torch.as_tensor(lm), torch.as_tensor(rand),
+                                   _gl_audio_ops(torch.float64), 8, phase_bug).numpy()
+    assert re_t.dtype == np.float64
+    scale = np.abs(re_j).max()
+    if phase_bug:
+        np.testing.assert_allclose(re_t, re_j, rtol=0, atol=1e-7 * scale)
+    else:
+        np.testing.assert_allclose(re_t, re_j, rtol=1e-9, atol=1e-12 * scale)
+
+
 def test_wrappers_reject_other_devices(rng):
     """A wrapper takes the plain version only for a CPU tensor; a tensor on
     any other device launches its kernel or raises."""
@@ -154,3 +225,7 @@ def test_wrappers_reject_other_devices(rng):
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_frontend.frontend_decode_mels(None, torch.zeros((10, 4), device="meta"), None, None,
                                            None, torch.zeros((9, 40)), None, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gl.gl_blocks(lm, torch.zeros((2, 480), device="meta"), ops)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_frontend.frontend_logpower(None, torch.zeros((10, 4), device="meta"), None, 5)

@@ -142,11 +142,42 @@ def test_griffin_lim_stages_match_jax(rng, phase_bug):
 
 
 def test_default_rand_init_is_seeded_and_uniform():
-    """The documented deviation: inits come from a torch.Generator, seed 0 by
-    default, uniform on [0, 1)."""
+    """The documented deviation: block inits are SplitMix64 outputs keyed by
+    (seed, global block index), seed 0 by default, uniform on [0, 1); the
+    values are checked against the generator in Python integers."""
     a = t_gl.default_rand_init(50)
-    b = t_gl.default_rand_init(50, torch.Generator().manual_seed(0))
     assert a.shape == (50, 480) and a.dtype == torch.float64
-    assert torch.equal(a, b)
+    assert torch.equal(a, t_gl.default_rand_init(50, 0, 0))
     assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
-    assert not torch.equal(a, t_gl.default_rand_init(50, torch.Generator().manual_seed(1)))
+    assert abs(float(a.mean()) - 0.5) < 0.01
+    assert not torch.equal(a, t_gl.default_rand_init(50, 0, 1))
+
+    M = 2**64
+
+    def splitmix64(seed, n):
+        z = (seed + (n + 1) * 0x9E3779B97F4A7C15) % M
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % M
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % M
+        return z ^ (z >> 31)
+
+    for seed in (0, 7, 2**63 + 5, -3):
+        ids = torch.tensor([0, 3, 181_000])
+        f64, f32 = t_gl.block_rand(ids, seed), t_gl.block_rand(ids, seed, torch.float32)
+        for i, b in enumerate(ids.tolist()):
+            for j in (0, 1, 479):
+                z = splitmix64(seed % M, 480 * b + j)
+                assert f64[i, j].item() == (z >> 11) * 2.0**-53
+                assert f32[i, j].item() == (z >> 40) * 2.0**-24
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_default_rand_init_prefix_and_offset(dtype):
+    """A block's inits depend on its global index only: any window of blocks
+    equals the same rows of a longer draw, as an online decoder drawing a
+    few blocks per packet needs."""
+    full = t_gl.default_rand_init(400, 0, 3, dtype)
+    assert full.dtype == dtype
+    for first, n in ((0, 1), (17, 4), (399, 1), (100, 250)):
+        assert torch.equal(t_gl.default_rand_init(n, first, 3, dtype), full[first : first + n])
+    ids = torch.tensor([5, 5, 0, 399])
+    assert torch.equal(t_gl.block_rand(ids, 3, dtype), full[ids])

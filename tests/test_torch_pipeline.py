@@ -22,6 +22,7 @@ from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
 
 from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as t_decode
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -114,29 +115,69 @@ def test_decode_cli_matches_jax_cli(rng, tmp_path):
     assert np.abs(audio_t.astype(int) - audio_j.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("argv", [["--persistent"], ["--vocoder", "exact-host"],
-                                  ["--profile", "prof"], []])
-def test_decode_cli_rejects_unported_modes(tmp_path, argv):
-    """Online mode (no seeg_file), --persistent, --profile and the exact-host
-    vocoder are not ported: the CLI says so and stops."""
+def _cli_config(tmp_path):
     cfg = configparser.ConfigParser()
     cfg["General"] = {"storage_dir": str(tmp_path), "session": "demo"}
     cfg["Decoding"] = {"stream_name": "dev_sEEG", "griffin_lim_norm": "10", "run": "r"}
     cfg_path = tmp_path / "experiment.ini"
     with open(cfg_path, "w") as f:
         cfg.write(f)
+    return cfg_path
+
+
+@pytest.mark.parametrize("argv", [["--persistent"], ["--vocoder", "exact-host"],
+                                  ["--profile", "prof"], ["--dispatch-chunk", "0"]])
+def test_decode_cli_rejects_unported_modes(tmp_path, argv):
+    """--persistent, --profile and the exact-host vocoder are not ported, and
+    a dispatch chunk must hold a packet: the CLI says so and stops."""
     with pytest.raises(SystemExit) as exc:
-        t_decode.main([str(cfg_path), *argv])
+        t_decode.main([str(_cli_config(tmp_path)), *argv])
     assert exc.value.code == 2
 
 
+def test_decode_cli_device_cuda_needs_a_gpu(tmp_path, monkeypatch):
+    """--device cuda where no GPU is visible stops the CLI; nothing carries
+    on on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        t_decode.main([str(_cli_config(tmp_path)), "--device", "cuda"])
+    assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("sr", [1024.0, 2048.0])
+def test_split_offline_decode_equals_fused_on_cpu(rng, sr):
+    """On the CPU both the fused and the split configuration run the plain
+    stages (the kernels K1-K4 are chosen for float32 CUDA tensors only), so
+    the split flags must not change the output: this pins the branch logic
+    of offline_decode."""
+    C_total, bad = 6, [1]
+    arrs = _session_arrays(rng, C_total, bad)
+    eeg = rng.randn(int(sr * 2), C_total) * 10.0
+    loaded = t_params.from_arrays(**arrs)
+    fused = t_decode.perform_offline_decoding(loaded, eeg, sr, 10.0)
+    split = t_decode.perform_offline_decoding(loaded, eeg, sr, 10.0, use_cuda_epilogue=False,
+                                              use_cuda_gl_tail=False)
+    assert fused[0].shape == split[0].shape and fused[1].shape == split[1].shape
+    assert all(bool((a == b).all()) for a, b in zip(fused[:2], split[:2]))
+    cfg = t_pipe.DecoderConfig(sr=sr, n_channels=C_total - 1, use_cuda_epilogue=False,
+                               use_cuda_gl_tail=False, dtype=loaded["lda"].coef.dtype)
+    assert not cfg.use_cuda_epilogue and not cfg.use_cuda_gl_tail and cfg.packet_size == 32
+
+
 def test_port_imports_no_jax():
-    """The port and its CLI import neither jax nor the JAX package."""
+    """The port, its CLIs and its online runtime import neither jax nor the
+    JAX package (nor pylsl, h5py or matplotlib at import time)."""
     code = ("import sys; import closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.cli.dev_streamer, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.online, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.nsx, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m.split('.')[0] == 'closed_loop_seeg_speech_synthesis_tpu']; "
+            "or m.split('.')[0] in ('closed_loop_seeg_speech_synthesis_tpu', 'pylsl', 'h5py', "
+            "'matplotlib')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
