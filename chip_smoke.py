@@ -40,6 +40,20 @@ on one NVIDIA GPU.  Run from the repository root:
    run of the same packets.
 9. Runs ``cli.decode.main`` end to end on files in a temporary directory
    when h5py is installed.
+10. Trains: a word-locked synthetic session (600 trials of 3 s: a 120 Hz
+   burst on half the channels and a voiced harmonic stack in 48 kHz audio
+   during each trial's first 2 s) at 128 ch / 1024 Hz / 30 min goes through
+   ``runtime.trainer.train`` on the card in float32 and float64, with the
+   time and peak device memory of each stage.  The two models agree (the
+   selected features as a set, the training-set predictions, the missing
+   intervals, the quantizer's medians and borders within 5e-3); each decodes the first 5 minutes through
+   ``perform_offline_decoding`` (K1 and K2 launch), the two LDAs' decodes
+   (with the same medians) agree inside the f32 label-flip budget, and the
+   two models' mean per-bin Pearson r against the training target agree.
+   A 60 s slice trains on the card in float64 and through the float64 CPU
+   path (the one the tests hold to the JAX package): the same features,
+   coefficients within rtol 1e-6.  With h5py and sklearn installed,
+   ``cli.train.main`` runs end to end on an HDF5 file.
 
 Any failure exits nonzero.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -64,6 +78,9 @@ N_FEATS, GL_NORM = 150, 10.0
 AGREE_RTOL, AGREE_ATOL, AGREE_MIN = 1e-5, 1e-6, 0.999   # tests/test_pallas_kernels.py:125-126
 FLIP_RTOL, FLIP_ATOL, FLIP_MAX = 1e-4, 1e-5, 0.02       # tests/test_f32_error_budget.py:51-53
 K3_ATOL, K4_ATOL, WITHIN_MIN = 1e-4, 2e-4, 0.999         # tests/test_pallas_kernels.py:76, :24
+AUDIO_SR, TRIAL_S, TRAIN_DECODE_MIN, TRAIN_SLICE_S = 48000, 3, 5, 60
+SELECT_MIN, PREDICT_MIN, R_DIFF_MAX, R_MIN, COEF_RTOL = 0.95, 0.98, 0.02, 0.15, 1e-6
+QUANT_MAX = 5e-3  # log-mel; a quarter of docs/NUMERICS.md:155's max 2e-2 for f32 targets
 
 
 def say(*args):
@@ -123,6 +140,163 @@ def attainment(torch, audio, log_mels, gl_ops):
 
 def corr(torch, a, b):
     return torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+
+
+def synthetic_session(torch, noise, sr, seed=0):
+    """A word-locked session on top of sEEG noise (examples/demo.py:22-55):
+    every 3 s trial carries, during its first 2 s, a 120 Hz burst on half
+    the channels (gain 1.0-2.6 by word) and a voiced harmonic stack in the
+    audio (f0 150-270 Hz by word); the audio has N(0, 1e-4) dither, as
+    cli.train adds.  Returns (sEEG on noise's device, audio (host, f64))."""
+    T, C = noise.shape
+    n_trials = T // (TRIAL_S * sr)
+    env = np.zeros(T)
+    t_a = np.arange(2 * AUDIO_SR) / AUDIO_SR
+    voices = []
+    for wid in range(5):
+        v = sum((0.4 / h) * np.sin(2 * np.pi * h * (150 + 30 * wid) * t_a) for h in range(1, 26))
+        voices.append(0.3 * v / np.abs(v).max())
+    audio = np.random.RandomState(seed).normal(0, 1e-4, T // sr * AUDIO_SR)
+    for i in range(n_trials):
+        env[i * TRIAL_S * sr : i * TRIAL_S * sr + 2 * sr] = 1.0 + 0.4 * (i % 5)
+        audio[i * TRIAL_S * AUDIO_SR : i * TRIAL_S * AUDIO_SR + 2 * AUDIO_SR] += voices[i % 5]
+    burst = env * np.sin(2 * np.pi * 120 * np.arange(T) / sr)
+    eeg = noise.clone()
+    eeg[:, : C // 2] += torch.as_tensor(burst, dtype=eeg.dtype, device=eeg.device)[:, None]
+    return eeg, audio
+
+
+def mean_pearson(torch, a, b):
+    """Mean over bins of the per-bin Pearson r of two (N, 40) spectrograms."""
+    a, b = a.double() - a.double().mean(0), b.double() - b.double().mean(0)
+    return ((a * b).sum(0) / torch.sqrt((a * a).sum(0) * (b * b).sum(0))).mean().item()
+
+
+def training_phase(torch, dev, noise, sr, zero_counts, read_counts):
+    """Step 10 of the module docstring; returns the session (sEEG, audio)."""
+    import scipy.signal
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.models import lda
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops.spectrogram import compute_spectrogram
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params, trainer
+
+    T, C = noise.shape
+    eeg, audio = synthetic_session(torch, noise, sr)
+    say(f"  session: {T} samples x {C} ch @ {sr} Hz, {len(audio)} audio samples @ {AUDIO_SR} Hz, "
+        f"{T // (TRIAL_S * sr)} trials")
+    # the feature stage's host loop over filter blocks, timed inside each
+    # train call (CUDA events around each walk; the walk's own synchronize
+    # is counted in the stage)
+    walk, loop_ms = iir._boundary_states, []
+
+    def timed_walk(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = walk(*args)
+        end.record()
+        end.synchronize()
+        loop_ms.append(start.elapsed_time(end))
+        return res
+
+    results = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        loop_ms.clear()
+        iir._boundary_states = timed_walk
+        try:
+            results[name] = r = trainer.train(eeg, audio, sr, AUDIO_SR, [], dtype=dtype, device=dev,
+                                              timings=timings)
+        finally:
+            iir._boundary_states = walk
+        peak = torch.cuda.max_memory_allocated() - resident
+        say(f"  train {name}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in timings.items())
+            + f"; total {sum(timings.values()):.2f} ms; peak device memory above the resident "
+            f"{resident / 2**30:.2f} GiB: {peak / 2**30:.2f} GiB")
+        say(f"  train {name} feature stage: block loop of {-(-T // 256)} blocks in {len(loop_ms)} "
+            f"walk(s) {sum(loop_ms):.2f} ms, {100 * sum(loop_ms) / timings['features']:.1f}% "
+            f"of the same call's stage")
+        check(r.lda.coef.dtype == dtype and r.lda.coef.device.type == dev.type
+              and r.x_train.shape == (len(r.y_train), N_FEATS) and r.lda.coef.shape == (40, 9, N_FEATS)
+              and bool(torch.isfinite(r.lda.coef).all()), f"{name} model on the card, shapes, finite")
+
+    r32, r64 = results["f32"], results["f64"]
+    overlap = len(set(r32.select.tolist()) & set(r64.select.tolist())) / N_FEATS
+    p32 = lda.predict(r32.lda, torch.as_tensor(r32.x_train, device=dev))
+    p64 = lda.predict(r64.lda, torch.as_tensor(r64.x_train, device=dev))
+    agree = (p32 == p64).double().mean().item()
+    say(f"  f32 vs f64: selected features overlap {overlap:.4f}, training-set label agreement "
+        f"{agree:.6f}, bins missing intervals {len(r32.missing)} / {len(r64.missing)}")
+    check(overlap >= SELECT_MIN, f"f32 and f64 select >= {SELECT_MIN:.0%} of the same features")
+    check(agree >= PREDICT_MIN, f"f32 and f64 models agree on >= {PREDICT_MIN:.0%} of labels")
+    check(r32.missing == r64.missing, "f32 and f64 find the same missing intervals")
+    # the quantizer in f32 against f64: a per-bin shift of the medians or
+    # borders leaves the labels and Pearson r alone, so they have a limit of
+    # their own (a quarter of docs/NUMERICS.md's max 2e-2 on f32 targets)
+    med_err = np.abs(r32.medians - r64.medians).max(axis=1)
+    bord_err = np.abs(r32.borders - r64.borders).max(axis=1)
+    say(f"  quantizer f32 vs f64: max |median diff| {med_err.max():.3e} (bin {int(med_err.argmax())}), "
+        f"> 1e-4 in {int((med_err > 1e-4).sum())} of 40 bins; max |border diff| "
+        f"{bord_err.max():.3e} (bin {int(bord_err.argmax())})")
+    check(med_err.max() < QUANT_MAX and bord_err.max() < QUANT_MAX,
+          f"f32 medians and borders within {QUANT_MAX} log-mel of f64")
+
+    # each model decodes the first minutes through the kernels
+    head = eeg[: TRAIN_DECODE_MIN * 60 * sr]
+    a16 = np.ascontiguousarray(scipy.signal.decimate(audio[: TRAIN_DECODE_MIN * 60 * AUDIO_SR], 3))
+    target = compute_spectrogram(torch.as_tensor(a16, device=dev), 16000, 0.016, 0.01)
+
+    def decode(r, medians, name):
+        loaded = params.from_arrays(r.lda.coef.cpu().numpy(), r.lda.intercept.cpu().numpy(),
+                                    r.lda.classes.cpu().numpy(), r.lda.valid.cpu().numpy(),
+                                    medians, r.select, [], dtype=torch.float32, device=dev)
+        zero_counts()
+        spec, audio_out, _, _ = cli.perform_offline_decoding(loaded, head, sr, GL_NORM, device=dev)
+        launches = read_counts()
+        check(launches["frontend_decode_mels"] >= 1 and launches["gl_audio"] >= 1,
+              f"K1 and K2 launched decoding {name}: {launches}")
+        check(bool(torch.isfinite(spec).all()) and audio_out.shape == ((spec.shape[0] - 1) * 160,),
+              f"{name} decode: finite, shapes")
+        return spec
+
+    specs, rs = {}, {}
+    for name, r in results.items():
+        specs[name] = decode(r, r.medians, f"the {name} model")
+        n = min(specs[name].shape[0], target.shape[0])
+        rs[name] = mean_pearson(torch, specs[name][:n], target[:n])
+    # the medians are float32 and float64 evaluations of the same sigmoid
+    # over each bin's range: decoding the f32 LDA with the f64 medians
+    # leaves only the labels to differ
+    specs["f32 LDA, f64 medians"] = decode(r32, r64.medians, "the f32 LDA with the f64 medians")
+    _, flips, _ = mel_agreement(torch, specs["f32 LDA, f64 medians"], specs["f64"])
+    _, differ, _ = mel_agreement(torch, specs["f32"], specs["f64"])
+    say(f"  decode of the first {TRAIN_DECODE_MIN} min: f32 vs f64 LDA label flips {flips:.6f}; "
+        f"entries outside rtol 1e-4 of the f64 model's decode with the f32 model's own medians "
+        f"{differ:.6f}")
+    say(f"  mean per-bin Pearson r against the training target: f32 {rs['f32']:.4f}, "
+        f"f64 {rs['f64']:.4f}")
+    check(flips < FLIP_MAX, "the two LDAs' decodes inside the f32 label-flip budget")
+    check(abs(rs["f32"] - rs["f64"]) < R_DIFF_MAX, f"Pearson r of the two models within {R_DIFF_MAX}")
+    check(min(rs.values()) > R_MIN, f"both decodes beat chance: r > {R_MIN} (examples/demo.py:123)")
+
+    # the card's float64 training against the CPU path the tests hold to JAX
+    n_slice = TRAIN_SLICE_S * sr
+    card = trainer.train(eeg[:n_slice], audio[: TRAIN_SLICE_S * AUDIO_SR], sr, AUDIO_SR, [],
+                         dtype=torch.float64, device=dev)
+    host = trainer.train(eeg[:n_slice].cpu(), audio[: TRAIN_SLICE_S * AUDIO_SR], sr, AUDIO_SR, [])
+    c_card, c_host = card.lda.coef.cpu().numpy(), host.lda.coef.numpy()
+    coef_err = float(np.abs(c_card - c_host).max() / np.abs(c_host).max())
+    say(f"  {TRAIN_SLICE_S} s slice, card f64 vs CPU f64: select equal "
+        f"{np.array_equal(card.select, host.select)}, labels equal "
+        f"{np.array_equal(card.y_train, host.y_train)}, max coef error / max |coef| {coef_err:.3e}")
+    check(np.array_equal(card.select, host.select), "card and CPU select the same features")
+    check(np.allclose(c_card, c_host, rtol=COEF_RTOL, atol=COEF_RTOL * np.abs(c_host).max()),
+          f"card and CPU coefficients within rtol {COEF_RTOL}")
+    return eeg, audio
 
 
 def main():
@@ -509,6 +683,36 @@ def main():
             check(cli_spec.shape[1] == 40 and np.isfinite(cli_spec).all(), "CLI spectrogram")
             check(cuda_frontend.frontend_decode_mels.launches >= 1 and cuda_gl.gl_audio.launches >= 1,
                   "both kernels launched under the CLI")
+
+    # ---- training -----------------------------------------------------------
+    say(f"== training: runtime.trainer.train, {C} ch, {SR} Hz, {MINUTES} min, f32 and f64")
+    train_eeg, train_audio = training_phase(torch, dev, eeg, SR, zero_counts, read_counts)
+    try:
+        import h5py
+        import sklearn  # noqa: F401  (store_training pickles sklearn estimators)
+    except ImportError as e:
+        say(f"== train CLI: {e.name} is not installed, cli.train.main skipped")
+    else:
+        from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as train_cli
+
+        say(f"== train CLI: cli.train.main on a {TRAIN_SLICE_S} s HDF5 recording")
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = os.path.join(tmp, "speech.hdf")
+            with h5py.File(rec, "w") as hf:
+                hf.create_dataset("sEEG", data=train_eeg[: TRAIN_SLICE_S * SR].cpu().numpy())
+                hf.create_dataset("Audio", data=train_audio[: TRAIN_SLICE_S * AUDIO_SR])
+                hf.create_dataset("sEEG_sr", data=SR, dtype=np.int32)
+                hf.create_dataset("Audio_sr", data=AUDIO_SR, dtype=np.int32)
+            cfg_path = os.path.join(tmp, "experiment.ini")
+            with open(cfg_path, "w") as f:
+                f.write(f"[General]\nstorage_dir = {os.path.join(tmp, 'storage')}\nsession = demo\n"
+                        f"[Training]\nfile = {rec}\noverwrite_on_rerun = True\n")
+            path = train_cli.main([cfg_path, "--device", "cuda"], rng=np.random.RandomState(0))
+            trained = params.load_params(path, dtype=torch.float32, device=dev)
+            check(trained["lda"].coef.shape == (40, 9, N_FEATS) and trained["select"].shape == (N_FEATS,)
+                  and all(os.path.exists(os.path.join(tmp, "storage", "demo", f))
+                          for f in ("LDAs.pkl", "training_features.npy", "train.ini", "train.log")),
+                  "train CLI artifacts written and loaded")
 
     kernels = [
         {"name": "frontend_decode_mels", "route": "cuda",

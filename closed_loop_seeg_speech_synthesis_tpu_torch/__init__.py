@@ -7,10 +7,13 @@ state-space builders, mel/DFT/window constants) is carried as numpy copies
 whose headers name their JAX-package counterparts, because importing any
 ``closed_loop_seeg_speech_synthesis_tpu.ops`` module imports jax.
 
-Ported so far: the offline replay decode (``runtime.pipeline.offline_decode``
-and the offline mode of ``cli.decode``), with two hand-written CUDA kernels
-for sm_90a: ``ops.cuda_frontend`` (raw sEEG -> logMel frames) and
-``ops.cuda_gl`` (logMel frames -> int16 audio).
+Ported so far: training (``runtime.trainer.train`` and ``cli.train``), the
+offline replay decode (``runtime.pipeline.offline_decode`` and the offline
+mode of ``cli.decode``) and the online closed loop (``runtime.online`` and
+the online mode of ``cli.decode``), with hand-written CUDA kernels for
+sm_90a: ``ops.cuda_frontend`` (raw sEEG -> log-power features or logMel
+frames) and ``ops.cuda_gl`` (logMel frames -> Griffin-Lim blocks or int16
+audio).
 
 Precision policy: the JAX package pins ``Precision.HIGHEST`` on every
 contraction of the decode path (docs/NUMERICS.md), so TF32 is switched off

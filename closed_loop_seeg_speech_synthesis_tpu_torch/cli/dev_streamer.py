@@ -10,7 +10,7 @@ Micromed cadence: 32-sample packets @1024 Hz, 64 @2048 Hz
 (dev_lsl_streamer.py:16-17); wall-clock pacing with sample-counter drift
 correction; optional fake marker stream emitting a dummy word every ~3 s.
 It needs neither jax nor h5py to stream an array (``stream_eeg``); ``main``
-reads HDF5 recordings with h5py.
+reads HDF5 (with h5py) and XDF recordings through ``io.loaders``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import time
 import numpy as np
 
 from ..io import config as config_mod
+from ..io.loaders import load_speech_file
 from ..runtime.streams import StreamOutlet, local_clock
 
 logger = logging.getLogger("cli.dev_streamer")
@@ -80,18 +81,6 @@ def stream_fake_markers(words=None, interval: float = 3.0,
     outlet.push_sample("experimentEnded", local_clock())
 
 
-def load_recording(path: str):
-    """(sEEG (T, C), rate) from an HDF5 recording with datasets ``sEEG`` and
-    ``sEEG_sr`` (the JAX package's io/loaders layout); h5py is imported
-    here.  XDF recordings are not read by the port."""
-    if not path.endswith((".hdf", ".h5", ".hdf5")):
-        raise ValueError(f"{path}: the port replays HDF5 recordings (sEEG, sEEG_sr) only")
-    import h5py
-
-    with h5py.File(path, "r") as hf:
-        return hf["sEEG"][:], int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser("Replay a recorded file as a fake amplifier stream.")
     parser.add_argument("config", help="Path to config file (Development->file).")
@@ -108,7 +97,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     config = config_mod.load_config(args.config)
     path = args.file or config["Development"]["file"]
-    eeg, eeg_sr = load_recording(path)
+    eeg, eeg_sr, *_ = load_speech_file(path)
     logger.info("Loaded %s: %s @%d Hz", path, eeg.shape, eeg_sr)
 
     stop = threading.Event()

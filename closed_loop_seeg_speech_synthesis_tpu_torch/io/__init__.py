@@ -1,1 +1,2 @@
-"""IO: the configparser ``.ini`` surface and the offline-mode check."""
+"""IO: the configparser ``.ini`` surface, recording loaders (HDF5/XDF) and
+the headless channel inspection."""

@@ -1,12 +1,20 @@
-"""Per-bin Linear Discriminant Analysis, predict half (torch).
+"""Per-bin Linear Discriminant Analysis, fit and predict (torch).
 
-Port of ``LDAParams``, ``predict``, ``decision_scores`` and
-``from_sklearn_estimators`` of ``closed_loop_seeg_speech_synthesis_tpu/models/lda.py``.
-The reference predicts one of 9 quantization classes per mel bin per frame
-with 40 sklearn ``LinearDiscriminantAnalysis`` models
-(``livenodes/LDASynthesis.py:19-28``); here all bins are one
-``(T, d) @ (d, 40*9)`` product, with absent class slots masked to -inf.
-Fitting waits for the training slice of the port.
+Port of ``closed_loop_seeg_speech_synthesis_tpu/models/lda.py``.  The
+reference fits 40 independent sklearn ``LinearDiscriminantAnalysis()``
+models (svd solver), one per mel bin, on the same 150-feature matrix with
+different 9-class quantization labels (``train.py:156-166``), and predicts
+one class per bin per frame (``livenodes/LDASynthesis.py:19-28``).
+
+* fit: all bins in one batch.  Per-class sums and counts are one-hot
+  products; the svd of the scaled within-class scatter comes from the
+  (d, d) Gram matrix and a batched ``torch.linalg.eigh`` (eigenvalues
+  flipped to descending).  The discriminant uses only
+  ``scalings_ @ scalings_.T``, so it is invariant to the eigenvectors'
+  signs and basis.  Bins that lose quantization intervals keep static
+  9-class padding, with absent slots masked.
+* predict: one ``(T, d) @ (d, 40*9)`` product, absent class slots masked to
+  -inf, per-bin argmax mapped through each bin's present-class table.
 """
 
 from __future__ import annotations
@@ -42,6 +50,89 @@ class LDAParams:
                          intercept=self.intercept.to(device=device, dtype=dtype),
                          classes=self.classes.to(device=device),
                          valid=self.valid.to(device=device))
+
+
+def _fit_one_bin(X: torch.Tensor, y_onehot: torch.Tensor, counts: torch.Tensor, tol: float = 1e-4):
+    """sklearn svd-solver LDA with padded classes, for a batch of bins that
+    share their features.
+
+    X: (n, d); y_onehot: (B, n, k) one-hot over padded class slots;
+    counts: (B, k) samples per slot (0 => absent class).
+    Returns (coef (B, k, d), intercept (B, k)) with absent slots zeroed.
+    """
+    n = X.shape[0]
+    dt = X.dtype
+    present = counts > 0
+    n_classes = torch.sum(present, dim=-1)                          # (B,)
+    safe_counts = torch.where(present, counts, 1.0)
+
+    means = (y_onehot.transpose(1, 2) @ X) / safe_counts[:, :, None]  # (B, k, d)
+    priors = torch.where(present, counts / n, 0.0).to(dt)
+    xbar = (priors[:, None, :] @ means)[:, 0]                       # (B, d)
+
+    # within-class centering: Xc = X - mean of own class, scaled in place
+    Xc = X - y_onehot @ means                                       # (B, n, d)
+    fac = 1.0 / (n - n_classes).to(dt)                              # (B,)
+    std = torch.std(Xc, dim=1, correction=0)                        # population std, as jnp.std
+    std = torch.where(std == 0, 1.0, std)
+    Xs = Xc.mul_(torch.sqrt(fac)[:, None, None]).div_(std[:, None, :])
+
+    # svd(Xs) via eigh of the Gram matrix (d x d): S = sqrt(eigvals), V = vecs
+    G = Xs.transpose(1, 2) @ Xs
+    del Xs, Xc
+    evals, evecs = torch.linalg.eigh(G)
+    evals, evecs = evals.flip(-1), evecs.flip(-1)
+    S = torch.sqrt(torch.clamp(evals, min=0.0))
+    rank_mask = S > tol
+    inv_S = torch.where(rank_mask, 1.0 / torch.where(rank_mask, S, 1.0), 0.0)
+    scalings = (evecs / std[:, :, None]) * inv_S[:, None, :]       # (B, d, d), masked cols
+
+    # between-class projection
+    factor = torch.sqrt(torch.where(present, (n * priors) * fac[:, None], 0.0))
+    centred = means - xbar[:, None, :]                              # (B, k, d)
+    X2 = factor[:, :, None] * (centred @ scalings)
+    evals2, evecs2 = torch.linalg.eigh(X2.transpose(1, 2) @ X2)
+    evals2, evecs2 = evals2.flip(-1), evecs2.flip(-1)
+    S2 = torch.sqrt(torch.clamp(evals2, min=0.0))
+    rank2_mask = S2 > tol * S2[:, :1]
+    scalings2 = scalings @ (evecs2 * rank2_mask[:, None, :])        # dropped dims zeroed
+
+    coef0 = centred @ scalings2                                     # (B, k, d)
+    coef = coef0 @ scalings2.transpose(1, 2)
+    log_priors = torch.where(present, torch.log(torch.where(present, priors, 1.0)), 0.0)
+    intercept = -0.5 * torch.sum(coef0 * coef0, dim=2) + log_priors
+    intercept = intercept - (coef @ xbar[:, :, None])[:, :, 0]
+    coef = torch.where(present[:, :, None], coef, 0.0)
+    intercept = torch.where(present, intercept, 0.0)
+    return coef, intercept
+
+
+def fit(X: torch.Tensor, Y, n_classes_max: int = 9) -> LDAParams:
+    """Fit per-bin LDAs.  X: (n, d) features; Y: (n, n_bins) integer labels
+    (array or tensor).  All bins are fitted in X's dtype on X's device.
+
+    Class slots are each bin's sorted unique labels (sklearn's ``classes_``);
+    missing intervals are padded and masked.
+    """
+    Y = torch.as_tensor(Y).cpu().numpy().astype(np.int64)
+    n, n_bins = Y.shape
+    classes = np.zeros((n_bins, n_classes_max), np.int32)
+    valid = np.zeros((n_bins, n_classes_max), bool)
+    compact = np.zeros((n_bins, n), np.int64)
+    for b in range(n_bins):
+        u = np.unique(Y[:, b])
+        if len(u) > n_classes_max:
+            raise ValueError(f"bin {b} has {len(u)} classes > {n_classes_max}")
+        classes[b, : len(u)] = u
+        valid[b, : len(u)] = True
+        compact[b] = np.searchsorted(u, Y[:, b])  # slot of each label in the sorted uniques
+
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(compact, device=X.device),
+                                         n_classes_max).to(X.dtype)  # (n_bins, n, k)
+    coef, intercept = _fit_one_bin(X, onehot, torch.sum(onehot, dim=1))
+    return LDAParams(coef=coef, intercept=intercept,
+                     classes=torch.as_tensor(classes, device=X.device),
+                     valid=torch.as_tensor(valid, device=X.device))
 
 
 def decision_scores(params: LDAParams, X: torch.Tensor) -> torch.Tensor:
@@ -82,3 +173,29 @@ def from_sklearn_estimators(estimators, n_classes_max: int = 9, dtype=torch.floa
                      intercept=torch.as_tensor(intercept, dtype=dtype, device=device),
                      classes=torch.as_tensor(classes, device=device),
                      valid=torch.as_tensor(valid, device=device))
+
+
+def to_sklearn_estimators(params: LDAParams):
+    """sklearn LinearDiscriminantAnalysis objects carrying the fitted
+    coef_/intercept_/classes_, for reference-compatible ``LDAs.pkl`` /
+    ``params.h5`` artifacts (train.py:180-196).  sklearn is imported here."""
+    from sklearn.discriminant_analysis import LinearDiscriminantAnalysis
+
+    coef = params.coef.cpu().numpy().astype(np.float64)
+    intercept = params.intercept.cpu().numpy().astype(np.float64)
+    classes = params.classes.cpu().numpy()
+    valid = params.valid.cpu().numpy()
+    ests = []
+    for b in range(params.n_bins):
+        m = valid[b]
+        est = LinearDiscriminantAnalysis()
+        est.classes_ = classes[b][m].astype(np.float64)
+        if m.sum() == 2:
+            # sklearn binary convention: single row = class1 - class0
+            est.coef_ = (coef[b][m][1] - coef[b][m][0])[None, :]
+            est.intercept_ = np.atleast_1d(intercept[b][m][1] - intercept[b][m][0])
+        else:
+            est.coef_ = coef[b][m]
+            est.intercept_ = intercept[b][m]
+        ests.append(est)
+    return ests

@@ -2,7 +2,8 @@
 
 Host half: numpy copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/framing.py``
 (``frame_size``, ``warm_start_prefill``, ``exact_frame_ends``,
-``streaming_frame_ends``, ``shift_table``, ``periodic_window_matrix``); the
+``streaming_frame_ends``, ``shift_table``, ``periodic_window_matrix`` and the
+training grid's ``offline_window_starts`` / ``offline_window_len``); the
 schedules are bit-identical (tests/test_torch_host_builders.py).
 
 Frame k ends at ``round_half_even(fsize + k * shift_samples)`` on the
@@ -103,6 +104,26 @@ def periodic_window_matrix(ends: np.ndarray, win: int):
                 S[i, lo : lo + win] = 1.0
             return S, Ls, P, origin
     return None
+
+
+def offline_window_starts(win_s: float, shift_s: float, sr: float, total_len: int) -> np.ndarray:
+    """Training grid (local/offline.py:100-106): start_k = int(round(k*shift*sr)),
+    window [start, int(round(start + win*sr))); count = floor((T - win*sr)/(shift*sr)) + 1."""
+    num = int(np.floor((total_len - win_s * sr) / (shift_s * sr))) + 1
+    starts = np.asarray([int(round((k * shift_s) * sr)) for k in range(max(num, 0))], dtype=np.int64)
+    return starts
+
+
+def offline_window_len(win_s: float, sr: float, starts: np.ndarray | None = None) -> int:
+    """stop - start on the training grid: int(round(start + win*sr)) - start,
+    checked to be the same for every start (an exactly-.5 fraction of win*sr
+    would make it depend on the start's parity)."""
+    if starts is None or len(starts) == 0:
+        return int(round(win_s * sr))
+    lens = {int(round(float(s) + win_s * sr)) - int(s) for s in starts}
+    if len(lens) != 1:
+        raise ValueError(f"non-constant offline window length: {sorted(lens)}")
+    return lens.pop()
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Triangular mel filterbank with the reference's exact quirks.
 
 Copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/mel.py``:
-``mel_matrices`` (float64 numpy, bit-identical) and ``from_log_mels`` (torch)
-with the NaN/Inf scrub of MelFilterBank.py:82-83.  The "inverse" is the
+``mel_matrices`` (float64 numpy, bit-identical), ``to_log_mels`` (the 1e-7
+fuzz before the log, MelFilterBank.py:64-83) and ``from_log_mels`` (torch),
+both with the NaN/Inf scrub of MelFilterBank.py:82-83.  The "inverse" is the
 column-normalized transpose, not a pseudo-inverse (MelFilterBank.py:38-39).
 """
 
@@ -12,6 +13,8 @@ import math
 
 import numpy as np
 import torch
+
+FUZZ = 1e-7
 
 
 def _freq_to_mel(freq: float) -> float:
@@ -60,6 +63,11 @@ def mel_matrices(spec_size: int, num_coefficients: int, sample_rate: float):
 
 def _scrub(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def to_log_mels(spec_mag: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """|spectrogram| (..., spec_size) -> logMels (..., n_mel)."""
+    return _scrub(torch.log(spec_mag @ M + FUZZ))
 
 
 def from_log_mels(log_mels: torch.Tensor, Minv: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """Small real DFT as matmuls (the vocoder's 256-point frames).
 
 Copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/stft.py`` (``blackman``,
-``make_rdft``, ``RDFT.rfft``/``irfft``): the matrices are built in float64
-numpy exactly as there, then cast; the window is the same scipy call,
-byte-matched (docs/NUMERICS.md: a 1-ulp window change decoheres whole
-Griffin-Lim blocks).
+``hann_sym``, ``make_rdft``, ``RDFT.rfft``/``irfft``, ``frame_signal``): the
+matrices are built in float64 numpy exactly as there, then cast; the windows
+are the same scipy calls, byte-matched (docs/NUMERICS.md: a 1-ulp window
+change decoheres whole Griffin-Lim blocks).
 """
 
 from __future__ import annotations
@@ -66,3 +66,14 @@ def make_rdft(n: int, dtype=torch.float64, device=None) -> RDFT:
 def blackman(n: int) -> np.ndarray:
     """scipy.blackman (symmetric) — GriffinLim.py:50,154."""
     return _win.blackman(n, sym=True).astype(np.float64)
+
+
+def hann_sym(n: int) -> np.ndarray:
+    """scipy.signal.windows.hann(n) — offline compute_spectrogram window."""
+    return _win.hann(n, sym=True).astype(np.float64)
+
+
+def frame_signal(x: torch.Tensor, frame_len: int, hop: int, num_frames: int) -> torch.Tensor:
+    """Strided framing: out[i] = x[i*hop : i*hop + frame_len].  x: (..., T)
+    -> (..., num_frames, frame_len), a view of x."""
+    return x.unfold(-1, frame_len, hop)[..., :num_frames, :]

@@ -1,10 +1,21 @@
-"""Load trained decoder parameters (``params.h5``) into the port's types.
+"""Trained decoder parameters: store (``params.h5`` and friends) and load.
 
-Port of ``load_params`` in ``closed_loop_seeg_speech_synthesis_tpu/runtime/params.py``.
-``params.h5`` holds bad_channels, medians_array, select, the pickled sklearn
-estimator list and, when written by the JAX package, plain-array ``lda_*``
-twins of it.  The plain arrays are read when present; the pickled blob only
-when they are absent.  h5py is imported inside ``load_params``.
+Port of ``store_training`` and ``load_params`` in
+``closed_loop_seeg_speech_synthesis_tpu/runtime/params.py``.  The reference
+persists (train.py:171-205):
+
+* ``params.h5`` — bad_channels, medians_array, the pickled sklearn estimator
+  list as an ``np.void`` blob, select indices; the JAX package adds
+  plain-array ``lda_*`` twins of the blob and ``borders_array``;
+* ``LDAs.pkl`` — the pickled estimator list again;
+* ``training_features.npy`` — the selected feature matrix (for exp4);
+* ``train.ini`` — the merged config used.
+
+``store_training`` writes the same files, so the JAX package's
+``load_params`` and this one both read them.  ``load_params`` reads the plain
+arrays when present, the pickled blob only when they are absent.  h5py (and
+sklearn, for the estimators) are imported inside the functions that need
+them.
 
 ``from_arrays`` is the converter from the JAX package's parameters (as
 numpy arrays) to the port's.
@@ -12,6 +23,7 @@ numpy arrays) to the port's.
 
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
@@ -34,6 +46,39 @@ def from_arrays(lda_coef, lda_intercept, lda_classes, lda_valid, medians, select
             classes=torch.as_tensor(np.asarray(lda_classes).astype(np.int32), device=device),
             valid=torch.as_tensor(np.asarray(lda_valid).astype(bool), device=device)),
     }
+
+
+def store_training(session_dir: str, result, bad_channels, config=None) -> str:
+    """Persist a runtime.trainer.TrainResult to the reference layout; returns
+    the path of ``params.h5``."""
+    import h5py
+
+    os.makedirs(session_dir, exist_ok=True)
+    estimators = lda_mod.to_sklearn_estimators(result.lda)
+
+    with open(os.path.join(session_dir, "LDAs.pkl"), "wb") as f:
+        pickle.dump(estimators, f)
+
+    np.save(os.path.join(session_dir, "training_features.npy"), result.x_train)
+
+    lda = result.lda
+    path = os.path.join(session_dir, "params.h5")
+    with h5py.File(path, "w") as hf:
+        hf.create_dataset("bad_channels", data=np.asarray(bad_channels, np.int64))
+        hf.create_dataset("medians_array", data=result.medians)
+        hf.create_dataset("estimators", data=np.void(pickle.dumps(estimators)))
+        hf.create_dataset("select", data=np.asarray(result.select, np.int64))
+        # plain-array twin of the pickled blob (the load path without sklearn)
+        hf.create_dataset("lda_coef", data=lda.coef.cpu().numpy().astype(np.float64))
+        hf.create_dataset("lda_intercept", data=lda.intercept.cpu().numpy().astype(np.float64))
+        hf.create_dataset("lda_classes", data=lda.classes.cpu().numpy())
+        hf.create_dataset("lda_valid", data=lda.valid.cpu().numpy())
+        hf.create_dataset("borders_array", data=result.borders)
+
+    if config is not None:
+        with open(os.path.join(session_dir, "train.ini"), "w") as f:
+            config.write(f)
+    return path
 
 
 def load_params(path: str, dtype=torch.float64, device=None) -> dict:

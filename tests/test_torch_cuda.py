@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels against their plain torch versions, and the training
+path against its float64 CPU run, on the card.
 
 Imports no jax, so that it runs where only the port is installed:
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from closed_loop_seeg_speech_synthesis_tpu_torch.models import lda
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as fd
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import framing
@@ -19,6 +21,7 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import trainer
 
 
 @pytest.fixture
@@ -193,3 +196,47 @@ def test_online_step_launches_k4_and_tracks_offline(rs, cuda_device):
     assert spec_on.shape == spec_off.shape and audio_on.shape == audio_off.shape
     flips = 1.0 - torch.isclose(spec_on, spec_off, rtol=1e-4, atol=1e-5).double().mean().item()
     assert flips < 0.02, flips
+
+
+def _session(rs, seconds, C, sr=1024, audio_sr=48000):
+    """Word-locked synthetic recording (examples/demo.py): each 3 s trial has
+    2 s of a 120 Hz burst on half the channels and a voiced harmonic stack
+    in the audio, then 1 s of rest."""
+    eeg = rs.randn(seconds * sr, C)
+    audio = 1e-4 * rs.randn(seconds * audio_sr)
+    t_a = np.arange(2 * audio_sr) / audio_sr
+    burst = np.sin(2 * np.pi * 120 * np.arange(2 * sr) / sr)
+    for i in range(seconds // 3):
+        wid = i % 5
+        eeg[i * 3 * sr : i * 3 * sr + 2 * sr, : C // 2] += (1.0 + 0.4 * wid) * burst[:, None]
+        voiced = sum((0.4 / h) * np.sin(2 * np.pi * h * (150 + 30 * wid) * t_a) for h in range(1, 26))
+        audio[i * 3 * audio_sr : i * 3 * audio_sr + 2 * audio_sr] += 0.3 * voiced / np.abs(voiced).max()
+    return eeg, audio
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_tracks_the_cpu_path(rs, cuda_device):
+    """trainer.train at 60 s x 32 ch on the card against the float64 CPU path
+    (the one tests/test_torch_train.py holds to the JAX package): in float64
+    the same features and coefficients within rtol 1e-6; in float32 (the
+    card's default) >= 95% of the same features, >= 98% of the training-set
+    labels predicted alike, the same missing intervals, the quantizer's
+    medians and borders within 5e-3 log-mel (chip_smoke.py's limit)."""
+    eeg, audio = _session(rs, 60, 32)
+    host = trainer.train(eeg, audio, 1024, 48000, [2])
+    f64 = trainer.train(eeg, audio, 1024, 48000, [2], dtype=torch.float64, device=cuda_device)
+    assert f64.lda.coef.device.type == "cuda"
+    np.testing.assert_array_equal(f64.select, host.select)
+    c_host = host.lda.coef.numpy()
+    np.testing.assert_allclose(f64.lda.coef.cpu().numpy(), c_host, rtol=1e-6,
+                               atol=1e-6 * np.abs(c_host).max())
+    f32 = trainer.train(eeg, audio, 1024, 48000, [2], device=cuda_device)
+    assert f32.lda.coef.dtype == torch.float32
+    assert len(set(f32.select.tolist()) & set(host.select.tolist())) >= 0.95 * len(host.select)
+    p32 = lda.predict(f32.lda, torch.as_tensor(f32.x_train, device=cuda_device)).cpu()
+    p64 = lda.predict(host.lda, torch.as_tensor(host.x_train))
+    assert (p32 == p64).double().mean().item() >= 0.98
+    assert f32.missing == host.missing
+    for name in ("medians", "borders"):
+        err = np.abs(getattr(f32, name) - getattr(host, name)).max()
+        assert err < 5e-3, (name, err)

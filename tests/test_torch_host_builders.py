@@ -12,6 +12,7 @@ from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
 from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
 from closed_loop_seeg_speech_synthesis_tpu.ops import iir as j_iir
 from closed_loop_seeg_speech_synthesis_tpu.ops import mel as j_mel
+from closed_loop_seeg_speech_synthesis_tpu.ops import quantization as j_q
 from closed_loop_seeg_speech_synthesis_tpu.ops import smoothing as j_sm
 from closed_loop_seeg_speech_synthesis_tpu.ops import stft as j_stft
 from closed_loop_seeg_speech_synthesis_tpu.ops.pallas_frontend import epilogue_constants as j_epi
@@ -22,6 +23,7 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.ops import framing as t_fr
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir as t_iir
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import mel as t_mel
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import quantization as t_q
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import smoothing as t_sm
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import stft as t_stft
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend import epilogue_constants as t_epi
@@ -146,3 +148,30 @@ def test_epilogue_constants_equal(rng):
                   torch.as_tensor(classes), torch.as_tensor(medians), torch.as_tensor(kern), C)
     for a, b in zip(t_out, j_out):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_offline_window_grid_equal(sr):
+    """The training grid: window starts and the constant window length."""
+    total = int(sr * 7) + 13
+    starts = t_fr.offline_window_starts(0.05, 0.01, sr, total)
+    _eq(starts, j_fr.offline_window_starts(0.05, 0.01, sr, total))
+    assert t_fr.offline_window_len(0.05, sr, starts) == j_fr.offline_window_len(0.05, sr, starts)
+    assert t_fr.offline_window_len(0.05, sr) == j_fr.offline_window_len(0.05, sr)
+
+
+def test_training_spectrogram_constants_equal():
+    """The symmetric Hann window of the training spectrogram, its DFT and mel
+    matrices at 256 points (16 ms at 16 kHz), and the quantizer's sigmoid
+    grids.  XLA evaluates jnp.linspace's formula with a reciprocal multiply
+    and fused multiply-adds, so a grid point may differ by up to two ulps
+    from the same formula in numpy; the representatives' grid is equal."""
+    _eq(t_stft.hann_sym(256), j_stft.hann_sym(256))
+    for a, b in zip(t_mel.mel_matrices(129, 40, 16000), j_mel.mel_matrices(129, 40, 16000)):
+        _eq(a, b)
+    t_b, t_m = t_q.sigmoid_grids(9)
+    for ours, theirs in ((t_b, jnp.linspace(-10.0, 10.0, 10)[1:-1]), (t_m, jnp.linspace(-9.5, 9.5, 9))):
+        theirs = np.asarray(theirs)
+        assert ours.dtype == theirs.dtype == np.float64 and ours.shape == theirs.shape
+        assert (np.abs(ours - theirs) <= 2 * np.spacing(np.abs(theirs))).all()
+    _eq(t_m, np.asarray(jnp.linspace(-9.5, 9.5, 9)))

@@ -242,10 +242,13 @@ def test_audio_sinks_match_jax(rng):
 
 
 def test_streams_pick_a_backend_and_recordings_must_be_hdf5(tmp_path):
+    """The dev streamer reads recordings through io.loaders as the JAX
+    streamer does: HDF5 or XDF by extension, any other file refused."""
     assert t_streams.backend_name("nsx") == "nsx" and t_streams.backend_name("lsl") == "lsl"
     assert t_streams.backend_name() in ("lsl", "nsx")
-    with pytest.raises(ValueError, match="HDF5"):
-        t_streamer.load_recording(str(tmp_path / "rec.xdf"))
+    assert t_streamer.load_speech_file.__module__.endswith("_torch.io.loaders")
+    with pytest.raises(ValueError, match="unknown recording format"):
+        t_streamer.load_speech_file(str(tmp_path / "rec.wav"))
 
 
 def test_jax_streamer_feeds_port_decoder_over_nsx(rng, tmp_path, monkeypatch):

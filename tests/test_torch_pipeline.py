@@ -167,17 +167,23 @@ def test_split_offline_decode_equals_fused_on_cpu(rng, sr):
 
 
 def test_port_imports_no_jax():
-    """The port, its CLIs and its online runtime import neither jax nor the
-    JAX package (nor pylsl, h5py or matplotlib at import time)."""
+    """The port, its CLIs, its online runtime, its trainer and its loaders
+    import neither jax nor the JAX package (nor pylsl, h5py, sklearn or
+    matplotlib at import time)."""
     code = ("import sys; import closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.dev_streamer, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.cli.train, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.trainer, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.io.loaders, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.io.xdf, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.io.inspection, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.online, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.nsx, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.split('.')[0] in ('closed_loop_seeg_speech_synthesis_tpu', 'pylsl', 'h5py', "
-            "'matplotlib')]; "
+            "'matplotlib', 'sklearn')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
