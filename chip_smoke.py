@@ -13,12 +13,19 @@ on one NVIDIA GPU.  Run from the repository root:
    60 s at 2048 Hz; K2 (mel frames -> int16 audio) and K4 (mel frames ->
    Griffin-Lim blocks) without iterations, with the converging phase
    estimator and with the reference's exp(angle) estimator (quality-gated,
-   it is chaotic).
+   it is chaotic); K4's two regimes (the tensor-core kernel above
+   ``cuda_gl.CLUSTER_MAX_B`` blocks, the thread-block cluster at or below)
+   against each other on the session's first 2,048 blocks.  Each kernel's
+   bound (the least time for its work: fp32 FMA at 67 TFLOP/s, 3xTF32 at
+   495/3 TFLOP/s, bytes at 3.35 TB/s) is computed from its shapes, and the
+   8 iterations' DFT products at 30 min are timed as fp32 ``torch.matmul``
+   (TF32 off) for reference.
 4. Drives the offline replay decode through
    ``cli.decode.perform_offline_decoding`` at 128 ch / 1024 Hz / 30 min with
    the launch counters set to 0 first, checks that K1 and K2 launched and
-   that the outputs are finite and shaped right, and times the kernel path
-   against the plain torch path with CUDA events.
+   that the outputs are finite and shaped right, times the kernel path
+   against the plain torch path with CUDA events, and profiles one decode
+   (device busy and idle share, the heaviest kernels).
 5. Decodes the session's first minute on the card and through the float64
    CPU path (the one held bit-equal to the JAX package by the tests) and
    holds the card inside the f32 label-flip budget.
@@ -30,9 +37,10 @@ on one NVIDIA GPU.  Run from the repository root:
    packet, the output has the offline decode's shapes and stays inside its
    f32 budget, ``chunk_steps=4`` is bit-identical to 1; prints the
    per-packet latency percentiles.  Holds K4 against its plain version at
-   the step's own shapes (1-4 blocks, one ragged CUDA block) on the
-   session's mel frames, and the online audio against a run of the same
-   packets with the plain Griffin-Lim.
+   the step's own shapes (1-4 blocks, one cluster) on the session's mel
+   frames, times K4 at B = 4 over 1,000 launches, profiles 200 packets
+   (launches and device time a packet), and holds the online audio against
+   a run of the same packets with the plain Griffin-Lim.
 8. Closes the loop over the native NSX transport:
    ``cli.dev_streamer.stream_eeg`` feeds 20 s to
    ``cli.decode.perform_online_decoding`` in a thread; the received sEEG
@@ -62,6 +70,7 @@ device it exits 1 and prints no result.
 
 import concurrent.futures
 import configparser
+import contextlib
 import dataclasses
 import json
 import os
@@ -81,6 +90,12 @@ K3_ATOL, K4_ATOL, WITHIN_MIN = 1e-4, 2e-4, 0.999         # tests/test_pallas_ker
 AUDIO_SR, TRIAL_S, TRAIN_DECODE_MIN, TRAIN_SLICE_S = 48000, 3, 5, 60
 SELECT_MIN, PREDICT_MIN, R_DIFF_MAX, R_MIN, COEF_RTOL = 0.95, 0.98, 0.02, 0.15, 1e-6
 QUANT_MAX = 5e-3  # log-mel; a quarter of docs/NUMERICS.md:155's max 2e-2 for f32 targets
+# H100 SXM peaks (NVIDIA's data sheet, dense): fp32 FMA outside the tensor
+# cores, TF32 tensor cores (3xTF32 takes three passes), HBM3
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+K4_ONLINE_LAUNCHES, PR3_K4_B4_MS = 1000, 0.656  # PR 3's K4 at B = 4 (PERF.md)
+REGIME_BLOCKS = 2048
+PROFILE_PACKETS = 200
 
 
 def say(*args):
@@ -91,6 +106,96 @@ def check(ok, what):
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
     say(f"  ok: {what}")
+
+
+def bound(fp32_flops, nbytes, tf32x3_flops=0.0):
+    """(ms, "operations" or "bytes"): the least time for the work on one H100."""
+    t_ops = fp32_flops / FP32_FLOPS + 3 * tf32x3_flops / TF32_FLOPS
+    t_mem = nbytes / HBM_BYTES_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
+
+
+@contextlib.contextmanager
+def regime_threshold(cuda_gl, cluster_max_b):
+    """Force the Griffin-Lim regime: launches of B <= cluster_max_b blocks
+    take the cluster kernel, larger ones the tensor cores."""
+    saved, cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B, cluster_max_b
+    try:
+        yield
+    finally:
+        cuda_gl.CLUSTER_MAX_B = saved
+
+
+def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False):
+    """Bound of K4 (or, with ``tail``, K2) on B blocks in the regime its
+    launch picks: both DFT products in 3xTF32 on the tensor cores above
+    CLUSTER_MAX_B, else fp32 FMA; the target magnitudes, the Nyquist bin
+    and K2's overlap-add and low-pass in fp32 FMA.  Bytes: the mel frames
+    and inits read once, the blocks (K4) or int16 audio (K2) written once,
+    and the constants."""
+    frames, kin = 2 * B, 128 if phase_bug else 256
+    dft = 2.0 * frames * iterations * 256 * (256 + kin)
+    other = 2.0 * (frames * NM * 129 + frames * iterations * 2 * 256)
+    mma = cuda_gl.regime(B) == "mma"
+    # the operands the regime reads: the packed hi/lo DFTs or the f32 ones
+    consts = sum(t.numel() * 4 for t in (ops.gl_f32[:1] + ops.gl_f32[3:] + ops.gl_tf32 if mma
+                                         else ops.gl_f32))
+    nbytes = (B + 1) * NM * 4 + B * 480 * 4 + consts
+    if tail:
+        S, n_pow = ops.lp.dim, ops.n_pow
+        other += 2.0 * B * (S * 160 + n_pow * S * S + 160 * S + 160 * 161 / 2)
+        nbytes += B * 160 * 2 + sum(t.numel() * 4 for t in ops.tail_f32)
+    else:
+        nbytes += B * 480 * 4
+    return bound(other, nbytes, dft) if mma else bound(other + dft, nbytes)
+
+
+def frontend_bound(fops, T, C, n_frames, W5=None):
+    """Bound of K1 (with the epilogue's LDA weights ``W5``) or K3: per period
+    of Ls samples and channel the causal Toeplitz product Ls (Ls + 1) / 2,
+    Cpow s and Pmat u 2 S Ls, the boundary step S^2; the windowed power win
+    per frame and channel; K1's LDA (5C, 9 x 40) and smoothing per frame.
+    Bytes: the sEEG read once, mel frames or features written once."""
+    Ls, S = fops.Ls, fops.A_L.shape[0]
+    periods = -(-T // Ls)
+    fma = periods * C * (Ls * (Ls + 1) / 2 + 2 * S * Ls + S * S) + n_frames * C * fops.win
+    nbytes = T * C * 4
+    if W5 is None:
+        nbytes += n_frames * C * 4
+    else:
+        n_out = W5.shape[1] // 9
+        fma += n_frames * (W5.numel() + n_out * n_out)
+        nbytes += n_frames * n_out * 4 + W5.numel() * 4
+    return bound(2.0 * fma, nbytes)
+
+
+def profile(torch, fn, units, unit, top=6):
+    """Run ``fn`` once under torch.profiler: wall and device-busy ms, the
+    idle share, the heaviest device kernels, and kernel launches per
+    ``unit`` (``units`` of them in the run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    events = prof.key_averages()
+    # device-side events only (kernels, copies): a host op's device time
+    # repeats that of the kernels it launched
+    dev = {e.key: e.self_device_time_total / 1e3 for e in events
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(dev.values())
+    launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    say(f"  profile: {wall:.3f} ms (CUDA events), device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / wall:.3f}; {launches / units:.1f} kernel launches a {unit}")
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:top]:
+        say(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {ms * 1e3 / units:9.2f} us a {unit}  {name[:90]}")
 
 
 def cuda_ms(torch, fn, reps=3):
@@ -287,7 +392,8 @@ def training_phase(torch, dev, noise, sr, zero_counts, read_counts):
     n_slice = TRAIN_SLICE_S * sr
     card = trainer.train(eeg[:n_slice], audio[: TRAIN_SLICE_S * AUDIO_SR], sr, AUDIO_SR, [],
                          dtype=torch.float64, device=dev)
-    host = trainer.train(eeg[:n_slice].cpu(), audio[: TRAIN_SLICE_S * AUDIO_SR], sr, AUDIO_SR, [])
+    host = trainer.train(eeg[:n_slice].cpu(), audio[: TRAIN_SLICE_S * AUDIO_SR], sr, AUDIO_SR, [],
+                         device="cpu")
     c_card, c_host = card.lda.coef.cpu().numpy(), host.lda.coef.numpy()
     coef_err = float(np.abs(c_card - c_host).max() / np.abs(c_host).max())
     say(f"  {TRAIN_SLICE_S} s slice, card f64 vs CPU f64: select equal "
@@ -368,7 +474,9 @@ def main():
     check(agree2 >= AGREE_MIN and flips2 < FLIP_MAX, "K1 2048 Hz agreement and label flips")
     k1_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels(*k1_args))
     k1_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels_plain(*k1_args))
-    say(f"  time at {MINUTES} min: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
+    k1_bound = frontend_bound(dec.frontend_ops, T, C, n_frames, k1_args[3])
+    say(f"  time at {MINUTES} min: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound "
+        f"{k1_bound[0]:.3f} ms ({k1_bound[1]}) [{card}]")
 
     # ---- K3: kernel vs plain at the split path's shapes -------------------
     say("== K3 frontend_logpower vs plain")
@@ -389,12 +497,15 @@ def main():
     k3_check(k1_args2[:3] + (k1_args2[7],), f"2048 Hz, {MINUTES_2048} min")
     k3_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower(*k3_args))
     k3_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower_plain(*k3_args))
-    say(f"  time at {MINUTES} min: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms")
+    k3_bound = frontend_bound(dec.frontend_ops, T, C, n_frames)
+    say(f"  time at {MINUTES} min: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, bound "
+        f"{k3_bound[0]:.3f} ms ({k3_bound[1]}) [{card}]")
 
     # ---- K2: kernel vs plain at the main path's shapes --------------------
-    say("== K2 gl_audio vs plain")
+    B_gl = n_frames - 1
+    say(f"== K2 gl_audio vs plain: B = {B_gl} blocks, Griffin-Lim regime {cuda_gl.regime(B_gl)}")
     lm = mel_k.contiguous()
-    rand = gl.default_rand_init(n_frames - 1, 0, 0, torch.float32, dev)
+    rand = gl.default_rand_init(B_gl, 0, 0, torch.float32, dev)
     ops = dec.gl_audio_ops
     # without iterations the block's sample 0 meets the Blackman end value
     # (-1.4e-17) unwindowed: zero that one init sample (tests/test_torch_kernels.py)
@@ -420,7 +531,9 @@ def main():
     check(att_k <= 1.1 * att_p and r_energy > 0.9, "K2 phase_bug=True quality gate")
     k2_ms = cuda_ms(torch, lambda: cuda_gl.gl_audio(lm, rand, ops, GL_NORM, 8, True))
     k2_plain_ms = cuda_ms(torch, lambda: cuda_gl.gl_audio_plain(lm, rand, ops, GL_NORM, 8, True))
-    say(f"  time at {MINUTES} min: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
+    k2_bound = gl_bound(cuda_gl, B_gl, lm.shape[1], 8, True, ops, tail=True)
+    say(f"  time at {MINUTES} min: kernel {k2_ms:.3f} ms (PR 3: 42.72), plain {k2_plain_ms:.3f} ms, "
+        f"bound {k2_bound[0]:.3f} ms ({k2_bound[1]}) [{card}]")
 
     # ---- K4: kernel vs plain at the split path's shapes -------------------
     say("== K4 gl_blocks vs plain")
@@ -442,7 +555,49 @@ def main():
     check(att4_k <= 1.1 * att4_p and r4 > 0.9, "K4 phase_bug=True quality gate")
     k4_ms = cuda_ms(torch, lambda: cuda_gl.gl_blocks(lm, rand, gops, 8, True))
     k4_plain_ms = cuda_ms(torch, lambda: cuda_gl.gl_blocks_plain(lm, rand, gops, 8, True))
-    say(f"  time at {MINUTES} min: kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms")
+    k4_bound = gl_bound(cuda_gl, B_gl, lm.shape[1], 8, True, gops)
+    say(f"  time at {MINUTES} min: kernel {k4_ms:.3f} ms (PR 3: 41.32), plain {k4_plain_ms:.3f} ms, "
+        f"bound {k4_bound[0]:.3f} ms ({k4_bound[1]}) [{card}]")
+
+    # the two regimes on the same blocks: the tensor-core kernel (threshold 0)
+    # against the cluster kernel (threshold REGIME_BLOCKS)
+    say(f"== K4 regimes on the session's first {REGIME_BLOCKS} blocks: tensor cores (3xTF32) vs "
+        f"cluster (fp32)")
+    lm_r = lm[: REGIME_BLOCKS + 1].contiguous()
+
+    def regimes(r, its, bug):
+        out = []
+        for threshold in (0, REGIME_BLOCKS):
+            with regime_threshold(cuda_gl, threshold):
+                out.append(cuda_gl.gl_blocks(lm_r, r[:REGIME_BLOCKS].contiguous(), gops, its, bug))
+        return out
+
+    m0, c0 = regimes(rand0, 0, True)
+    check(torch.equal(m0, c0), "K4 regimes identical without iterations")
+    for name, bug in (("phase_bug=False", False), ("phase_bug=True", True)):
+        m1, c1 = regimes(rand, 8, bug)
+        e_r = (m1 - c1).abs()
+        within_r = (e_r <= K4_ATOL).double().mean().item()
+        say(f"  {name}, 8 iterations: {within_r:.6f} of samples within {K4_ATOL}, max abs err "
+            f"{e_r.max().item():.3e}")
+        if not bug:
+            check(within_r >= WITHIN_MIN, f"K4 regimes agree within atol {K4_ATOL} on >= 99.9% "
+                  "(converging estimator)")
+
+    # the same products as fp32 torch.matmul, for reference (not a library_ms:
+    # no one call computes K4's function)
+    check(not torch.backends.cuda.matmul.allow_tf32, "torch.matmul in full fp32 (TF32 off)")
+    frames_r = torch.randn((2 * B_gl, 256), generator=g, device=dev)
+    fwd_op, inv_op = gops.gl_f32[1], gops.gl_f32[2][:128].contiguous()
+
+    def dft_products():
+        for _ in range(8):
+            (frames_r @ fwd_op)[:, :128] @ inv_op
+
+    mm_ms = cuda_ms(torch, dft_products)
+    say(f"  reference: torch.matmul fp32, the 8 iterations' forward ({2 * B_gl} x 256 x 256) and "
+        f"inverse ({2 * B_gl} x 128 x 256) products: {mm_ms:.3f} ms; all of K4: {k4_ms:.3f} ms [{card}]")
+    del frames_r
 
     # ---- the main path --------------------------------------------------
     say(f"== main path: cli.decode.perform_offline_decoding, {C} ch, {SR} Hz, {MINUTES} min")
@@ -494,6 +649,7 @@ def main():
     check(agree_m >= AGREE_MIN and flips_m < FLIP_MAX and r_m > 0.9,
           "kernel path agrees with the plain path")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile(torch, lambda: pipeline.offline_decode(dec, cfg, eeg), 1, "decode")
 
     # the float64 CPU path is the one held bit-equal to the JAX package
     # (tests/test_torch_pipeline.py): the card's f32 output must stay inside
@@ -503,7 +659,7 @@ def main():
     n_head = len(framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, SR,
                                               head.shape[0] + cfg.prefill))
     ref_spec, ref_audio, _, _ = cli.perform_offline_decoding(
-        loaded, head.cpu(), SR, GL_NORM, rand_init=rand[: n_head - 1].cpu())
+        loaded, head.cpu(), SR, GL_NORM, device="cpu", rand_init=rand[: n_head - 1].cpu())
     card_spec, card_audio, _, _ = cli.perform_offline_decoding(
         loaded, head, SR, GL_NORM, rand_init=rand[: n_head - 1])
     _, flips_ref, _ = mel_agreement(torch, card_spec.double().cpu(), ref_spec)
@@ -580,10 +736,17 @@ def main():
     _, (spec_c4, audio_c4, _), _ = run_online(4)
     check(np.array_equal(spec_c4, spec_on) and np.array_equal(audio_c4, audio_on),
           "chunk_steps=4 bit-identical to chunk_steps=1")
+    d_prof = online.OnlineDecoder(cfg_on, dec_on)
+    d_prof.warmup()
+    for p in packets[:PROFILE_PACKETS]:  # past the start-up packets
+        d_prof.process_packet(p)
+    profile(torch, lambda: [d_prof.process_packet(p)
+                            for p in packets[PROFILE_PACKETS : 2 * PROFILE_PACKETS]],
+            PROFILE_PACKETS, "packet")
 
     # K4 at the step's own shapes: B = 1..4 blocks of consecutive mel frames
-    # of this session with their block-indexed inits, one CUDA block of 8
-    # with the ragged tile masked
+    # of this session with their block-indexed inits, one cluster of 4
+    # blocks with the ragged blocks masked
     gops_on = dec_on.gl_audio_ops
     small = {"iterations=0": [], "phase_bug=False": [], "phase_bug=True": []}
     for k in range(0, spec_ref.shape[0] - 5, 59):
@@ -604,6 +767,15 @@ def main():
     for name in ("phase_bug=False", "phase_bug=True"):
         check((small[name] <= K4_ATOL).double().mean().item() >= WITHIN_MIN,
               f"K4 at B = 1..4 {name} within atol {K4_ATOL} on >= 99.9%")
+    lm4, r4 = spec_ref[:5].contiguous(), gl.block_rand(torch.arange(4, device=dev), 0, torch.float32)
+    cuda_gl.gl_blocks(lm4, r4, gops_on, 8, True)
+    k4_b4_ms = cuda_ms(torch, lambda: [cuda_gl.gl_blocks(lm4, r4, gops_on, 8, True)
+                                       for _ in range(K4_ONLINE_LAUNCHES)]) / K4_ONLINE_LAUNCHES
+    k4_b4_bound = gl_bound(cuda_gl, 4, lm4.shape[1], 8, True, gops_on)
+    say(f"  K4 at B = 4 ({cuda_gl.regime(4)} regime: one cluster of 8 CTAs, cudaLaunchKernelEx): "
+        f"{k4_b4_ms * 1e3:.2f} us a launch over {K4_ONLINE_LAUNCHES} launches (PR 3: "
+        f"{PR3_K4_B4_MS * 1e3:.0f} us), bound {k4_b4_bound[0] * 1e3:.3f} us ({k4_b4_bound[1]}) [{card}]")
+    check(cuda_gl.regime(4) == "cluster", "the online step's K4 launches as a cluster")
 
     # the same packets with the plain Griffin-Lim in the step
     _, (spec_pg, audio_pg, _), pg_launches = run_online(
@@ -714,27 +886,25 @@ def main():
                           for f in ("LDAs.pkl", "training_features.npy", "train.ini", "train.log")),
                   "train CLI artifacts written and loaded")
 
+    def row(name, src, replaces, launches, err, ms, plain_ms, bnd, regime, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"closed_loop_seeg_speech_synthesis_tpu_torch/csrc/{src}",
+                "replaces": f"closed_loop_seeg_speech_synthesis_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, "regime": regime,
+                **extra}
+
     kernels = [
-        {"name": "frontend_decode_mels", "route": "cuda",
-         "source": "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/frontend_decode.cu",
-         "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py:195",
-         "launches": launches["frontend_decode_mels"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "gl_audio", "route": "cuda",
-         "source": "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu",
-         "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:153",
-         "launches": launches["gl_audio"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "frontend_logpower", "route": "cuda",
-         "source": "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/frontend_decode.cu",
-         "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py:94",
-         "launches": split_launches["frontend_logpower"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "gl_blocks", "route": "cuda",
-         "source": "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu",
-         "replaces": "closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:141",
-         "launches": split_launches["gl_blocks"] + on_launches["gl_blocks"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+        row("frontend_decode_mels", "frontend_decode.cu", "pallas_frontend.py:195",
+            launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "fp32"),
+        row("gl_audio", "gl_audio.cu", "pallas_gl.py:153", launches["gl_audio"], k2_err, k2_ms,
+            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl)),
+        row("frontend_logpower", "frontend_decode.cu", "pallas_frontend.py:94",
+            split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "fp32"),
+        row("gl_blocks", "gl_audio.cu", "pallas_gl.py:141",
+            split_launches["gl_blocks"] + on_launches["gl_blocks"], k4_err, k4_ms, k4_plain_ms,
+            k4_bound, cuda_gl.regime(B_gl), online_launches=on_launches["gl_blocks"],
+            online_ms=k4_b4_ms, online_bound_ms=k4_b4_bound[0], online_regime=cuda_gl.regime(4)),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

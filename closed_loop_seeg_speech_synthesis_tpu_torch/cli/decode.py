@@ -16,10 +16,11 @@ artifacts into ``<storage_dir>/<session>/<run>/``: audio.wav,
 spectrogram.npy, sEEG.hdf, decode.ini, decode.log, decoding.png when
 matplotlib is installed, and online first_timestamp.npy and markers.csv.
 
-``--device cuda`` fails where there is no GPU; nothing falls back to the
-CPU.  Not ported, and rejected with an error: ``--persistent``,
-``--profile`` and ``--vocoder exact-host``.  h5py is imported where files
-are read or written; matplotlib where the plot is drawn.
+``--device`` defaults to cuda and fails where there is no GPU; nothing
+falls back to the CPU, which runs only with ``--device cpu``.  Not ported,
+and rejected with an error: ``--persistent``, ``--profile`` and
+``--vocoder exact-host``.  h5py is imported where files are read or
+written; matplotlib where the plot is drawn.
 """
 
 from __future__ import annotations
@@ -78,14 +79,14 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
     """Batch replay (reference decode.py:71-96).
 
     eeg: (T, C) array or tensor including bad channels.  ``device`` defaults
-    to the tensor's device (the CPU for an array); ``dtype`` to float64 on
-    the CPU and float32 on CUDA.  ``options`` are further DecoderConfig
-    fields.  Returns (spectrogram, audio) tensors plus the input and its
-    rate."""
+    to the card whatever the input's device (pass ``"cpu"`` to decode on the
+    CPU); ``dtype`` to float64 on the CPU and float32 on CUDA.  ``options``
+    are further DecoderConfig fields.  Returns (spectrogram, audio) tensors
+    plus the input and its rate."""
     if vocoder != "device":
         raise NotImplementedError(f"vocoder={vocoder!r} is not ported yet; use 'device'")
+    device = pipeline.resolve_device(device)
     eeg_t = torch.as_tensor(eeg)
-    device = torch.device(device) if device is not None else eeg_t.device
     dtype = dtype or pipeline.default_compute_dtype(device)
     mask = np.ones(eeg_t.shape[1], bool)
     mask[np.asarray(loaded["bad_channels"], int)] = False
@@ -101,15 +102,16 @@ def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
                             chunk_steps=1, rand_init=None):
     """Closed loop against a live stream (reference decode.py:99-149).
 
-    ``device`` defaults to the CPU, ``dtype`` to float64 on the CPU and
-    float32 on CUDA.  ``chunk_steps=K`` decodes K buffered packets per call
-    (bit-identical output, (K-1) packet periods more playout latency).
+    ``device`` defaults to the card (pass ``"cpu"`` to decode on the CPU),
+    ``dtype`` to float64 on the CPU and float32 on CUDA.  ``chunk_steps=K``
+    decodes K buffered packets per call (bit-identical output, (K-1) packet
+    periods more playout latency).
     ``rand_init``: a (n_blocks, 480) table of Griffin-Lim inits indexed by
     global block index; by default the block-indexed inits of seed 0.
     Returns (spectrogram, audio, received sEEG, rate) as numpy arrays."""
     from ..runtime.streams import StreamInlet
 
-    device = torch.device(device or "cpu")
+    device = pipeline.resolve_device(device)
     dtype = dtype or pipeline.default_compute_dtype(device)
     stream_name = config["Decoding"]["stream_name"]
     inlet = StreamInlet(stream_name, backend=backend)
@@ -184,8 +186,8 @@ def main(argv=None):
     parser.add_argument("--run")
     parser.add_argument("--session")
     parser.add_argument("--seeg_file", help="Decode from file instead of the live stream.")
-    parser.add_argument("--device", default=None,
-                        help="torch device; default cuda when available, else cpu.")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda); --device cpu runs on the CPU.")
     parser.add_argument("--rand_init", metavar="NPY", default=None,
                         help="Griffin-Lim inits, one 480-sample row per block (offline: "
                              "(n_frames-1, 480); online: indexed by global block index); "
@@ -210,9 +212,10 @@ def main(argv=None):
         parser.error("--vocoder exact-host is not ported")
     if args.dispatch_chunk < 1:
         parser.error("--dispatch-chunk must be >= 1")
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error("--device cuda: no CUDA device is available")
+        parser.error(f"--device {device}: no CUDA device is visible; pass --device cpu "
+                     "to run on the CPU")
 
     config = config_mod.load_config(args.config)
     config_mod.merge_args(config, {

@@ -12,9 +12,9 @@ training_features.npy / train.log, and trainset.png / coeffs.png when
 Training->draw_plots is set (train.py:171-205).  The same files as the JAX
 CLI writes; both packages' ``load_params`` read them.
 
-``--device`` defaults to cuda when a GPU is visible, else cpu; ``--device
-cuda`` without a GPU is an error (nothing falls back to the CPU).  Training
-runs in float32 on CUDA and float64 on the CPU.  The audio is dithered with
+``--device`` defaults to cuda, and without a visible GPU that is an error:
+nothing falls back to the CPU, which runs only with ``--device cpu``.
+Training runs in float32 on CUDA and float64 on the CPU.  The audio is dithered with
 N(0, 1e-4) noise (train.py:99) drawn from ``main``'s ``rng``.  h5py, sklearn
 and matplotlib are imported where files are written and plots drawn.
 """
@@ -80,12 +80,13 @@ def main(argv=None, rng: np.random.RandomState | None = None):
     parser.add_argument("--session", help="Name of the session.")
     parser.add_argument("--storage_dir", help="Path to the storage_dir.")
     parser.add_argument("--channels", help="Comma separated channel regex patterns.")
-    parser.add_argument("--device", default=None,
-                        help="torch device; default cuda when available, else cpu.")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda); --device cpu runs on the CPU.")
     args = parser.parse_args(argv)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error("--device cuda: no CUDA device is available")
+        parser.error(f"--device {device}: no CUDA device is visible; pass --device cpu "
+                     "to run on the CPU")
     rng = rng if rng is not None else np.random.RandomState()
 
     config = config_mod.load_config(args.config)

@@ -1,48 +1,82 @@
-// Vocoder, two entry points.  Plain float32 FMA (no TF32, no mma), sm_90a.
+// Vocoder, two entry points, sm_90a.
 //   gl_audio: logMel frames (B+1, n_mel) + block inits (B, 480) -> int16
-//     audio (B*160,); launches 1-3 below.
-//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py
+//     audio (B*160,): Griffin-Lim (one of the two kernels below), then
+//     ola_kernel and lowpass_kernel.
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:153
 //     _gl_audio_kernel (entry gl_audio_pallas).
-//   gl_blocks: the same inputs -> reconstructed blocks (B, 480) before the
-//     overlap-add; launch 1 alone, with either phase estimator.  The split
-//     vocoder and the online step (B = 4 blocks a packet) call it.
-//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py
+//   gl_blocks: the same inputs -> Griffin-Lim blocks (B, 480) before the
+//     overlap-add, with either phase estimator; the Griffin-Lim launch alone.
+//     The split vocoder (180,000 blocks at 30 minutes) and the online step
+//     (1-4 blocks a packet) call it.
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:141
 //     _gl_kernel (entry gl_blocks_pallas).
 //
-// What bounds it on an H100: fp32 arithmetic in the Griffin-Lim loop, and
-// the L2 traffic of its DFT operands.  Each iteration of each 480-sample
-// block is a forward and an inverse 256-point real DFT of two frames, ~262 k
-// FMAs; at 8 iterations over the 180,000 blocks of a 30-minute session that
-// is ~380 G FMA, against ~350 MB of inits read once.  The tail (overlap-add,
-// low-pass, int16) is ~2.5 G FMA and streams the blocks once more.
+// Work.  Each iteration of each 480-sample block windows its two frames
+// (samples [0, 256) and [160, 416)), takes their forward 256-point real DFT
+// as a (2, 256) x (256, 256) product with make_rdft's [cos | sin] matrix
+// without the Nyquist bin (pallas_gl._split_nyquist), the Nyquist bin as a
+// +-1 dot product, the phase step per bin (exp(angle) with DC/Nyquist forced
+// to 0 or pi, phase_bug=1; or the unit phasor), the inverse as a (2, K) x
+// (K, 256) product (K = 128 under exp(angle), whose imaginary part is 0,
+// else 256) plus the Nyquist row, windows it and overlaps the two frames
+// into the block; the target magnitude is exp(logmel) @ Minv with
+// non-finite values scrubbed to 0.  The DFT operands are make_rdft's f32
+// bytes: a 256-entry cos table indexed by n*k mod 256 differs from them in
+// ~900 elements per matrix (the f64 angle 2*pi*n*k/256 is rounded before
+// the cos), and the exp(angle) iteration is chaotic, so another operand is
+// another result.
 //
-// Design.  The TPU kernel walks block tiles in order and carries the
-// overlap-add tails and the low-pass state in scratch.  Here:
-//   1. gl_blocks: one CUDA block runs all iterations for 8 audio blocks (16
-//      frames) resident in shared memory.  The four f32 DFT operands of
-//      pallas_gl._split_nyquist (cos|sin forward, 256x256; cos;sin inverse,
-//      256x256) are 512 KB and do not fit in shared memory, so they stream
-//      from L2: thread j owns output column j, reads one matrix element per
-//      step, coalesced, and applies it to all 16 frames held in registers
-//      (frames are n-major in shared memory, read as broadcast float4s).
-//      A 256-entry cos/sin table indexed by n*k mod 256 was rejected: it
-//      differs from make_rdft's f32 matrices in ~900 elements per matrix
-//      (the f64 angle 2*pi*n*k/256 is rounded before the cos), and the
-//      exp(angle) iteration is chaotic, so the operands must be the same
-//      bytes.  The Nyquist bin is exactly real and is a 16-lane reduction.
-//      Phase: atan2f with DC/Nyquist forced to 0 or pi (phase_bug=1), or the
-//      unit phasor (phase_bug=0).  Blocks go to a (B, 480) scratch.
-//   2. ola: chunk b = (G[b][0:160] + G[b-1][160:320] + G[b-2][320:480]) times
-//      the window-sum reciprocal (rows 0 and 1 have partial sums), and the
-//      low-pass input term q_b = Pmat chunk_b.
-//   3. lowpass: the state before row b is the 16-term truncated power sum
-//      sum_p (A^160)^p q_{b-1-p} (spectral radius 0.988^160 ~ 0.145, so the
-//      truncation is ~4e-14), which makes every row independent; then
-//      y = Cpow s_b + Tmat chunk_b, clip, scale, truncate to int16.
+// What bounds it on an H100, and the two regimes (the caller picks one by B:
+// ops/cuda_gl.regime):
+//   * Large B (replay: 180,000 blocks, 283 G FMA at 8 iterations under
+//     exp(angle), against 2 x 0.35 GB of inits and blocks): arithmetic,
+//     8.5 ms at the fp32 FMA peak (67 TFLOP/s), 3.4 ms at the 3xTF32 rate of
+//     the tensor cores (495/3 TFLOP/s).  gl_mma_kernel runs both products on
+//     the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32: with a = a_hi +
+//     a_lo and b = b_hi + b_lo, a*b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in
+//     fp32 accumulators (the dropped a_lo b_lo is ~2^-22 relative), so the
+//     products keep fp32 accuracy; single-pass TF32 is not used.  A CTA holds
+//     32 blocks (64 frames, the M of both products) in shared memory for all
+//     iterations.  Each of its 8 warps owns 16 bins of the forward product
+//     (their cos and sin columns, so the phase step runs on the accumulators
+//     in registers) and 32 output samples of the inverse.  The operands'
+//     hi/lo split is built once on the host (ops/cuda_gl.py) in mma fragment
+//     order; each warp streams its own k-slabs through a 4-stage cp.async
+//     ring in shared memory (a product's first slabs are issued before the
+//     barrier that precedes it), so every operand element leaves L2 once per
+//     64 frames (the fp32 kernel this replaces read it once per 16).  Frames
+//     are split in registers.  The tensor cores add into their accumulator
+//     rounding toward zero; summed over all k-steps in one accumulator, that
+//     puts the blocks 3-4x further from float64 than an fp32 product's
+//     (gl_kernel_probe.py).  So each k-step's three products go to a fresh
+//     accumulator that is added to the running sum in fp32.  The phase step, the Nyquist
+//     bin and the overlap-add stay fp32 on the CUDA cores.
+//   * Small B (the online step: 1-4 blocks, 8 frames, ~0.8 M FMA an
+//     iteration): latency.  One CTA on one SM walks 8 iterations of dependent
+//     L2 reads of 512 KB of operands.  gl_cluster_kernel spreads a group of
+//     4 blocks over a thread-block cluster of 8 CTAs on 8 SMs: CTA r loads its
+//     slices of the f32 operands into shared memory once per launch (the cos
+//     and sin columns of bins [16r, 16r+16), 32 KB; the inverse rows times
+//     output samples [32r, 32r+32), <= 32 KB) and computes them in fp32 FMA.
+//     Each iteration the phase-corrected bins and the output samples are
+//     exchanged through distributed shared memory, with a cluster barrier
+//     after each product; no operand is read from L2 after the first.
+// The tail of gl_audio:
+//   ola: chunk b = (G[b][0:160] + G[b-1][160:320] + G[b-2][320:480]) times
+//     the window-sum reciprocal (rows 0 and 1 have partial sums), and the
+//     low-pass input term q_b = Pmat chunk_b.
+//   lowpass: the state before row b is the 16-term truncated power sum
+//     sum_p (A^160)^p q_{b-1-p} (spectral radius 0.988^160 ~ 0.145, so the
+//     truncation is ~4e-14), which makes every row independent; then
+//     y = Cpow s_b + Tmat chunk_b, clip, scale, truncate to int16.
 // Every C entry point returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -50,145 +84,438 @@ constexpr int FFT = 256;
 constexpr int HOP = 160;
 constexpr int BLK = 480;
 constexpr int NBIN = FFT / 2;  // 128 bins besides Nyquist
-constexpr int NB = 8;           // audio blocks per CUDA block
-constexpr int NF = 2 * NB;      // frames per CUDA block
-constexpr int XS = NF + 4;      // padded row of the spectrum buffer
 constexpr int MAX_S = 32;
 constexpr float PI_F = 3.14159265358979323846f;
 
-__global__ void __launch_bounds__(FFT) gl_blocks_kernel(
-    const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
-    const float* __restrict__ fm, const float* __restrict__ im, const float* __restrict__ fnyq,
-    const float* __restrict__ inyq, const float* __restrict__ win, float* __restrict__ G,
-    int B, int NM, int iterations, int phase_bug) {
-  extern __shared__ __align__(16) float smem[];
-  float* wav = smem;                     // (NB, BLK)
-  float* frt = wav + NB * BLK;           // (FFT, NF) windowed frames, then z = [zr; zi]
-  float* xs = frt + FFT * NF;            // (FFT, XS) forward spectrum, then (NF, FFT) frames out
-  float* spec = xs + FFT * XS;           // (NF, NBIN + 1) target magnitudes
-  float* ex = spec + NF * (NBIN + 1);    // (NF, NM) exp(logmel)
-  float* w = ex + NF * NM;               // (FFT) window
-  float* xn = w + FFT;                   // (NF) Nyquist bin
-  float* zn = xn + NF;                   // (NF) Nyquist phase-corrected
-  const int b0 = blockIdx.x * NB;
-  const int t = threadIdx.x;
-  w[t] = win[t];
-  for (int i = t; i < NB * BLK; i += FFT) {
-    const int b = b0 + i / BLK;
-    wav[i] = b < B ? rnd[(size_t)b * BLK + i % BLK] : 0.f;
+// Phase step of one bin: exp(angle(x)) without the 1j (GriffinLim.py:93),
+// the DC bin being exactly real (angle 0 or pi), or the unit phasor.
+__device__ __forceinline__ void phase_step(float xr, float xi, float sp, bool dc, int phase_bug,
+                                           float& zr, float& zi) {
+  if (phase_bug) {
+    const float ang = dc ? (xr < 0.f ? PI_F : 0.f) : atan2f(xi, xr);
+    zr = sp * expf(ang);
+    zi = 0.f;
+  } else {
+    const float r = sqrtf(xr * xr + xi * xi);
+    const bool safe = r > 0.f;
+    const float inv = safe ? 1.f / r : 0.f;
+    zr = sp * (safe ? xr * inv : 1.f);
+    zi = sp * (xi * inv);
   }
-  for (int i = t; i < NF * NM; i += FFT) {
-    const int f = i / NM, b = b0 + (f >> 1);  // frame f: block f/2, mel row block + f%2
-    ex[i] = b < B ? expf(lm[(size_t)(b + (f & 1)) * NM + i % NM]) : 0.f;
-  }
-  __syncthreads();
-  // target magnitude exp(logmel) @ Minv, non-finite values scrubbed to 0
-  for (int i = t; i < NF * (NBIN + 1); i += FFT) {
-    const int f = i / (NBIN + 1), k = i % (NBIN + 1);
-    float s = 0.f;
-    for (int m = 0; m < NM; ++m) s = fmaf(ex[f * NM + m], __ldg(minv + m * (NBIN + 1) + k), s);
-    spec[i] = isfinite(s) ? s : 0.f;
-  }
-  __syncthreads();
-  for (int it = 0; it < iterations; ++it) {
-    for (int i = t; i < FFT * NF; i += FFT) {
-      const int n = i / NF, f = i % NF;
-      frt[i] = wav[(f >> 1) * BLK + (f & 1) * HOP + n] * w[n];
-    }
-    __syncthreads();
-    {  // forward DFT: column t of [F_cos | F_sin] for all frames
-      float acc[NF];
+}
+
+// The Nyquist bin is exactly real: angle 0 or pi.
+__device__ __forceinline__ float nyquist_phase(float x, float sp, int phase_bug) {
+  return phase_bug ? sp * expf(x < 0.f ? PI_F : 0.f) : sp * (x < 0.f ? -1.f : 1.f);
+}
+
+// ---- large B: 3xTF32 tensor-core products -----------------------------------
+
+constexpr int MB = 32;             // audio blocks per CTA
+constexpr int MF = 2 * MB;         // frames per CTA: the M of both products
+constexpr int MWARPS = 8;
+constexpr int MTHREADS = 32 * MWARPS;
+constexpr int AS = FFT + 4;        // frame-buffer row stride: A fragment loads hit 32 banks
+constexpr int SS = NBIN + 4;       // target-magnitude row stride (129 used)
+constexpr int NT = 4;              // n-tiles of 8 columns per warp
+constexpr int MTL = MF / 16;       // m-tiles of 16 frames
+constexpr int STAGES = 4;          // cp.async ring depth per warp
+constexpr int KSTEPS = FFT / 8;    // k-steps of 8 in the packed operands
+static_assert(MTHREADS == FFT, "one thread per window sample");
+
+// x rounded to TF32 (10 explicit mantissa bits, nearest, ties away from zero:
+// cvt.rna.tf32.f32) with integer operations
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The operand of a product is (ksteps, NT, 32 lanes) float4s, each lane's
+// (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n]) with k = 8 ks + lane%4 and n
+// the tile's column lane/4: exactly the lane's B fragments, so a lane copies
+// and reads only its own ring slots (no warp barrier).  mma_prefetch issues a
+// product's first STAGES-1 k-slabs; it runs ahead of the barrier before the
+// product, once the previous product has read the ring.
+__device__ __forceinline__ void mma_prefetch(const float4* __restrict__ bpk, float4* ring,
+                                             int lane) {
 #pragma unroll
-      for (int f = 0; f < NF; ++f) acc[f] = 0.f;
-      for (int n = 0; n < FFT; ++n) {
-        const float m = __ldg(fm + n * FFT + t);
-        const float4* v4 = reinterpret_cast<const float4*>(frt + n * NF);
+  for (int s = 0; s < STAGES - 1; ++s) {
 #pragma unroll
-        for (int q = 0; q < NF / 4; ++q) {
-          const float4 v = v4[q];
-          acc[4 * q] = fmaf(v.x, m, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(v.y, m, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v.z, m, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v.w, m, acc[4 * q + 3]);
-        }
+    for (int nt = 0; nt < NT; ++nt)
+      cp_async16(ring + (s * NT + nt) * 32 + lane, bpk + (s * NT + nt) * 32 + lane);
+    cp_async_commit();
+  }
+}
+
+// acc[mt][nt] = a[16 mt .. 16 mt + 16, 0 .. 8 ksteps) x this warp's packed
+// operand, n-tile nt, after mma_prefetch(bpk, ring, lane).
+__device__ __forceinline__ void mma_product(const float* __restrict__ a,
+                                            const float4* __restrict__ bpk, float4* ring,
+                                            int ksteps, float (&acc)[MTL][NT][4], int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MTL; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    cp_async_wait<STAGES - 2>();  // k-step ks has landed
+    const int nx = ks + STAGES - 1;  // refill the slot that k-step ks-1 used
+    if (nx < ksteps)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        cp_async16(ring + ((nx % STAGES) * NT + nt) * 32 + lane, bpk + (nx * NT + nt) * 32 + lane);
+    cp_async_commit();
+    float4 b[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) b[nt] = ring[((ks % STAGES) * NT + nt) * 32 + lane];
+    const float* ak = a + g * AS + 8 * ks + q;
+#pragma unroll
+    for (int mt = 0; mt < MTL; ++mt) {
+      const float* r = ak + 16 * mt * AS;
+      const float v[4] = {r[0], r[8 * AS], r[4], r[8 * AS + 4]};
+      uint32_t hi[4], lo[4];  // the mma reads lo's top 10 mantissa bits
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[i] = tf32_hi(v[i]);
+        lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
       }
-      float4* xo = reinterpret_cast<float4*>(xs + t * XS);
+      // the tensor cores add into their accumulator rounding toward zero:
+      // each k-step sums into a fresh one, added to acc rounding to nearest
 #pragma unroll
-      for (int q = 0; q < NF / 4; ++q)
-        xo[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t bh0 = __float_as_uint(b[nt].x), bh1 = __float_as_uint(b[nt].y);
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(c, lo, bh0, bh1);
+        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(c, hi, bh0, bh1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
+      }
     }
-    {  // Nyquist bin (exactly real): 16 lanes per frame
-      const int f = t >> 4, part = t & 15;
+  }
+}
+
+constexpr size_t MMA_SMEM = (size_t)(4 * MWARPS * STAGES * NT * 32 + MF * AS + MF * SS + 3 * FFT +
+                                     2 * MF) * sizeof(float);
+
+__global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
+    const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
+    const float4* __restrict__ fpk, const float4* __restrict__ ipk,
+    const float* __restrict__ fnyq, const float* __restrict__ inyq,
+    const float* __restrict__ win, float* __restrict__ G, int B, int NM, int iterations,
+    int phase_bug) {
+  extern __shared__ __align__(16) float smem[];
+  float4* ring = reinterpret_cast<float4*>(smem);  // (MWARPS, STAGES, NT, 32)
+  float* a = smem + 4 * MWARPS * STAGES * NT * 32; // (MF, AS): frames, Z, Y
+  float* spec = a + MF * AS;                       // (MF, SS) target magnitudes
+  float* w = spec + MF * SS;                       // (FFT) window
+  float* wn = w + FFT;                             // (FFT) forward Nyquist column
+  float* wi = wn + FFT;                            // (FFT) inverse Nyquist row
+  float* xn = wi + FFT;                            // (MF) Nyquist bin
+  float* zn = xn + MF;                             // (MF) Nyquist bin, phase-corrected
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int b0 = blockIdx.x * MB;
+  if (iterations == 0) {
+    for (int i = t; i < MB * BLK; i += MTHREADS) {
+      const int b = b0 + i / BLK;
+      if (b < B) G[(size_t)b * BLK + i % BLK] = rnd[(size_t)b * BLK + i % BLK];
+    }
+    return;
+  }
+  // the frames as 16-byte copies, all in flight while the target magnitudes
+  // are computed (exp(logmel) staged in the ring, free until the first product)
+  for (int i = t; i < MF * (FFT / 4); i += MTHREADS) {
+    const int f = i / (FFT / 4), c = 4 * (i % (FFT / 4)), b = b0 + (f >> 1);
+    if (b < B)
+      cp_async16(a + f * AS + c, rnd + (size_t)b * BLK + (f & 1) * HOP + c);
+    else
+      *reinterpret_cast<float4*>(a + f * AS + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cp_async_commit();
+  w[t] = win[t];
+  wn[t] = fnyq[t];
+  wi[t] = inyq[t];
+  float* ex = reinterpret_cast<float*>(ring);  // (NM, MF), NM <= 256
+  for (int i = t; i < MF * NM; i += MTHREADS) {
+    const int f = i % MF, m = i / MF, b = b0 + (f >> 1);  // frame f: block f/2, mel row block + f%2
+    ex[i] = b < B ? expf(lm[(size_t)(b + (f & 1)) * NM + m]) : 0.f;
+  }
+  __syncthreads();
+  {  // thread (half, k): bin k of 32 frames, one Minv load per 32 FMAs;
+     // threads t < MF also the Nyquist bin of frame t
+    const int k = t & (NBIN - 1), f0 = (t >> 7) * (MF / 2);
+    float sk[MF / 2], sn = 0.f;
+#pragma unroll
+    for (int j = 0; j < MF / 2; ++j) sk[j] = 0.f;
+    for (int m = 0; m < NM; ++m) {
+      const float mv = __ldg(minv + m * (NBIN + 1) + k);
+      const float4* e4 = reinterpret_cast<const float4*>(ex + m * MF + f0);
+#pragma unroll
+      for (int j = 0; j < MF / 8; ++j) {
+        const float4 v = e4[j];
+        sk[4 * j] = fmaf(v.x, mv, sk[4 * j]);
+        sk[4 * j + 1] = fmaf(v.y, mv, sk[4 * j + 1]);
+        sk[4 * j + 2] = fmaf(v.z, mv, sk[4 * j + 2]);
+        sk[4 * j + 3] = fmaf(v.w, mv, sk[4 * j + 3]);
+      }
+      if (t < MF) sn = fmaf(ex[m * MF + t], __ldg(minv + m * (NBIN + 1) + NBIN), sn);
+    }
+#pragma unroll
+    for (int j = 0; j < MF / 2; ++j) spec[(f0 + j) * SS + k] = isfinite(sk[j]) ? sk[j] : 0.f;
+    if (t < MF) spec[t * SS + NBIN] = isfinite(sn) ? sn : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = t; i < MF * FFT; i += MTHREADS) a[(i / FFT) * AS + i % FFT] *= w[i % FFT];
+  __syncthreads();
+  float acc[MTL][NT][4];
+  float4* wring = ring + warp * STAGES * NT * 32;
+  const float4* wfpk = fpk + (size_t)warp * KSTEPS * NT * 32;
+  const float4* wipk = ipk + (size_t)warp * KSTEPS * NT * 32;
+  mma_prefetch(wfpk, wring, lane);
+  for (int it = 0; it < iterations; ++it) {
+    // forward: bins [16 warp, 16 warp + 16), cos columns in n-tiles 0-1, sin in 2-3
+    mma_product(a, wfpk, wring, KSTEPS, acc, lane);
+    mma_prefetch(wipk, wring, lane);
+    {  // Nyquist bin: 4 lanes per frame
+      const int f = t >> 2, part = t & 3;
       float s = 0.f;
-      for (int n = part; n < FFT; n += 16) s = fmaf(frt[n * NF + f], __ldg(fnyq + n), s);
-      for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      for (int n = part; n < FFT; n += 4) s = fmaf(a[f * AS + n], wn[n], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
       if (part == 0) xn[f] = s;
     }
     __syncthreads();
-    {  // phase: thread owns bin t&127 of 8 frames
-      const int k = t & (NBIN - 1), fg = t >> 7;
-      for (int f = fg * (NF / 2); f < (fg + 1) * (NF / 2); ++f) {
-        const float xr = xs[k * XS + f];
-        const float xi = -xs[(NBIN + k) * XS + f];
-        const float sp = spec[f * (NBIN + 1) + k];
-        float zr, zi;
-        if (phase_bug) {
-          // exp(angle(x)) without the 1j (GriffinLim.py:93); the DC bin is
-          // exactly real, so its angle is 0 or pi
-          const float ang = (k == 0) ? (xr < 0.f ? PI_F : 0.f) : atan2f(xi, xr);
-          zr = sp * expf(ang);
-          zi = 0.f;
-        } else {
-          const float r = sqrtf(xr * xr + xi * xi);
-          const bool safe = r > 0.f;
-          const float inv = safe ? 1.f / r : 0.f;
-          zr = sp * (safe ? xr * inv : 1.f);
-          zi = sp * (xi * inv);
+    // phase step on the accumulators; Z = [zr | zi] replaces the frames
+#pragma unroll
+    for (int mt = 0; mt < MTL; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int f = 16 * mt + g + 8 * (j >> 1);
+          const int k = 16 * warp + 8 * h + 2 * q + (j & 1);
+          float zr, zi;
+          phase_step(acc[mt][h][j], -acc[mt][h + 2][j], spec[f * SS + k], k == 0, phase_bug, zr,
+                     zi);
+          a[f * AS + k] = zr;
+          if (!phase_bug) a[f * AS + NBIN + k] = zi;
         }
-        frt[k * NF + f] = zr;
-        frt[(NBIN + k) * NF + f] = zi;
-      }
-      if (t < NF) {
-        const float sp = spec[t * (NBIN + 1) + NBIN];
-        const float s = xn[t];
-        zn[t] = phase_bug ? sp * expf(s < 0.f ? PI_F : 0.f) : sp * (s < 0.f ? -1.f : 1.f);
-      }
-    }
+    if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);
     __syncthreads();
-    {  // inverse DFT: column t of [I_cos; I_sin] (the sin rows vanish when phase_bug)
-      float acc[NF];
+    // inverse: output samples [32 warp, 32 warp + 32); the sin rows vanish under phase_bug
+    mma_product(a, wipk, wring, phase_bug ? KSTEPS / 2 : KSTEPS, acc, lane);
+    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);
+    __syncthreads();
 #pragma unroll
-      for (int f = 0; f < NF; ++f) acc[f] = 0.f;
-      const int kmax = phase_bug ? NBIN : FFT;
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float m = __ldg(im + kk * FFT + t);
-        const float4* z4 = reinterpret_cast<const float4*>(frt + kk * NF);
+    for (int mt = 0; mt < MTL; ++mt)
 #pragma unroll
-        for (int q = 0; q < NF / 4; ++q) {
-          const float4 v = z4[q];
-          acc[4 * q] = fmaf(v.x, m, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(v.y, m, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v.z, m, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v.w, m, acc[4 * q + 3]);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int f = 16 * mt + g + 8 * (j >> 1);
+          const int n = 32 * warp + 8 * nt + 2 * q + (j & 1);
+          a[f * AS + n] = (acc[mt][nt][j] + zn[f] * wi[n]) * w[n];
+        }
+    __syncthreads();
+    // overlap-add within each block (warp-local): the next windowed frames,
+    // or after the last iteration the block itself (samples [416, 480) are 0)
+    for (int bl = warp; bl < MB; bl += MWARPS) {
+      float* y0 = a + 2 * bl * AS;
+      float* y1 = y0 + AS;
+      if (it + 1 < iterations) {
+        float n0[FFT / 32], n1[FFT / 32];
+#pragma unroll
+        for (int i = 0; i < FFT / 32; ++i) {
+          const int n = lane + 32 * i;
+          n0[i] = (y0[n] + (n >= HOP ? y1[n - HOP] : 0.f)) * w[n];
+          n1[i] = ((n < FFT - HOP ? y0[n + HOP] : 0.f) + y1[n]) * w[n];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < FFT / 32; ++i) {
+          y0[lane + 32 * i] = n0[i];
+          y1[lane + 32 * i] = n1[i];
+        }
+      } else if (b0 + bl < B) {
+        for (int s = lane; s < BLK; s += 32) {
+          float v = 0.f;
+          if (s < FFT) v += y0[s];
+          if (s >= HOP && s < HOP + FFT) v += y1[s - HOP];
+          G[(size_t)(b0 + bl) * BLK + s] = v;
         }
       }
-      const float ny = __ldg(inyq + t), wn = w[t];
-#pragma unroll
-      for (int f = 0; f < NF; ++f) xs[f * FFT + t] = (acc[f] + zn[f] * ny) * wn;
-    }
-    __syncthreads();
-    for (int i = t; i < NB * BLK; i += FFT) {
-      const int g = i / BLK, r = i % BLK;
-      float v = 0.f;
-      if (r < FFT) v += xs[(2 * g) * FFT + r];
-      if (r >= HOP && r < HOP + FFT) v += xs[(2 * g + 1) * FFT + r - HOP];
-      wav[i] = v;
     }
     __syncthreads();
   }
-  for (int i = t; i < NB * BLK; i += FFT) {
+}
+
+// ---- small B: one thread-block cluster per 4 blocks ------------------------
+
+constexpr int CL = 8;                  // CTAs per cluster (the portable maximum)
+constexpr int CB = 4;                  // audio blocks per cluster
+constexpr int CF = 2 * CB;             // frames per cluster
+constexpr int CBIN = NBIN / CL;        // forward bins per CTA
+constexpr int CCOL = FFT / CL;         // inverse output samples per CTA
+constexpr int CTHREADS = CF * 2 * CBIN;
+constexpr int CSS = CBIN + 1;          // own bins + the Nyquist bin
+static_assert(CTHREADS == FFT && CF * CCOL == CTHREADS && CF * 32 == CTHREADS,
+              "one thread per (frame, own column); one warp per frame");
+
+constexpr size_t cluster_smem(int NM) {
+  return (size_t)(FFT * 2 * CBIN + FFT * CCOL + 2 * CF * FFT + CB * BLK + 2 * CF * 2 * CBIN +
+                  CF * CCOL + 2 * FFT + 2 * CF + CF * CSS + CF * NM) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
+    const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
+    const float* __restrict__ fm, const float* __restrict__ im, const float* __restrict__ fnyq,
+    const float* __restrict__ inyq, const float* __restrict__ win, float* __restrict__ G, int B,
+    int NM, int iterations, int phase_bug) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  float* fs = smem;                  // (FFT, 2 CBIN) cos | sin columns of own bins
+  float* is = fs + FFT * 2 * CBIN;   // (FFT, CCOL) inverse rows x own output samples
+  float* frm = is + FFT * CCOL;      // (CF, FFT) windowed frames
+  float* zf = frm + CF * FFT;        // (CF, FFT) the cluster's phase-corrected bins [zr | zi]
+  float* wav = zf + CF * FFT;        // (CB, BLK) blocks
+  float* xl = wav + CB * BLK;        // (CF, 2 CBIN) forward product, own columns
+  float* zl = xl + CF * 2 * CBIN;    // (CF, 2 CBIN) own phase-corrected bins (read by the cluster)
+  float* yl = zl + CF * 2 * CBIN;    // (CF, CCOL) own output samples (read by the cluster)
+  float* w = yl + CF * CCOL;         // (FFT) window
+  float* wn = w + FFT;               // (FFT) forward Nyquist column
+  float* xn = wn + FFT;              // (CF) Nyquist bin
+  float* zn = xn + CF;               // (CF) Nyquist bin, phase-corrected
+  float* spec = zn + CF;             // (CF, CSS) target magnitudes of own bins + Nyquist
+  float* ex = spec + CF * CSS;       // (CF, NM) exp(logmel)
+  const int r = (int)cluster.block_rank();
+  const int t = threadIdx.x;
+  const int b0 = (blockIdx.x / CL) * CB;
+  const int kin = phase_bug ? NBIN : FFT;
+  for (int i = t; i < CB * BLK; i += CTHREADS) {
     const int b = b0 + i / BLK;
-    if (b < B) G[(size_t)b * BLK + i % BLK] = wav[i];
+    wav[i] = b < B ? rnd[(size_t)b * BLK + i % BLK] : 0.f;
+  }
+  if (iterations > 0) {  // operand slices: 16-byte copies, all in flight at once
+    for (int i = t; i < FFT * 2 * CBIN / 4; i += CTHREADS) {
+      const int n = i / (CBIN / 2), j = 4 * (i % (CBIN / 2));
+      cp_async16(fs + 4 * i, fm + n * FFT + (j < CBIN ? 0 : NBIN) + CBIN * r + j % CBIN);
+    }
+    for (int i = t; i < kin * CCOL / 4; i += CTHREADS)
+      cp_async16(is + 4 * i, im + (i / (CCOL / 4)) * FFT + CCOL * r + 4 * (i % (CCOL / 4)));
+    cp_async_commit();
+    w[t] = win[t];
+    wn[t] = fnyq[t];
+    for (int i = t; i < CF * NM; i += CTHREADS) {
+      const int f = i / NM, b = b0 + (f >> 1);
+      ex[i] = b < B ? expf(lm[(size_t)(b + (f & 1)) * NM + i % NM]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = t; i < CF * CSS; i += CTHREADS) {
+      const int f = i / CSS, j = i % CSS, k = j < CBIN ? CBIN * r + j : NBIN;
+      float s = 0.f;
+      for (int m = 0; m < NM; ++m) s = fmaf(ex[f * NM + m], __ldg(minv + m * (NBIN + 1) + k), s);
+      spec[i] = isfinite(s) ? s : 0.f;
+    }
+    cp_async_wait<0>();
+  }
+  const int f = t >> 5, lane = t & 31;  // warp f owns frame f
+  for (int it = 0; it < iterations; ++it) {
+    __syncthreads();
+    for (int i = t; i < CF * FFT; i += CTHREADS) {
+      const int ff = i / FFT, n = i % FFT;
+      frm[i] = wav[(ff >> 1) * BLK + (ff & 1) * HOP + n] * w[n];
+    }
+    __syncthreads();
+    {  // forward: thread (f, lane) = own column lane of frame f
+      const float4* x4 = reinterpret_cast<const float4*>(frm + f * FFT);
+      float s = 0.f;
+      for (int n4 = 0; n4 < FFT / 4; ++n4) {
+        const float4 v = x4[n4];
+        const float* col = fs + 4 * n4 * 2 * CBIN + lane;
+        s = fmaf(v.x, col[0], s);
+        s = fmaf(v.y, col[2 * CBIN], s);
+        s = fmaf(v.z, col[4 * CBIN], s);
+        s = fmaf(v.w, col[6 * CBIN], s);
+      }
+      xl[f * 2 * CBIN + lane] = s;
+      float sn = 0.f;  // Nyquist bin of frame f
+      for (int n = lane; n < FFT; n += 32) sn = fmaf(frm[f * FFT + n], wn[n], sn);
+      for (int off = 16; off > 0; off >>= 1) sn += __shfl_xor_sync(0xffffffffu, sn, off);
+      if (lane == 0) xn[f] = sn;
+    }
+    __syncthreads();
+    if (t < CF * CBIN) {
+      const int ff = t / CBIN, kl = t % CBIN;
+      float zr, zi;
+      phase_step(xl[ff * 2 * CBIN + kl], -xl[ff * 2 * CBIN + CBIN + kl], spec[ff * CSS + kl],
+                 CBIN * r + kl == 0, phase_bug, zr, zi);
+      zl[ff * 2 * CBIN + kl] = zr;
+      zl[ff * 2 * CBIN + CBIN + kl] = zi;
+    }
+    if (t < CF) zn[t] = nyquist_phase(xn[t], spec[t * CSS + CBIN], phase_bug);
+    cluster.sync();  // every CTA's zl is written
+    for (int i = t; i < CF * kin; i += CTHREADS) {
+      const int ff = i / kin, kk = i % kin, k = kk % NBIN;
+      const float* src = cluster.map_shared_rank(zl, k / CBIN);
+      zf[ff * FFT + kk] = src[ff * 2 * CBIN + (kk / NBIN) * CBIN + k % CBIN];
+    }
+    __syncthreads();
+    {  // inverse: thread (f, lane) = own output sample lane of frame f
+      const float4* z4 = reinterpret_cast<const float4*>(zf + f * FFT);
+      float s = 0.f;
+      for (int k4 = 0; k4 < kin / 4; ++k4) {
+        const float4 v = z4[k4];
+        const float* col = is + 4 * k4 * CCOL + lane;
+        s = fmaf(v.x, col[0], s);
+        s = fmaf(v.y, col[CCOL], s);
+        s = fmaf(v.z, col[2 * CCOL], s);
+        s = fmaf(v.w, col[3 * CCOL], s);
+      }
+      const int n = CCOL * r + lane;
+      yl[f * CCOL + lane] = (s + zn[f] * __ldg(inyq + n)) * w[n];
+    }
+    cluster.sync();  // every CTA's yl is written; every zl read
+    for (int i = t; i < CB * BLK; i += CTHREADS) {  // overlap-add from the cluster's samples
+      const int bl = i / BLK, s = i % BLK;
+      float v = 0.f;
+      if (s < FFT) v += cluster.map_shared_rank(yl, s / CCOL)[2 * bl * CCOL + s % CCOL];
+      if (s >= HOP && s < HOP + FFT)
+        v += cluster.map_shared_rank(yl, (s - HOP) / CCOL)[(2 * bl + 1) * CCOL + (s - HOP) % CCOL];
+      wav[i] = v;
+    }
+    // the next writes of zl and yl follow the next cluster barrier, which
+    // every CTA reaches only after these reads
+  }
+  cluster.sync();  // no CTA leaves while the cluster still reads its yl
+  for (int i = t; i < CB * (BLK / CL); i += CTHREADS) {  // CTA r writes samples [60 r, 60 r + 60)
+    const int bl = i / (BLK / CL), s = (BLK / CL) * r + i % (BLK / CL);
+    if (b0 + bl < B) G[(size_t)(b0 + bl) * BLK + s] = wav[bl * BLK + s];
   }
 }
 
@@ -238,15 +565,41 @@ __global__ void __launch_bounds__(HOP) lowpass_kernel(
   out[(size_t)b * HOP + n] = (short)(int)v;  // C conversion truncates toward zero
 }
 
+// Griffin-Lim of B blocks into G: a cluster of 8 CTAs per 4 blocks when
+// use_cluster, else the tensor-core kernel, 32 blocks a CTA.
 cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
-                             const float* fm, const float* im, const float* fnyq,
-                             const float* inyq, const float* win, float* G, int B, int NM,
-                             int iterations, int phase_bug, cudaStream_t stream) {
-  const size_t smem = (size_t)(NB * BLK + FFT * NF + FFT * XS + NF * (NBIN + 1) + NF * NM +
-                               FFT + 2 * NF) * sizeof(float);
-  cudaFuncSetAttribute(gl_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  gl_blocks_kernel<<<(B + NB - 1) / NB, FFT, smem, stream>>>(lm, rnd, minv, fm, im, fnyq, inyq,
-                                                             win, G, B, NM, iterations, phase_bug);
+                             const float* fm, const float* im, const float4* fpk,
+                             const float4* ipk, const float* fnyq, const float* inyq,
+                             const float* win, float* G, int B, int NM, int iterations,
+                             int phase_bug, int use_cluster, cudaStream_t stream) {
+  cudaError_t err;
+  if (use_cluster) {
+    const size_t smem = cluster_smem(NM);
+    if ((err = cudaFuncSetAttribute(gl_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL * ((B + CB - 1) / CB));
+    cfg.blockDim = dim3(CTHREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel, lm, rnd, minv, fm, im, fnyq, inyq, win,
+                                  G, B, NM, iterations, phase_bug)) != cudaSuccess)
+      return err;
+    return cudaGetLastError();
+  }
+  if ((err = cudaFuncSetAttribute(gl_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)MMA_SMEM)) != cudaSuccess)
+    return err;
+  gl_mma_kernel<<<(B + MB - 1) / MB, MTHREADS, MMA_SMEM, stream>>>(
+      lm, rnd, minv, fpk, ipk, fnyq, inyq, win, G, B, NM, iterations, phase_bug);
   return cudaGetLastError();
 }
 
@@ -254,20 +607,23 @@ cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* min
 
 extern "C" int gl_blocks(const float* lm, const float* rnd, const float* minv, const float* fm,
                          const float* im, const float* fnyq, const float* inyq, const float* win,
-                         float* G, int B, int NM, int iterations, int phase_bug,
-                         cudaStream_t stream) {
-  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM, iterations,
-                               phase_bug, stream);
+                         const float* fpk, const float* ipk, float* G, int B, int NM,
+                         int iterations, int phase_bug, int use_cluster, cudaStream_t stream) {
+  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, reinterpret_cast<const float4*>(fpk),
+                               reinterpret_cast<const float4*>(ipk), fnyq, inyq, win, G, B, NM,
+                               iterations, phase_bug, use_cluster, stream);
 }
 
 extern "C" int gl_audio(const float* lm, const float* rnd, const float* minv, const float* fm,
                         const float* im, const float* fnyq, const float* inyq, const float* win,
-                        const float* winv, const float* pmatT, const float* apow,
-                        const float* cpow, const float* h, float* G, float* CH, float* Q,
-                        short* out, int B, int NM, int S, int n_pow, int iterations,
-                        int phase_bug, float denom, cudaStream_t stream) {
-  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
-                                     iterations, phase_bug, stream);
+                        const float* fpk, const float* ipk, const float* winv,
+                        const float* pmatT, const float* apow, const float* cpow, const float* h,
+                        float* G, float* CH, float* Q, short* out, int B, int NM, int S,
+                        int n_pow, int iterations, int phase_bug, int use_cluster, float denom,
+                        cudaStream_t stream) {
+  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, reinterpret_cast<const float4*>(fpk),
+                                     reinterpret_cast<const float4*>(ipk), fnyq, inyq, win, G, B,
+                                     NM, iterations, phase_bug, use_cluster, stream);
   if (err != cudaSuccess) return (int)err;
   ola_kernel<<<B, HOP, 0, stream>>>(G, winv, pmatT, CH, Q, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

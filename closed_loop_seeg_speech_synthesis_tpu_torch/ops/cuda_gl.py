@@ -10,6 +10,13 @@ the (B, 480) blocks (the split vocoder and the online step).  The CUDA
 source of both is ``csrc/gl_audio.cu``; ``gl_audio_plain`` and
 ``gl_blocks_plain`` are the same functions in plain torch, the former with
 the low-pass boundary states from the same 16-term truncated power sum.
+
+The Griffin-Lim launch has two regimes, picked by the number of blocks B:
+up to ``CLUSTER_MAX_B`` blocks (the online step's 1-4) a thread-block
+cluster of 8 CTAs per 4 blocks computes the DFTs in fp32 FMA from the f32
+operands held in shared memory; above it (replay) a tensor-core kernel
+computes them in 3xTF32 from the operands' hi/lo split, which
+``make_gl_audio_ops`` builds once, in mma fragment order (``gl_tf32``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,11 @@ from . import _build
 from .griffinlim import BLOCK_SAMPLES, FFT_SIZE, HOP, StreamingGLOps, streaming_gl_blocks, to_int16
 from .iir import BlockedIIR, StateSpace, blocked_operators, make_blocked_iir
 
+# Largest B that the cluster kernel takes; above it the tensor-core kernel
+# (on an H100 the two cross between 448 and 512 blocks: PERF.md).
+CLUSTER_MAX_B = 448
+_MMA_WARPS = 8  # warps of a tensor-core CTA, each owning 4 n-tiles of 8 columns
+
 
 @dataclasses.dataclass
 class GLAudioOps:
@@ -35,6 +47,8 @@ class GLAudioOps:
     apow: torch.Tensor    # (n_pow, S, S) powers (A^HOP)^p, p < n_pow
     winv: torch.Tensor    # (3, HOP) window-sum reciprocal of rows 0, 1 and >= 2
     gl_f32: tuple         # Griffin-Lim operands of K2 and K4 (_gl_operands)
+    gl_tf32: tuple        # forward and inverse DFT operands split hi/lo for 3xTF32,
+                          # in mma fragment order (_pack_fragments)
     tail_f32: tuple       # K2's tail: winv, Pmat^T, apow, Cpow, Tmat[:, 0]
 
     @property
@@ -56,6 +70,42 @@ def _gl_operands(gl: StreamingGLOps) -> tuple:
             _f32(rd.I_cos[Km]), _f32(gl.window))
 
 
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits, ties away
+    from zero), as ``cvt.rna.tf32.f32`` rounds on the card."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) with hi = tf32(m) and lo = tf32(m - hi): m - hi is exact in
+    float32, and hi + lo is m within 2^-22 relative."""
+    hi = tf32_round(m)
+    return hi, tf32_round(np.asarray(m, np.float32) - hi)
+
+
+def fragment_columns(forward: bool) -> np.ndarray:
+    """(8 warps, 4 n-tiles) first column of each 8-column tile a warp of the
+    tensor-core kernel owns: forward, the cos and sin columns of bins
+    [16w, 16w + 16); inverse, output samples [32w, 32w + 32)."""
+    w = np.arange(_MMA_WARPS)[:, None]
+    if forward:
+        return 16 * w + np.array([0, 8, FFT_SIZE // 2, FFT_SIZE // 2 + 8])
+    return 32 * w + 8 * np.arange(4)
+
+
+def _pack_fragments(m: torch.Tensor, forward: bool) -> torch.Tensor:
+    """(256, 256) float32 operand -> its 3xTF32 B fragments (warp, k-step,
+    n-tile, lane, 4): lane l of k-step s holds (hi[k][n], hi[k+4][n],
+    lo[k][n], lo[k+4][n]) with k = 8 s + l % 4 and n = tile column + l // 4."""
+    hi, lo = tf32_split(m.cpu().numpy())
+    lane = np.arange(32)
+    k = (8 * np.arange(m.shape[0] // 8)[:, None] + lane % 4)[None, :, None, :]
+    n = (fragment_columns(forward)[:, :, None] + lane // 4)[:, None, :, :]
+    packed = np.stack([hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]], axis=-1)
+    return torch.as_tensor(np.ascontiguousarray(packed), device=m.device)
+
+
 def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float64,
                       device=None, n_pow: int = 16) -> GLAudioOps:
     """Host-side (float64) construction.  ``n_pow`` = 16 puts the truncation of
@@ -70,7 +120,9 @@ def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float
     winv = torch.where(wsum != 0, 1.0 / torch.where(wsum != 0, wsum, torch.ones_like(wsum)),
                        torch.ones_like(wsum)).to(device)
     lp = make_blocked_iir(lowpass, HOP, dtype, device)
-    return GLAudioOps(gl=gl, lp=lp, apow=apow, winv=winv, gl_f32=_gl_operands(gl),
+    gl_f32 = _gl_operands(gl)
+    return GLAudioOps(gl=gl, lp=lp, apow=apow, winv=winv, gl_f32=gl_f32,
+                      gl_tf32=(_pack_fragments(gl_f32[1], True), _pack_fragments(gl_f32[2], False)),
                       tail_f32=(_f32(winv), _f32(lp.Pmat.T), _f32(apow), _f32(lp.Cpow),
                                 _f32(lp.Tmat[:, 0])))
 
@@ -78,7 +130,7 @@ def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float
 def _check_inputs(what: str, dev: torch.device, log_mels: torch.Tensor,
                   rand_init: torch.Tensor, gl: StreamingGLOps) -> None:
     """Raise unless log_mels (B+1, NM) and rand_init (B, 480) are contiguous
-    float32 on ``dev`` and the kernel takes NM."""
+    float32 on ``dev``, rand_init 16-byte aligned, and the kernel takes NM."""
     B, NM = rand_init.shape[0], log_mels.shape[1]
     for name, t, shape in (("log_mels", log_mels, (B + 1, NM)),
                            ("rand_init", rand_init, (B, BLOCK_SAMPLES))):
@@ -87,6 +139,9 @@ def _check_inputs(what: str, dev: torch.device, log_mels: torch.Tensor,
             raise ValueError(f"{what}: {name} must be a contiguous float32 tensor of "
                              f"shape {shape} on {dev}; got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+    if rand_init.data_ptr() % 16:
+        raise ValueError(f"{what}: rand_init must start on a 16-byte boundary (the kernel "
+                         "copies it in 16-byte pieces)")
     if not 1 <= NM <= 256 or gl.Minv.shape != (NM, FFT_SIZE // 2 + 1):
         raise ValueError(f"{what} kernel takes 1..256 mel bins matching Minv; got {NM}, "
                          f"Minv {tuple(gl.Minv.shape)}")
@@ -101,12 +156,20 @@ def gl_blocks_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudi
     return streaming_gl_blocks(log_mels.to(dt), rand_init.to(dt), ops.gl, iterations, phase_bug)
 
 
+def regime(B: int) -> str:
+    """Which Griffin-Lim kernel a launch of B blocks runs; the wrappers pass
+    the choice to launch_gl_blocks in csrc/gl_audio.cu.  Reads CLUSTER_MAX_B
+    at each call, so setting it forces a regime (0: always the tensor cores)."""
+    return "cluster" if B <= CLUSTER_MAX_B else "mma"
+
+
 def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
               iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
     """Kernel K4: log_mels (B+1, n_mel), rand_init (B, 480) -> Griffin-Lim
     blocks (B, 480) before the overlap-add; block b uses frames b and b+1.
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/gl_audio.cu`` (float32) or raises."""
+    ``csrc/gl_audio.cu`` (float32) in the regime ``regime(B)`` names, or
+    raises."""
     if log_mels.device.type == "cpu":
         return gl_blocks_plain(log_mels, rand_init, ops, iterations, phase_bug)
     dev = log_mels.device
@@ -117,10 +180,10 @@ def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     G = torch.empty((B, BLOCK_SAMPLES), dtype=torch.float32, device=dev)
     if B == 0:
         return G
-    fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 9, 4)
-    ptrs = (log_mels, rand_init, *ops.gl_f32, G)
+    fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 11, 5)
+    ptrs = (log_mels, rand_init, *ops.gl_f32, *ops.gl_tf32, G)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, int(iterations), int(bool(phase_bug)),
-             torch.cuda.current_stream(dev).cuda_stream)
+             int(regime(B) == "cluster"), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_blocks")
     gl_blocks.launches += 1
     return G
@@ -153,7 +216,8 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
              norm: float, iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
     """log_mels (B+1, n_mel), rand_init (B, 480) -> int16 audio (B*160,).
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/gl_audio.cu`` (float32) or raises."""
+    ``csrc/gl_audio.cu`` (float32, Griffin-Lim in the regime ``regime(B)``
+    names) or raises."""
     if log_mels.device.type == "cpu":
         return gl_audio_plain(log_mels, rand_init, ops, norm, iterations, phase_bug)
     dev = log_mels.device
@@ -172,10 +236,11 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     CH = torch.empty((B, HOP), dtype=torch.float32, device=dev)
     Q = torch.empty((B, S), dtype=torch.float32, device=dev)
     out = torch.empty(B * HOP, dtype=torch.int16, device=dev)
-    fn = _build.bind(_build.load("gl_audio"), "gl_audio", 17, 6, 1)
-    ptrs = (log_mels, rand_init, *ops.gl_f32, *ops.tail_f32, G, CH, Q, out)
+    fn = _build.bind(_build.load("gl_audio"), "gl_audio", 19, 7, 1)
+    ptrs = (log_mels, rand_init, *ops.gl_f32, *ops.gl_tf32, *ops.tail_f32, G, CH, Q, out)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, S, ops.n_pow, int(iterations),
-             int(bool(phase_bug)), float(norm * 1.01), torch.cuda.current_stream(dev).cuda_stream)
+             int(bool(phase_bug)), int(regime(B) == "cluster"), float(norm * 1.01),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_audio")
     gl_audio.launches += 1
     return out

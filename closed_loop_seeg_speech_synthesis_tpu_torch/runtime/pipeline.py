@@ -44,6 +44,17 @@ from ..ops.cuda_frontend import (FrontendOps, epilogue_constants, frontend_decod
 from ..ops.cuda_gl import GLAudioOps, gl_audio, gl_blocks, gl_blocks_plain, make_gl_audio_ops
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    card.  Raises where a CUDA device is asked for and none is visible;
+    nothing falls back to the CPU, which runs only when asked for."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is visible; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def default_compute_dtype(device) -> torch.dtype:
     """float64 on the CPU (the golden numerics), float32 on CUDA (the kernels)."""
     return torch.float64 if torch.device(device).type == "cpu" else torch.float32
@@ -119,11 +130,12 @@ class DecoderParams:
 
 
 def build_decoder_params(cfg: DecoderConfig, lda_params: lda_mod.LDAParams,
-                         medians: np.ndarray, select: np.ndarray, device="cpu",
+                         medians: np.ndarray, select: np.ndarray, device=None,
                          exact_smooth: bool = True) -> DecoderParams:
-    """Design-time construction (host, float64) of all device operators."""
+    """Design-time construction (host, float64) of all device operators, on
+    ``device`` (default the card; see ``resolve_device``)."""
     dt = cfg.dtype
-    device = torch.device(device)
+    device = resolve_device(device)
     to = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
     chain = fd.high_gamma_bank(cfg.sr, cfg.line_noise)
     combined, warm = iir.make_warmstart_chain(chain, cfg.prefill)

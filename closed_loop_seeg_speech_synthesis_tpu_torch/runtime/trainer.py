@@ -118,17 +118,18 @@ def train(eeg, audio: np.ndarray, eeg_sr: float, audio_sr: float,
     """Full training (reference train.py:132-168).
 
     eeg: (T, C_all) raw array or tensor; audio: (T_a,) in [-1, 1] float;
-    bad_channels: indices to exclude.  ``device`` defaults to eeg's (the CPU
-    for an array), ``dtype`` to float64 on the CPU and float32 on CUDA.
+    bad_channels: indices to exclude.  ``device`` defaults to the card
+    whatever eeg's device (pass ``"cpu"`` to train on the CPU), ``dtype`` to
+    float64 on the CPU and float32 on CUDA.
     Audio is decimated by 3 to 16 kHz exactly as the reference does
     (train.py:125, scipy.signal.decimate defaults).  ``timings``, when
     given, receives the milliseconds of each stage: features, decimate,
     spectrogram, quantization, selection, lda_fit.
     """
-    from .pipeline import default_compute_dtype
+    from .pipeline import default_compute_dtype, resolve_device
 
+    device = resolve_device(device)
     eeg = torch.as_tensor(eeg)
-    device = torch.device(device) if device is not None else eeg.device
     dtype = dtype or default_compute_dtype(device)
     clock = _StageClock(timings, device)
     bad_channels = np.asarray(bad_channels, int)

@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Measurements behind the design of the Griffin-Lim kernel that K2 and K4
+share (``closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu``), on
+one NVIDIA GPU.  Run from the repository root:
+
+    python3 gl_kernel_probe.py
+
+1. Accuracy against float64: the f32 plain version, the cluster kernel and
+   the tensor-core kernel on the same blocks (converging estimator), and a
+   variant of the tensor-core kernel that sums every k-step's products in
+   one tensor-core accumulator (the design adds each k-step's sum in fp32).
+2. The regime threshold: both kernels timed at B = 4 .. 4,224 blocks
+   (``cuda_gl.CLUSTER_MAX_B`` is where they cross), and the tensor-core
+   kernel at 180,000 blocks (30 minutes) with both estimators.
+3. Where each kernel's time goes: a copy of the source with clock64 stamps
+   at its phase boundaries (CTA 0, thread 0), the tensor-core kernel at one
+   wave (4,224 blocks), the cluster kernel at the online step's B = 4.
+
+The variants are copies of the source edited here (``variants``; its
+anchors are held to the source by tests/test_torch_gl_split.py) and built
+with the same nvcc flags into build/kernels/; the package's own build is
+untouched.
+Prints the card's name and power limit first.  Without a CUDA device it
+exits 1.
+"""
+
+import concurrent.futures
+import contextlib
+import ctypes
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+SRC = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu"
+ONE_ACC = ('''        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(c, lo, bh0, bh1);
+        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(c, hi, bh0, bh1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];''', '''        mma_tf32(acc[mt][nt], lo, bh0, bh1);
+        mma_tf32(acc[mt][nt], hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(acc[mt][nt], hi, bh0, bh1);''')
+# (text the stamp follows, stamp) in each kernel; slot = 8 * iteration + stamp
+MMA_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n", 0),
+              ("    mma_prefetch(wipk, wring, lane);\n", 1),
+              ("      if (part == 0) xn[f] = s;\n    }\n    __syncthreads();\n", 2),
+              ("    if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);\n"
+               "    __syncthreads();\n", 3),
+              ("    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);\n", 4),
+              ("          a[f * AS + n] = (acc[mt][nt][j] + zn[f] * wi[n]) * w[n];\n        }\n"
+               "    __syncthreads();\n", 5),
+              ("          G[(size_t)(b0 + bl) * BLK + s] = v;\n        }\n      }\n    }\n"
+               "    __syncthreads();\n", 6)]
+MMA_PHASES = ["forward product", "Nyquist + barrier", "phase step + barrier", "inverse product",
+              "barrier + epilogue + barrier", "overlap-add + barrier"]
+CLUSTER_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n    __syncthreads();\n", 0),
+                  ("      frm[i] = wav[(ff >> 1) * BLK + (ff & 1) * HOP + n] * w[n];\n    }\n"
+                   "    __syncthreads();\n", 1),
+                  ("      if (lane == 0) xn[f] = sn;\n    }\n    __syncthreads();\n", 2),
+                  ("    cluster.sync();  // every CTA's zl is written\n", 3),
+                  ("      zf[ff * FFT + kk] = src[ff * 2 * CBIN + (kk / NBIN) * CBIN + k % CBIN];\n"
+                   "    }\n    __syncthreads();\n", 4),
+                  ("    cluster.sync();  // every CTA's yl is written; every zl read\n", 5),
+                  ("      wav[i] = v;\n    }\n", 6)]
+CLUSTER_PHASES = ["frames + barrier", "forward + Nyquist + barrier", "phase + cluster barrier",
+                  "gather Z + barrier", "inverse + cluster barrier", "overlap-add gather"]
+SLOTS = 8 * 16
+
+
+def stamped(src, kernel, stamps):
+    """``src`` with clock64 stamps after each anchor inside ``kernel``."""
+    start = src.index(f" {kernel}(")
+    end = src.index("\n}\n", start)
+    body = src[start:end]
+    for anchor, k in stamps:
+        if body.count(anchor) != 1:
+            raise ValueError(f"{kernel}: anchor not found once: {anchor!r}")
+        stamp = "    __syncthreads();\n" if kernel == "gl_cluster_kernel" and k == 6 else ""
+        body = body.replace(anchor, anchor + stamp + f"    STAMP(8 * it + {k});\n")
+    body = body.replace("{\n", "{\n  int it = 0;\n  STAMP(127);\n", 1)
+    body = body.replace("for (int it = 0;", "for (it = 0;")
+    return src[:start] + body + src[end:]
+
+
+def variants(src):
+    """The probe's copies of gl_audio.cu: "one_acc" sums every k-step in one
+    tensor-core accumulator; "stamps" records clock64 at the phase
+    boundaries of both Griffin-Lim kernels and adds ``probe_stamps_read``."""
+    if src.count(ONE_ACC[0]) != 1:
+        raise ValueError("gl_mma_kernel: the per-k-step accumulator is not found once")
+    prelude = ("namespace {\n__device__ long long probe_stamps[%d];\n#define STAMP(i) do { if "
+               "(blockIdx.x == 0 && threadIdx.x == 0) probe_stamps[(i)] = clock64(); } while (0)\n"
+               % SLOTS)
+    timed = stamped(stamped(src.replace("namespace {\n", prelude, 1), "gl_mma_kernel", MMA_STAMPS),
+                    "gl_cluster_kernel", CLUSTER_STAMPS)
+    timed += ('\nextern "C" int probe_stamps_read(long long* out) {\n  return (int)cudaMemcpyFromSymbol('
+              'out, probe_stamps, sizeof(probe_stamps));\n}\n')
+    return {"one_acc": src.replace(*ONE_ACC), "stamps": timed}
+
+
+@contextlib.contextmanager
+def regime_threshold(cuda_gl, cluster_max_b):
+    """Launches of B <= cluster_max_b blocks take the cluster kernel."""
+    saved, cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B, cluster_max_b
+    try:
+        yield
+    finally:
+        cuda_gl.CLUSTER_MAX_B = saved
+
+
+def build(_build, name, src):
+    out = os.path.join(str(_build.BUILD_DIR), f"probe_{name}")
+    with open(out + ".cu", "w") as f:
+        f.write(src)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out + ".so", out + ".cu"],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"gl_kernel_probe: nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(out + ".so")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gl_kernel_probe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, cuda_gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as fd
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    srcs = variants(open(SRC).read())
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        kernel = pool.submit(_build.load, "gl_audio")
+        built = {name: pool.submit(build, _build, name, text) for name, text in srcs.items()}
+        libs = {"kernel": kernel.result(), **{name: f.result() for name, f in built.items()}}
+    load = _build.load
+
+    def use(name):
+        _build.load = (lambda _: libs[name]) if name != "kernel" else load
+
+    dev = torch.device("cuda")
+    lp = iir.sos_to_statespace(fd.gl_output_lowpass_sos())
+    ops = cuda_gl.make_gl_audio_ops(gl.make_streaming_gl_ops(40, 16000.0, torch.float32, dev), lp,
+                                    torch.float32, dev)
+    ops64 = cuda_gl.make_gl_audio_ops(gl.make_streaming_gl_ops(40, 16000.0, torch.float64), lp,
+                                      torch.float64)
+    rs = np.random.RandomState(0)
+
+    def frames(B):  # log-mels as a mean-reverting walk, uniform inits
+        x, e = np.zeros((B + 1, 40)), rs.randn(B + 1, 40) * 0.3
+        for i in range(1, B + 1):
+            x[i] = 0.95 * x[i - 1] + e[i]
+        return (torch.as_tensor(x - 1.0, dtype=torch.float32, device=dev),
+                torch.as_tensor(rs.rand(B, 480), dtype=torch.float32, device=dev))
+
+    def ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    big = 10**9
+    print("== accuracy against float64, converging estimator, 8 iterations "
+          "(max and 99.9th percentile of |error|)", flush=True)
+    for B in (4, 203, 1001):
+        lm, rand = frames(B)
+        ref = cuda_gl.gl_blocks_plain(lm.cpu().double(), rand.cpu().double(), ops64, 8, False)
+        runs = [("plain f32", None), ("cluster", big), ("tensor cores", 0),
+                ("tensor cores, one accumulator", 0)]
+        line = []
+        for name, threshold in runs:
+            use("one_acc" if "one" in name else "kernel")
+            if threshold is None:
+                out = cuda_gl.gl_blocks_plain(lm, rand, ops, 8, False)
+            else:
+                with regime_threshold(cuda_gl, threshold):
+                    out = cuda_gl.gl_blocks(lm, rand, ops, 8, False)
+            e = (out.cpu().double() - ref).abs().reshape(-1)
+            line.append(f"{name} {e.max().item():.3e} / {torch.quantile(e, 0.999).item():.3e}")
+        use("kernel")
+        print(f"  B = {B}: " + "; ".join(line), flush=True)
+
+    print(f"== time a launch, phase_bug, 8 iterations (CUDA events) [{card}]", flush=True)
+    for B in (4, 64, 256, 384, 448, 512, 640, 1024, 4224):
+        lm, rand = frames(B)
+        n = 200 if B <= 1024 else 20
+        with regime_threshold(cuda_gl, big):
+            t_c = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True), n)
+        with regime_threshold(cuda_gl, 0):
+            t_m = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True), n)
+        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, tensor cores {t_m * 1e3:.2f} us, "
+              f"picked: {cuda_gl.regime(B)}", flush=True)
+    lm, rand = frames(180_000)
+    for bug in (True, False):
+        print(f"  B = 180000, phase_bug={bug}: tensor cores "
+              f"{ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, bug), 5):.3f} ms", flush=True)
+
+    print("== cycles by phase (clock64, CTA 0, mean over iterations 0-6)", flush=True)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    use("stamps")
+    for label, B, cmax, phases in (("tensor cores, 4224 blocks", 4224, 0, MMA_PHASES),
+                                   ("cluster, 4 blocks", 4, big, CLUSTER_PHASES)):
+        lm, rand = frames(B)
+        with regime_threshold(cuda_gl, cmax):
+            for _ in range(3):
+                cuda_gl.gl_blocks(lm, rand, ops, 8, True)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * SLOTS)()
+        libs["stamps"].probe_stamps_read(buf)
+        st = np.array(buf[:], np.float64)
+        it = st[: 8 * 8].reshape(8, 8)[:, :7]
+        per_it = np.diff(it[:, 0]).mean()
+        parts = np.diff(it, axis=1)[:7].mean(axis=0)
+        print(f"  {label}: launch {st[6 + 8 * 7] - st[127]:.0f} cycles, set-up {it[0, 0] - st[127]:.0f}, "
+              f"an iteration {per_it:.0f}: " + ", ".join(f"{p} {v:.0f} ({100 * v / per_it:.1f}%)"
+                                                       for p, v in zip(phases, parts)), flush=True)
+    use("kernel")
+    print(f"  SM clock during the run: {clock}")
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

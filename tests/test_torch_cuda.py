@@ -9,6 +9,9 @@ Imports no jax, so that it runs where only the port is installed:
 ``torch.cuda.is_available()`` is false.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -68,17 +71,16 @@ def test_frontend_kernel_matches_plain(rs, cuda_device, sr):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("iterations,phase_bug", [(0, True), (8, False)])
-def test_gl_audio_kernel_matches_plain(rs, cuda_device, iterations, phase_bug):
+@pytest.mark.parametrize("B,walk", [(203, "centred"), (203, "ar1"), (1001, "ar1")])
+def test_gl_audio_kernel_matches_plain(rs, cuda_device, B, walk, iterations, phase_bug):
     """Without iterations every sample within 1 LSB; with the converging
-    (phase_bug=False) estimator >= 99.9% of samples within 1 LSB."""
-    B = 203  # not a multiple of the kernel's 8 blocks per CUDA block
-    walk = np.cumsum(rs.randn(B + 1, 40) * 0.15, axis=0)
-    lm = torch.as_tensor(walk - walk.mean() - 1.0, dtype=torch.float32, device=cuda_device)
-    rand = torch.as_tensor(rs.rand(B, 480), dtype=torch.float32, device=cuda_device)
+    (phase_bug=False) estimator >= 99.9% of samples within 1 LSB.  B = 203
+    runs the cluster kernel, B = 1001 the tensor-core kernel; neither is a
+    multiple of its blocks per launch unit (4 and 32).  Frames from either
+    walk of _gl_inputs; the centred one only up to 203 blocks."""
+    lm, rand = _gl_inputs(rs, B, cuda_device, walk)
     rand[0, 0] = 0.0  # see test_torch_kernels.test_gl_audio_plain_matches_pallas_f32_no_iterations
-    ops = cuda_gl.make_gl_audio_ops(gl.make_streaming_gl_ops(40, 16000.0, torch.float32, cuda_device),
-                                    iir.sos_to_statespace(fd.gl_output_lowpass_sos()),
-                                    torch.float32, cuda_device)
+    ops = _gl_ops(cuda_device)
     before = cuda_gl.gl_audio.launches
     a_k = cuda_gl.gl_audio(lm, rand, ops, 10.0, iterations, phase_bug)
     torch.cuda.synchronize()
@@ -132,37 +134,119 @@ def _attainment(re, log_mels, ops):
     return ((alpha * mag - target).norm() / target.norm()).item()
 
 
+def _gl_inputs(rs, B, device, walk="ar1"):
+    """Log-mel frames and uniform inits, float32.  "centred": a random walk
+    with its mean moved to -1; its range grows as sqrt(B) (+-5.3 around -1
+    at 203 blocks, +-11 at 1,001, where exp(log-mel) reaches outputs at
+    which 1 LSB or 2e-4 is below f32 resolution).  "ar1": a mean-reverting
+    walk (coefficient 0.95, standard deviation 0.48) that stays within +-2
+    of -1 at any B."""
+    if walk == "centred":
+        x = np.cumsum(rs.randn(B + 1, 40) * 0.15, axis=0)
+        x -= x.mean()
+    else:
+        x = np.zeros((B + 1, 40))
+        e = rs.randn(B + 1, 40) * 0.15
+        for i in range(1, B + 1):
+            x[i] = 0.95 * x[i - 1] + e[i]
+    lm = torch.as_tensor(x - 1.0, dtype=torch.float32, device=device)
+    return lm, torch.as_tensor(rs.rand(B, 480), dtype=torch.float32, device=device)
+
+
+def _gl_ops(device):
+    return cuda_gl.make_gl_audio_ops(gl.make_streaming_gl_ops(40, 16000.0, torch.float32, device),
+                                     iir.sos_to_statespace(fd.gl_output_lowpass_sos()),
+                                     torch.float32, device)
+
+
+_T = cuda_gl.CLUSTER_MAX_B
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,phase_bug", [(1, True), (4, True), (8, True), (4, False), (203, True),
-                                         (203, False)])
-def test_gl_blocks_kernel_matches_plain(rs, cuda_device, B, phase_bug):
-    """K4 vs its plain version in f32 at the online step's 1-4 blocks, at one
-    full tile of 8 and at a B that is not a multiple of 8.  The converging
-    estimator, and the exp(angle) quirk within one tile: within atol 2e-4
-    (the JAX package's gate, tests/test_pallas_kernels.py:24).  Under the
-    quirk the iteration is chaotic in f32 and a few of 203 blocks drift
-    apart: >= 99% of samples within 2e-4, per-block energy r > 0.9, and
-    attainment of the target spectrogram within 10% of the plain version's."""
-    walk = np.cumsum(rs.randn(B + 1, 40) * 0.15, axis=0)
-    lm = torch.as_tensor(walk - walk.mean() - 1.0, dtype=torch.float32, device=cuda_device)
-    rand = torch.as_tensor(rs.rand(B, 480), dtype=torch.float32, device=cuda_device)
-    ops = cuda_gl.make_gl_audio_ops(gl.make_streaming_gl_ops(40, 16000.0, torch.float32, cuda_device),
-                                    iir.sos_to_statespace(fd.gl_output_lowpass_sos()),
-                                    torch.float32, cuda_device)
+@pytest.mark.parametrize("iterations,phase_bug", [(0, True), (8, False), (8, True)])
+@pytest.mark.parametrize("B,walk", [(B, w) for B in (1, 2, 3, 4, 8, 203) for w in ("centred", "ar1")]
+                         + [(B, "ar1") for B in (_T - 1, _T, _T + 1, 1001)])
+def test_gl_blocks_kernel_matches_plain(rs, cuda_device, B, walk, iterations, phase_bug):
+    """K4 vs its plain version in f32, in the regime its launch picks: the
+    online step's 1-4 blocks, one cluster of 4 blocks and a ragged one, both
+    sides of the regime threshold and a ragged 1,001 (tensor cores); frames
+    from both walks of _gl_inputs up to 203 blocks, the "ar1" one above.
+    Without iterations the inits come back exactly.  The converging
+    estimator: within atol 2e-4 (the JAX package's gate,
+    tests/test_pallas_kernels.py:24) up to 203 blocks; above, where the f32
+    plain version itself leaves it on ~2e-4 of samples, on >= 99.9% of
+    samples.  The exp(angle) quirk: within 2e-4 up to 8 blocks; above, the
+    iteration is chaotic in f32 and a few blocks drift apart: >= 99% of
+    samples within 2e-4, per-block energy r > 0.9, and attainment of the
+    target spectrogram within 10% of the plain version's."""
+    lm, rand = _gl_inputs(rs, B, cuda_device, walk)
+    ops = _gl_ops(cuda_device)
     before = cuda_gl.gl_blocks.launches
-    re_k = cuda_gl.gl_blocks(lm, rand, ops, 8, phase_bug)
+    re_k = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
     torch.cuda.synchronize()
     assert cuda_gl.gl_blocks.launches == before + 1
-    re_p = cuda_gl.gl_blocks_plain(lm, rand, ops, 8, phase_bug)
+    re_p = cuda_gl.gl_blocks_plain(lm, rand, ops, iterations, phase_bug)
     assert re_k.shape == re_p.shape == (B, 480)
     err = (re_k - re_p).abs()
-    if phase_bug and B > 8:
+    if iterations == 0:
+        assert torch.equal(re_k, rand)
+    elif phase_bug and B > 8:
         assert (err < 2e-4).double().mean().item() >= 0.99
         e_k, e_p = (re_k.double() ** 2).sum(1), (re_p.double() ** 2).sum(1)
         assert torch.corrcoef(torch.stack([e_k, e_p]))[0, 1].item() > 0.9
         assert _attainment(re_k, lm, ops.gl) <= 1.1 * _attainment(re_p, lm, ops.gl)
+    elif B > 203:
+        assert (err <= 2e-4).double().mean().item() >= 0.999
     else:
         assert float(err.max()) < 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 1001])
+def test_gl_blocks_regimes_agree(rs, cuda_device, monkeypatch, B):
+    """The tensor-core kernel (CLUSTER_MAX_B = 0) and the cluster kernel
+    (CLUSTER_MAX_B = B) on the same blocks: identical without iterations;
+    the converging estimator within 2e-4 on >= 99.9% of samples."""
+    lm, rand = _gl_inputs(rs, B, cuda_device)
+    ops = _gl_ops(cuda_device)
+    for iterations, phase_bug in ((0, True), (8, False)):
+        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
+        mma = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
+        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", B)
+        cluster = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
+        if iterations == 0:
+            assert torch.equal(mma, cluster)
+        else:
+            assert ((mma - cluster).abs() <= 2e-4).double().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_gl_wrappers_reject_misaligned_inits(rs, cuda_device):
+    """The kernels copy the inits in 16-byte pieces: a view that starts off a
+    16-byte boundary is refused, not read wrong."""
+    lm, rand = _gl_inputs(rs, 4, cuda_device)
+    off = torch.empty(4 * 480 + 1, device=cuda_device)[1:].view(4, 480)
+    off.copy_(rand)
+    ops = _gl_ops(cuda_device)
+    for launch in (lambda: cuda_gl.gl_blocks(lm, off, ops), lambda: cuda_gl.gl_audio(lm, off, ops, 10.0)):
+        with pytest.raises(ValueError, match="16-byte"):
+            launch()
+
+
+@pytest.mark.cuda
+def test_gl_kernel_probe_variants_build(cuda_device):
+    """gl_kernel_probe.py's edited copies of csrc/gl_audio.cu compile with the
+    package's nvcc flags (tests/test_torch_gl_split.py holds their anchors)."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("gl_kernel_probe", root / "gl_kernel_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = {name: probe.build(_build, name, text)
+            for name, text in probe.variants((root / probe.SRC).read_text()).items()}
+    assert hasattr(libs["one_acc"], "gl_blocks") and hasattr(libs["stamps"], "probe_stamps_read")
 
 
 @pytest.mark.cuda
@@ -223,7 +307,7 @@ def test_training_on_the_card_tracks_the_cpu_path(rs, cuda_device):
     labels predicted alike, the same missing intervals, the quantizer's
     medians and borders within 5e-3 log-mel (chip_smoke.py's limit)."""
     eeg, audio = _session(rs, 60, 32)
-    host = trainer.train(eeg, audio, 1024, 48000, [2])
+    host = trainer.train(eeg, audio, 1024, 48000, [2], device="cpu")
     f64 = trainer.train(eeg, audio, 1024, 48000, [2], dtype=torch.float64, device=cuda_device)
     assert f64.lda.coef.device.type == "cuda"
     np.testing.assert_array_equal(f64.select, host.select)

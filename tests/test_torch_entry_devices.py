@@ -1,0 +1,131 @@
+"""The port's entry points run on the card unless the caller asks for the CPU.
+
+No GPU is visible in these tests (``torch.cuda.is_available`` is patched to
+return False, so they mean the same on a machine with a card).  Each entry
+point then stops before it computes anything: the CLIs with a usage error
+that names ``--device cpu``, the functions with a RuntimeError.  Asked for
+the CPU, each goes on to its first computing call, which a stand-in records
+and stops (the whole CPU runs are tests/test_torch_{pipeline,online,train}.py).
+"""
+
+import configparser
+
+import numpy as np
+import pytest
+import torch
+
+from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as t_decode
+from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as t_train_cli
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import streams as t_streams
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import trainer as t_trainer
+
+
+class _Reached(Exception):
+    """Raised by the stand-in for an entry point's first computing call."""
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _loaded(C):
+    rs = np.random.RandomState(0)
+    return t_params.from_arrays(rs.randn(40, 9, 10), rs.randn(40, 9),
+                                np.tile(np.arange(9, dtype=np.int32), (40, 1)),
+                                np.ones((40, 9), bool), np.sort(rs.randn(40, 9), axis=1),
+                                rs.permutation(5 * C)[:10], [])
+
+
+class _Inlet:
+    nominal_srate, channels = 1024, 4
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+
+def _decoder_stand_in(seen):
+    def build(loaded, sr, n_channels_total, gl_norm, dtype, device, *args, **kwargs):
+        seen.append(torch.device(device))
+        raise _Reached
+    return build
+
+
+def _case(name, monkeypatch, tmp_path, seen):
+    """(call(cpu: bool), the error a default call raises) of one entry point;
+    the stand-in appends the device the call reached its computation with."""
+    if name in ("decode CLI", "train CLI"):
+        cli = t_decode if name == "decode CLI" else t_train_cli
+
+        def load_config(path):
+            seen.append(torch.device("cpu"))  # past the device check: --device cpu
+            raise _Reached
+        monkeypatch.setattr(cli.config_mod, "load_config", load_config)
+        cfg = tmp_path / "experiment.ini"
+        return (lambda cpu: cli.main([str(cfg)] + (["--device", "cpu"] if cpu else []))), SystemExit
+    if name == "perform_offline_decoding":
+        monkeypatch.setattr(t_decode, "_build_decoder", _decoder_stand_in(seen))
+        eeg = np.zeros((2048, 4))
+        return (lambda cpu: t_decode.perform_offline_decoding(
+            _loaded(4), eeg, 1024, 10.0, **({"device": "cpu"} if cpu else {}))), RuntimeError
+    if name == "perform_online_decoding":
+        monkeypatch.setattr(t_decode, "_build_decoder", _decoder_stand_in(seen))
+        monkeypatch.setattr(t_streams, "StreamInlet", _Inlet)
+        config = configparser.ConfigParser()
+        config["Decoding"] = {"stream_name": "x"}
+        return (lambda cpu: t_decode.perform_online_decoding(
+            config, _loaded(4), 10, str(tmp_path), max_packets=1,
+            **({"device": "cpu"} if cpu else {}))), RuntimeError
+    assert name == "trainer.train"
+
+    def features(eeg, *args, **kwargs):
+        seen.append(eeg.device)
+        raise _Reached
+    monkeypatch.setattr(t_trainer, "offline_features", features)
+    eeg, audio = np.zeros((2048, 4)), np.zeros(96000)
+    return (lambda cpu: t_trainer.train(eeg, audio, 1024, 48000, [],
+                                        **({"device": "cpu"} if cpu else {}))), RuntimeError
+
+
+@pytest.mark.parametrize("name", ["decode CLI", "train CLI", "perform_offline_decoding",
+                                  "perform_online_decoding", "trainer.train"])
+def test_entry_point_needs_the_card_unless_asked_for_the_cpu(no_gpu, monkeypatch, tmp_path,
+                                                             capsys, name):
+    seen = []
+    call, error = _case(name, monkeypatch, tmp_path, seen)
+    with pytest.raises(error) as exc:
+        call(False)
+    assert seen == []  # stopped before its first computing call
+    if error is SystemExit:
+        assert exc.value.code == 2 and "--device cpu" in capsys.readouterr().err
+    else:
+        assert "no CUDA device" in str(exc.value) and "device='cpu'" in str(exc.value)
+    with pytest.raises(_Reached):
+        call(True)
+    assert seen == [torch.device("cpu")]
+
+
+@pytest.mark.parametrize("device,expected", [(None, None), ("cuda", None), ("cuda:0", None),
+                                             ("cpu", "cpu"), (torch.device("cpu"), "cpu")])
+def test_resolve_device_defaults_to_the_card(no_gpu, device, expected):
+    """None means the card; a CUDA device without a card raises; the CPU only
+    when asked for."""
+    if expected is None:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_pipe.resolve_device(device)
+    else:
+        assert t_pipe.resolve_device(device) == torch.device(expected)
+
+
+def test_build_decoder_params_defaults_to_the_card(no_gpu):
+    """The decoder's parameters are built on the card unless the CPU is asked
+    for."""
+    loaded = _loaded(4)
+    cfg = t_pipe.DecoderConfig(sr=1024.0, n_channels=4, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_pipe.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"])
+    dec = t_pipe.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"],
+                                      device="cpu")
+    assert dec.device == torch.device("cpu") and dec.gl_audio_ops.winv.device.type == "cpu"

@@ -90,7 +90,8 @@ def test_frontend_ops_equal(sr):
                                   np.zeros((40, 9), np.int32), np.ones((40, 9), bool),
                                   np.zeros((40, 9)), np.arange(20), [])
     t_dec = t_pipe.build_decoder_params(t_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=torch.float64),
-                                        loaded["lda"], loaded["medians"], loaded["select"])
+                                        loaded["lda"], loaded["medians"], loaded["select"],
+                                        device="cpu")
     for name in ("Tmat", "Cpow", "Pmat", "A_L", "S_win", "prefix"):
         _eq(getattr(t_dec.frontend_ops, name), getattr(j_dec.frontend_ops, name))
     for name in ("filt_zi_scale", "filt_s_const", "zf_prefix", "gauss_kernel"):

@@ -58,7 +58,8 @@ def _frontend_both(arrs, eeg, sr, C):
 
     loaded = t_params.from_arrays(**arrs, dtype=torch.float32)
     tcfg = t_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=torch.float32)
-    tdec = t_pipe.build_decoder_params(tcfg, loaded["lda"], loaded["medians"], loaded["select"])
+    tdec = t_pipe.build_decoder_params(tcfg, loaded["lda"], loaded["medians"], loaded["select"],
+                                       device="cpu")
     xt = torch.as_tensor(eeg, dtype=torch.float32)
     tconsts = cuda_frontend.epilogue_constants(tdec.lda_coef_full, tdec.lda.intercept,
                                                tdec.lda.valid, tdec.lda.classes, tdec.medians,
@@ -165,7 +166,8 @@ def test_logpower_plain_matches_pallas(rng, sr):
                                   np.zeros((40, 9), np.int32), np.ones((40, 9), bool),
                                   np.zeros((40, 9)), np.arange(20), [], dtype=torch.float32)
     tcfg = t_pipe.DecoderConfig(sr=sr, n_channels=C, dtype=torch.float32)
-    tdec = t_pipe.build_decoder_params(tcfg, loaded["lda"], loaded["medians"], loaded["select"])
+    tdec = t_pipe.build_decoder_params(tcfg, loaded["lda"], loaded["medians"], loaded["select"],
+                                       device="cpu")
     xt = torch.as_tensor(eeg)
     before = cuda_frontend.frontend_logpower.launches
     F_t = cuda_frontend.frontend_logpower(tdec.frontend_ops, xt, t_pipe._initial_state(tdec, xt), nf)

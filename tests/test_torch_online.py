@@ -55,7 +55,8 @@ def _jax_lda(arrs):
 def _port_decoder(arrs, sr, P, C):
     loaded = t_params.from_arrays(**arrs)
     cfg = t_pipe.DecoderConfig(sr=sr, n_channels=C, packet_size=P, dtype=torch.float64)
-    return cfg, t_pipe.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"])
+    return cfg, t_pipe.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"],
+                                            device="cpu")
 
 
 def _run_port_step(step, carry, eeg, P):
@@ -279,7 +280,7 @@ def test_jax_streamer_feeds_port_decoder_over_nsx(rng, tmp_path, monkeypatch):
         try:
             results["out"] = t_decode.perform_online_decoding(
                 config, t_params.from_arrays(**arrs), 10, str(run_dir), max_packets=n_packets,
-                backend="nsx", dtype=torch.float64, rand_init=table)
+                backend="nsx", dtype=torch.float64, device="cpu", rand_init=table)
         except Exception as e:  # surfaced by the assertion below
             errors.append(e)
 

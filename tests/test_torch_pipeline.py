@@ -60,7 +60,8 @@ def test_offline_decoding_matches_jax(rng, sr):
     spec_j, audio_j, _, _ = j_decode.perform_offline_decoding(
         j_loaded, eeg, sr, 10.0, dtype=jnp.float64)  # key None: PRNGKey(0)
     spec_t, audio_t, _, _ = t_decode.perform_offline_decoding(
-        t_params.from_arrays(**arrs), eeg, sr, 10.0, rand_init=_jax_rand_init(len(eeg), sr))
+        t_params.from_arrays(**arrs), eeg, sr, 10.0, device="cpu",
+        rand_init=_jax_rand_init(len(eeg), sr))
     spec_t, audio_t = spec_t.numpy(), audio_t.numpy()
     assert spec_t.shape == spec_j.shape == (len(spec_j), 40) and spec_t.dtype == np.float64
     assert np.array_equal(spec_t, np.asarray(spec_j))
@@ -131,7 +132,7 @@ def test_decode_cli_rejects_unported_modes(tmp_path, argv):
     """--persistent, --profile and the exact-host vocoder are not ported, and
     a dispatch chunk must hold a packet: the CLI says so and stops."""
     with pytest.raises(SystemExit) as exc:
-        t_decode.main([str(_cli_config(tmp_path)), *argv])
+        t_decode.main([str(_cli_config(tmp_path)), "--device", "cpu", *argv])
     assert exc.value.code == 2
 
 
@@ -156,9 +157,9 @@ def test_split_offline_decode_equals_fused_on_cpu(rng, sr):
     arrs = _session_arrays(rng, C_total, bad)
     eeg = rng.randn(int(sr * 2), C_total) * 10.0
     loaded = t_params.from_arrays(**arrs)
-    fused = t_decode.perform_offline_decoding(loaded, eeg, sr, 10.0)
-    split = t_decode.perform_offline_decoding(loaded, eeg, sr, 10.0, use_cuda_epilogue=False,
-                                              use_cuda_gl_tail=False)
+    fused = t_decode.perform_offline_decoding(loaded, eeg, sr, 10.0, device="cpu")
+    split = t_decode.perform_offline_decoding(loaded, eeg, sr, 10.0, device="cpu",
+                                              use_cuda_epilogue=False, use_cuda_gl_tail=False)
     assert fused[0].shape == split[0].shape and fused[1].shape == split[1].shape
     assert all(bool((a == b).all()) for a, b in zip(fused[:2], split[:2]))
     cfg = t_pipe.DecoderConfig(sr=sr, n_channels=C_total - 1, use_cuda_epilogue=False,

@@ -213,7 +213,7 @@ def trained():
     features, 150 selected) trained by both packages."""
     eeg, audio = _session(np.random.RandomState(7), 30, 40)
     timings = {}
-    r_t = t_trainer.train(eeg, audio, 1024, 48000, [3], timings=timings)
+    r_t = t_trainer.train(eeg, audio, 1024, 48000, [3], device="cpu", timings=timings)
     return eeg, j_trainer.train(eeg, audio, 1024, 48000, [3]), r_t, timings
 
 
@@ -253,7 +253,8 @@ def test_store_training_loads_in_both_packages(trained, tmp_path):
     spec_j, audio_j, _, _ = j_decode.perform_offline_decoding(j_loaded, head, 1024, 10.0,
                                                               dtype=jnp.float64)
     spec_t, audio_t, _, _ = t_decode.perform_offline_decoding(
-        t_params.load_params(path), head, 1024, 10.0, rand_init=_jax_rand_init(len(head), 1024))
+        t_params.load_params(path), head, 1024, 10.0, device="cpu",
+        rand_init=_jax_rand_init(len(head), 1024))
     assert np.array_equal(spec_t.numpy(), np.asarray(spec_j))
     assert np.abs(audio_t.numpy().astype(int) - np.asarray(audio_j).astype(int)).max() <= 1
 
