@@ -19,7 +19,15 @@ on one NVIDIA GPU.  Run from the repository root:
    bound (the least time for its work: fp32 FMA at 67 TFLOP/s, 3xTF32 at
    495/3 TFLOP/s, bytes at 3.35 TB/s) is computed from its shapes, and the
    8 iterations' DFT products at 30 min are timed as fp32 ``torch.matmul``
-   (TF32 off) for reference.
+   (TF32 off) for reference, as are K1's and K3's products (the Toeplitz
+   Tmat u and Pmat u per period, K1's LDA).  For K1 and K3 it also prints
+   the serial length of their two-level boundary scan, holds the kernel and
+   the plain float32 version against the plain version in float64 on the
+   session's first minute (the kernel's p99.9 error within twice the plain
+   version's) and, for K1, over the 30 minutes (its label flips within
+   twice the plain version's plus 1e-5: the gate that a single-pass TF32
+   LDA epilogue fails, frontend_kernel_probe.py), and profiles one call of
+   each, naming its launches.
 4. Drives the offline replay decode through
    ``cli.decode.perform_offline_decoding`` at 128 ch / 1024 Hz / 30 min with
    the launch counters set to 0 first, checks that K1 and K2 launched and
@@ -42,7 +50,7 @@ on one NVIDIA GPU.  Run from the repository root:
    (launches and device time a packet), and holds the online audio against
    a run of the same packets with the plain Griffin-Lim.
 8. Closes the loop over the native NSX transport:
-   ``cli.dev_streamer.stream_eeg`` feeds 20 s to
+   ``cli.dev_streamer.stream_eeg`` feeds 20 s, paced in real time, to
    ``cli.decode.perform_online_decoding`` in a thread; the received sEEG
    equals what was sent and the output equals a direct ``OnlineDecoder``
    run of the same packets.
@@ -87,6 +95,7 @@ N_FEATS, GL_NORM = 150, 10.0
 AGREE_RTOL, AGREE_ATOL, AGREE_MIN = 1e-5, 1e-6, 0.999   # tests/test_pallas_kernels.py:125-126
 FLIP_RTOL, FLIP_ATOL, FLIP_MAX = 1e-4, 1e-5, 0.02       # tests/test_f32_error_budget.py:51-53
 K3_ATOL, K4_ATOL, WITHIN_MIN = 1e-4, 2e-4, 0.999         # tests/test_pallas_kernels.py:76, :24
+F64_FLIP_FLOOR = 1e-5  # K1's flips against float64 allowed beyond twice the plain f32 version's
 AUDIO_SR, TRIAL_S, TRAIN_DECODE_MIN, TRAIN_SLICE_S = 48000, 3, 5, 60
 SELECT_MIN, PREDICT_MIN, R_DIFF_MAX, R_MIN, COEF_RTOL = 0.95, 0.98, 0.02, 0.15, 1e-6
 QUANT_MAX = 5e-3  # log-mel; a quarter of docs/NUMERICS.md:155's max 2e-2 for f32 targets
@@ -151,22 +160,42 @@ def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False):
 
 
 def frontend_bound(fops, T, C, n_frames, W5=None):
-    """Bound of K1 (with the epilogue's LDA weights ``W5``) or K3: per period
-    of Ls samples and channel the causal Toeplitz product Ls (Ls + 1) / 2,
-    Cpow s and Pmat u 2 S Ls, the boundary step S^2; the windowed power win
-    per frame and channel; K1's LDA (5C, 9 x 40) and smoothing per frame.
-    Bytes: the sEEG read once, mel frames or features written once."""
+    """Bound of K1 (with the epilogue's LDA weights ``W5``) or K3, the
+    products at the 3xTF32 rate, as the kernels run them: per period of Ls
+    samples and channel the causal Toeplitz product Ls (Ls + 1) / 2, Cpow s
+    and Pmat u 2 S Ls; K1's LDA (5C, 9 x 40) per frame.  In fp32: the
+    boundary step S^2 per period and channel, the windowed power win per
+    frame and channel, K1's smoothing per frame.  Bytes: the sEEG read once,
+    mel frames or features written once."""
     Ls, S = fops.Ls, fops.A_L.shape[0]
     periods = -(-T // Ls)
-    fma = periods * C * (Ls * (Ls + 1) / 2 + 2 * S * Ls + S * S) + n_frames * C * fops.win
+    products = periods * C * (Ls * (Ls + 1) / 2 + 2 * S * Ls)
+    fma = periods * C * S * S + n_frames * C * fops.win
     nbytes = T * C * 4
     if W5 is None:
         nbytes += n_frames * C * 4
     else:
         n_out = W5.shape[1] // 9
-        fma += n_frames * (W5.numel() + n_out * n_out)
+        products += n_frames * W5.numel()
+        fma += n_frames * n_out * n_out
         nbytes += n_frames * n_out * 4 + W5.numel() * 4
-    return bound(2.0 * fma, nbytes)
+    return bound(2.0 * fma, nbytes, 2.0 * products)
+
+
+def float64_tracking(torch, kernel, plain, args):
+    """p99.9 |error| of the kernel and of the plain float32 version against
+    the plain version in float64 on the same inputs: (kernel, plain f32)."""
+    ops, x, s0, *rest = args
+    ref = plain(ops, x.double(), s0.double(), *rest).double()
+    p999 = lambda out: (out.double() - ref).abs().flatten().quantile(0.999).item()
+    return p999(kernel(*args)), p999(plain(*args))
+
+
+def float64_flips_ok(flips_kernel, flips_plain):
+    """K1's float64 gate: the kernel's label-flip rate against the plain
+    version in float64 at most twice the plain float32 version's, plus
+    F64_FLIP_FLOOR (a few flips of near-ties, which both make at random)."""
+    return flips_kernel <= 2 * flips_plain + F64_FLIP_FLOOR
 
 
 def profile(torch, fn, units, unit, top=6):
@@ -475,8 +504,57 @@ def main():
     k1_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels(*k1_args))
     k1_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels_plain(*k1_args))
     k1_bound = frontend_bound(dec.frontend_ops, T, C, n_frames, k1_args[3])
-    say(f"  time at {MINUTES} min: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound "
-        f"{k1_bound[0]:.3f} ms ({k1_bound[1]}) [{card}]")
+    say(f"  time at {MINUTES} min: kernel {k1_ms:.3f} ms (fp32 design: 31.26), plain {k1_plain_ms:.3f} ms, "
+        f"bound {k1_bound[0]:.3f} ms ({k1_bound[1]}, products in 3xTF32) [{card}]")
+    fops = dec.frontend_ops
+    Kp = -(-n_frames // fops.P)
+    R = fops.apow.shape[0] - 1
+    scan_steps = cuda_frontend.serial_scan_steps(fops, Kp)
+
+    head_k1 = k1_inputs(dec, cfg, eeg[: 60 * SR])  # the session's first minute
+    mel64 = cuda_frontend.frontend_decode_mels_plain(k1_args[0], eeg.double(), k1_args[2].double(),
+                                                     *k1_args[3:])
+    k1_flips = [mel_agreement(torch, m.double(), mel64)[1] for m in (mel_k, mel_p)]
+    del mel64
+    say(f"  label flips against the plain version in float64 over {MINUTES} min: kernel "
+        f"{k1_flips[0]:.3e}, plain float32 {k1_flips[1]:.3e}")
+    check(float64_flips_ok(*k1_flips), f"K1's label flips against float64 within twice the plain "
+          f"float32 version's plus {F64_FLIP_FLOOR}")
+
+    def frontend_checks(name, kernel, plain, args, head_args):
+        """The scan's serial length, the float64 comparison on the first
+        minute, and one profiled call naming the launches."""
+        say(f"  boundary scan: {scan_steps} serial steps over {Kp} periods ({R} chunk-local + "
+            f"{-(-Kp // R) - 1} carry; Kp / R + R = {Kp / R + R:.1f}; a sequential scan: {Kp})")
+        err_k, err_32 = float64_tracking(torch, kernel, plain, head_args)
+        say(f"  first 60 s against the plain version in float64: p99.9 |error| kernel {err_k:.3e}, "
+            f"plain float32 {err_32:.3e}")
+        check(err_k <= 2 * err_32, f"{name} within twice the plain float32 version's p99.9 error")
+        profile(torch, lambda: kernel(*args), 1, "call", top=5)
+        return err_k, err_32
+
+    k1_f64 = frontend_checks("K1", cuda_frontend.frontend_decode_mels,
+                             cuda_frontend.frontend_decode_mels_plain, k1_args, head_k1)
+    # the same products as fp32 torch.matmul (TF32 off), for reference: the
+    # dense Toeplitz Tmat u and Pmat u of every period, K1's LDA (not a
+    # library_ms: no one call computes K1's or K3's function)
+    need = Kp * fops.Ls
+    u3 = (eeg[:need] if T >= need else torch.nn.functional.pad(eeg, (0, 0, 0, need - T))).view(
+        Kp, fops.Ls, C)
+    f_stack = torch.randn((n_frames, k1_args[3].shape[0]), generator=g, device=dev)
+
+    def frontend_products(lda):
+        fops.Tmat @ u3
+        fops.Pmat @ u3
+        if lda:
+            f_stack @ k1_args[3]
+
+    k1_mm_ms = cuda_ms(torch, lambda: frontend_products(True))
+    k3_mm_ms = cuda_ms(torch, lambda: frontend_products(False))
+    say(f"  reference: torch.matmul fp32, Tmat @ u ({Kp} x {fops.Ls} x {fops.Ls} x {C}), Pmat @ u "
+        f"and the LDA ({n_frames} x {k1_args[3].shape[0]} x {k1_args[3].shape[1]}): "
+        f"{k1_mm_ms:.3f} ms; all of K1: {k1_ms:.3f} ms [{card}]")
+    del f_stack
 
     # ---- K3: kernel vs plain at the split path's shapes -------------------
     say("== K3 frontend_logpower vs plain")
@@ -498,8 +576,14 @@ def main():
     k3_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower(*k3_args))
     k3_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower_plain(*k3_args))
     k3_bound = frontend_bound(dec.frontend_ops, T, C, n_frames)
-    say(f"  time at {MINUTES} min: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, bound "
-        f"{k3_bound[0]:.3f} ms ({k3_bound[1]}) [{card}]")
+    say(f"  time at {MINUTES} min: kernel {k3_ms:.3f} ms (fp32 design: 25.82), plain {k3_plain_ms:.3f} ms, "
+        f"bound {k3_bound[0]:.3f} ms ({k3_bound[1]}, products in 3xTF32) [{card}]")
+    k3_f64 = frontend_checks("K3", cuda_frontend.frontend_logpower,
+                             cuda_frontend.frontend_logpower_plain, k3_args,
+                             head_k1[:3] + (head_k1[7],))
+    say(f"  reference: torch.matmul fp32, Tmat @ u and Pmat @ u: {k3_mm_ms:.3f} ms; all of K3: "
+        f"{k3_ms:.3f} ms [{card}]")
+    del u3
 
     # ---- K2: kernel vs plain at the main path's shapes --------------------
     B_gl = n_frames - 1
@@ -649,7 +733,7 @@ def main():
     check(agree_m >= AGREE_MIN and flips_m < FLIP_MAX and r_m > 0.9,
           "kernel path agrees with the plain path")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile(torch, lambda: pipeline.offline_decode(dec, cfg, eeg), 1, "decode")
+    profile(torch, lambda: pipeline.offline_decode(dec, cfg, eeg), 1, "decode", top=10)
 
     # the float64 CPU path is the one held bit-equal to the JAX package
     # (tests/test_torch_pipeline.py): the card's f32 output must stay inside
@@ -808,8 +892,11 @@ def main():
 
         t = threading.Thread(target=decode)
         t.start()
-        dev_streamer.stream_eeg(sent, SR, "smoke_sEEG", asap=True, backend="nsx",
-                                wait_for_consumers=60.0)
+        # paced in real time, as an amplifier sends: the decoder subscribes
+        # before it builds its parameters, and an unpaced sender fills the
+        # socket and drops a subscriber that has not read for 1 s
+        # (native/nsx.cpp's send budget), losing the packets after that
+        dev_streamer.stream_eeg(sent, SR, "smoke_sEEG", backend="nsx", wait_for_consumers=60.0)
         t.join(timeout=300)
         check(not t.is_alive() and not error, f"online decode over NSX finished {error}")
     spec_l, audio_l, recv_l, sr_l = result["out"]
@@ -896,11 +983,14 @@ def main():
 
     kernels = [
         row("frontend_decode_mels", "frontend_decode.cu", "pallas_frontend.py:195",
-            launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "fp32"),
+            launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "3xtf32",
+            serial_scan_steps=scan_steps, reference_matmul_ms=k1_mm_ms, float64_p999=k1_f64,
+            float64_flips=k1_flips),
         row("gl_audio", "gl_audio.cu", "pallas_gl.py:153", launches["gl_audio"], k2_err, k2_ms,
             k2_plain_ms, k2_bound, cuda_gl.regime(B_gl)),
         row("frontend_logpower", "frontend_decode.cu", "pallas_frontend.py:94",
-            split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "fp32"),
+            split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "3xtf32",
+            serial_scan_steps=scan_steps, reference_matmul_ms=k3_mm_ms, float64_p999=k3_f64),
         row("gl_blocks", "gl_audio.cu", "pallas_gl.py:141",
             split_launches["gl_blocks"] + on_launches["gl_blocks"], k4_err, k4_ms, k4_plain_ms,
             k4_bound, cuda_gl.regime(B_gl), online_launches=on_launches["gl_blocks"],

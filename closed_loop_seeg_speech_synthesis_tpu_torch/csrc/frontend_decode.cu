@@ -1,108 +1,272 @@
-// Replay front end, two entry points.  Plain float32 FMA (no TF32, no mma),
-// sm_90a.
+// Replay front end, two entry points, sm_90a.
 //   frontend_decode_mels: raw sEEG (T, C) -> dequantized, smoothed logMel
 //     frames (n_frames, B); launches 1-4 below.
-//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py:195
 //     _make_decode_kernel (entry frontend_decode_mels).
 //   frontend_logpower: raw sEEG (T, C) -> log-power features (n_frames, C),
 //     the split front end; launches 1-3 below, the same code.
-//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py
+//     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_frontend.py:94
 //     _frontend_kernel (entry frontend_logpower).
 //
-// What bounds it on an H100: arithmetic.  At 128 channels the filter chain's
-// per-period Toeplitz product (Ls^2/2 FMAs per channel), the state input
-// q_k = Pmat u_k (48 Ls per channel) and the LDA epilogue (5 C x 360 FMAs per
-// frame) are ~85 G FMA for a 30-minute session, against 0.94 GB of sEEG read
-// once: far above the fp32 ridge of the card.  Besides that, the filter's
-// block-boundary recurrence s_{k+1} = A^L s_k + q_k is sequential over the
-// 7,200 periods of a 30-minute session at 1024 Hz: a latency floor.
+// Work per period of Ls samples (Kp periods; 7,200 at 30 min / 1024 Hz,
+// Ls = 256) and channel: y_k = Tmat u_k + Cpow s_k (the causal Toeplitz
+// product, Ls (Ls + 1) / 2 FMAs, and S Ls), s_{k+1} = A_L s_k + Pmat u_k (S Ls
+// and S^2), then log(window sum of [y_{k-1}; y_k]^2 + 0.01) for the period's
+// P frames; K1 adds the LDA scores (5 taps x C x 9 B per frame), the
+// first-max over the 9 class slots, the median select and the (B, B)
+// smoothing.  At 128 channels that is ~94 G FMA against 0.94 GB of sEEG read
+// once: arithmetic bounds it.  The products (~94% of the FMAs) run on the
+// tensor cores in 3xTF32 (tf32_mma.cuh: fp32 accuracy at a third of the TF32
+// rate, 495/3 TFLOP/s); at that rate and with the rest in fp32 FMA the bound
+// is ~1.25 ms for K1 and ~0.75 ms for K3 (chip_smoke.frontend_bound).
+// Besides that, the boundary recurrence is sequential over the periods.
 //
-// Design.  The TPU kernel walks periods in order on one core and carries the
-// filter state, the previous chunk and the feature history in scratch.  GPU
-// blocks run in no order, so the time axis is split into four launches:
-//   1. period_inputs: q_k = Pmat u_k for every period and channel (parallel);
-//   2. boundary_scan: s_{k+1} = A^L s_k + q_k, sequential over k and parallel
-//      over (state row, channel); the only serial part, 48 FMAs a step;
-//   3. features: one block per (period, 16-channel tile) rebuilds y_k =
-//      Tmat u_k + Cpow s_k and the tail of y_{k-1} that the period's first
-//      windows reach back into (period 0 reads the zero-fill prefix), then
-//      writes log(window sum of y^2 + 0.01) for the period's P frames;
-//   4. epilogue: one block per 64 frames computes the LDA scores with the
-//      5-tap context folded into the product (tap m of frame j reads feature
-//      row j - depth + m*step; rows before the session are zero), the
-//      first-max over the 9 class slots, the median select and the sigma-0.5
-//      smoothing matrix, and writes only the (64, B) mel rows.
-// The (n_frames, C) features pass through device memory once between
-// launches 3 and 4 (92 MB at 30 min / 128 ch), so the history rows of
-// period k-1 are read back, not recomputed.  Every C entry point returns
-// cudaGetLastError().
+// Launches:
+//   1. chunk_scan: one CTA per chunk of R consecutive periods (R = 64) and
+//      128 channels.  Each warp scans 8 channels on its own (no CTA barrier
+//      in the loop): l_{k+1} = Pmat u_k + A_L l_k from l = 0 as one
+//      accumulation on the tensor cores (Pmat and A_L staged once per CTA;
+//      the warp's u columns streamed through its own 3-stage cp.async ring),
+//      writing l_k, the chunk-local state before each period, and the
+//      chunk's end state.  R serial steps.
+//   2. carry_scan: the only other serial part, over the Kp / R chunks (113
+//      at 30 min): S_{c+1} = A_L^R S_c + (end state of chunk c) from s_0, in
+//      fp32; ceil(Kp / R) - 1 steps.  So R + ceil(Kp / R) - 1 serial steps
+//      (176 at 30 min) instead of the Kp (7,200) of a sequential scan.
+//   3. features: one CTA (16 warps) per run of 16 periods and a 32-channel
+//      tile (16 at Ls = 512, for shared memory).  Per period the fix-up s_k =
+//      A_L^i S_c + l_k (i = k - cR; the power table A_L^0..A_L^R is built on
+//      the host in float64) on the tensor cores, then y_k: the Toeplitz A
+//      operand comes from h = Tmat[:, 0] (tile (i, kk) holds h[16i - 8kk +
+//      r - c]; Tmat is never read), split hi/lo on the host, the all-zero
+//      tiles above the diagonal skipped (~47% of the dense product); each
+//      warp takes an m-tile pair (j, Ls/16 - 1 - j) of equal work, whose two
+//      tiles share every B fragment, and 2 of the tile's n-tiles; Cpow s_k
+//      joins the same accumulators (Cpow staged once per CTA).  y_k^2 stays
+//      in shared memory, so the last `tail` rows of y_{k-1} that the windows
+//      reach back into are recomputed only for the run's first period
+//      (period 0 reads the zero-fill prefix).  The window sums and the log
+//      are fp32.  The next period's u tile, A_L^i and l_k are copied with
+//      cp.async while the window sums run.  (Writing Y0 = Tmat u to device
+//      memory and adding Cpow s_k in a second pass was not taken: it moves
+//      ~1.9 GB more, ~0.56 ms at 3.35 TB/s, to save a tail recompute that
+//      is ~2% of the Toeplitz work at 16 periods a run.)
+//   4. lda_epilogue: one CTA per 64 frames.  Scores (64, 9 B) = sum over the
+//      5 taps of F[rows shifted by m * step] (64, C) x W5_m (C, 9 B) on the
+//      tensor cores: the A fragments are row-shifted loads from one staged
+//      (64 + 20, 128) slab of F's channels at a time (one slab at up to 128
+//      channels; so any C fits); W5's hi/lo split is packed once per call on
+//      the host in fragment order, slab by slab
+//      (cuda_frontend.pack_lda_weights), and each
+//      warp streams its 6 n-tiles of k-slabs from L2 through a 4-stage
+//      cp.async ring, as gl_mma_kernel (gl_audio.cu) streams its DFT
+//      matrices.  Then the first-max over the 9 slots (strict >: ties keep
+//      the first slot; bm holds -1e30 on invalid slots), the median select
+//      and the smoothing, in fp32.
+// Between launches 3 and 4 the (Kp P, C) features pass through device memory
+// (92 MB at 30 min / 128 ch).  What holds the launches back on an H100
+// (PERF.md; clock64 phases from frontend_kernel_probe.py): the rate at which
+// the products issue mma.sync, not bytes.  In features the product phase
+// runs at about a quarter of an m16n8k8 a cycle per SM, and the fix-up and
+// the windows leave the tensor cores idle for a quarter of each period (one
+// CTA an SM); chunk_scan's 16 warps, one n-tile each, reach about a sixth.
+// Any period length Ls up to 512 works: launch 1 zero-fills a period's last,
+// ragged slab of u, launch 3 rounds Ls up to whole m-tiles with zero rows.
+// Every C entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int QCT = 32;   // channels per block, launch 1
-constexpr int QSG = 8;    // state groups per block, launch 1
-constexpr int QMAXS = 8;  // states per thread, launch 1 (S <= QSG * QMAXS)
-constexpr int SCT = 4;    // channels per block, launch 2
-constexpr int FCT = 16;   // channels per block, launch 3
-constexpr int FRG = 16;   // row groups per block, launch 3
-constexpr int EF = 64;    // frames per block, launch 4
-constexpr int EFG = 8;    // frames per thread, launch 4
-constexpr int ECK = 8;    // channels per shared-memory chunk, launch 4
-constexpr int KS = 9;     // class slots per mel bin
+constexpr int MAX_S = 64;        // filter states the kernels take
+constexpr int US_PAD = 8;        // u tile row stride CT + 8: B fragment loads hit 32 banks
+constexpr int QWARPS = 16;       // launch 1: one n-tile of 8 channels per warp
+constexpr int QCT = 8 * QWARPS;  // channels per CTA, launch 1
+constexpr int QSLAB = 8;         // k-steps (64 rows of u) per ring stage, launch 1
+constexpr int QSTAGES = 3;       // ring depth per warp, launch 1 (226.5 KB at Ls = 512)
+constexpr int MAX_MT = MAX_S / 16;
+constexpr int SCT = 4;           // channels per CTA, launch 2
+constexpr int FWARPS = 16;       // launch 3
+constexpr int FTHREADS = 32 * FWARPS;
+constexpr int FRUN = 16;         // periods per CTA, launch 3
+constexpr int HPAD = 16;         // zeros before h[0] in shared memory
+constexpr int EF = 64;           // frames per CTA, launch 4
+constexpr int EMT = EF / 16;
+constexpr int EWARPS = 16;
+constexpr int ENT = 3;           // n-tiles of 8 score columns per warp and pass
+constexpr int EPASS = EWARPS * ENT * 8;  // score columns per pass (384 >= 9 x 40)
+constexpr int ESC = EPASS + 4;   // score row stride
+constexpr int KS = 9;            // class slots per mel bin
+constexpr int ECK = 128;         // channels of F staged at a time, launch 4
+constexpr int ESCORES = EF * ESC;
 
-// q[k][s][c] = sum_j Pmat[s][j] u[k*Ls + j][c]
-__global__ void period_inputs_kernel(const float* __restrict__ u, const float* __restrict__ pmatT,
-                                     float* __restrict__ q, int Ls, int S, int C) {
-  extern __shared__ float smem[];
-  float* us = smem;             // (Ls, QCT)
-  float* ps = smem + Ls * QCT;  // (Ls, S) = Pmat^T
-  const int k = blockIdx.x;
-  const int c0 = blockIdx.y * QCT;
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < Ls * QCT; idx += blockDim.x) {
-    const int j = idx / QCT, c = c0 + idx % QCT;
-    us[idx] = c < C ? u[((size_t)k * Ls + j) * C + c] : 0.f;
-  }
-  for (int idx = tid; idx < Ls * S; idx += blockDim.x) ps[idx] = pmatT[idx];
-  __syncthreads();
-  const int cc = tid % QCT, g = tid / QCT;
-  float acc[QMAXS];
-#pragma unroll
-  for (int i = 0; i < QMAXS; ++i) acc[i] = 0.f;
-  for (int j = 0; j < Ls; ++j) {
-    const float x = us[j * QCT + cc];
-    const float* pr = ps + j * S;
-#pragma unroll
-    for (int i = 0; i < QMAXS; ++i) {
-      const int s = g + QSG * i;
-      if (s < S) acc[i] = fmaf(pr[s], x, acc[i]);
+// Launch 4's ring (ESTAGES k-slabs per warp) and the scores over it, floats
+__host__ __device__ constexpr int epilogue_region(int ESTAGES) {
+  return EWARPS * ESTAGES * ENT * 32 * 4 > ESCORES ? EWARPS * ESTAGES * ENT * 32 * 4 : ESCORES;
+}
+
+// dst[r * ds + c] = src[(row0 + r) * C + c0 + c] for r < rows, c < CT (0 past
+// C): 16-byte cp.async copies when vec (rows 16-byte aligned, the tile inside
+// C), else plain loads.  The caller commits the group, waits and syncs.
+template <int CT>
+__device__ __forceinline__ void load_tile(float* dst, int ds, const float* __restrict__ src,
+                                          size_t row0, int rows, int C, int c0, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * (CT / 4); i += blockDim.x) {
+      const int r = i / (CT / 4), c = 4 * (i % (CT / 4));
+      cp_async16(dst + r * ds + c, src + (row0 + r) * C + c0 + c);
     }
-  }
-  const int c = c0 + cc;
-  if (c < C) {
-#pragma unroll
-    for (int i = 0; i < QMAXS; ++i) {
-      const int s = g + QSG * i;
-      if (s < S) q[((size_t)k * S + s) * C + c] = acc[i];
+  } else {
+    for (int i = threadIdx.x; i < rows * CT; i += blockDim.x) {
+      const int r = i / CT, c = i % CT;
+      dst[r * ds + c] = c0 + c < C ? __ldg(src + (row0 + r) * C + c0 + c) : 0.f;
     }
   }
 }
 
-// sb[k] = state before period k: s_0 = s0, s_{k+1} = A_L s_k + q_k
-__global__ void boundary_scan_kernel(const float* __restrict__ q, const float* __restrict__ s0,
-                                     const float* __restrict__ aT, float* __restrict__ sb,
-                                     int K, int S, int C) {
+__device__ __forceinline__ bool tile_vec(const float* u, int C, int c0, int CT) {
+  return C % 4 == 0 && c0 + CT <= C && reinterpret_cast<uintptr_t>(u) % 16 == 0;
+}
+
+// Launch 1.  L[k] = chunk-local state before period k (0 at the chunk's
+// start), lend[chunk] = the state after its last period; apow[1] = A_L.
+// Warp w scans channels c0 + [8w, 8w + 8) on its own (its n-tile, every
+// m-tile of states), its u columns streamed through its own cp.async ring of
+// QSLAB k-steps a stage, its state l in its own shared memory.
+__global__ void __launch_bounds__(QWARPS * 32, 1) chunk_scan_kernel(
+    const float* __restrict__ u, const float* __restrict__ pmat, const float* __restrict__ apow,
+    float* __restrict__ L, float* __restrict__ lend, int Kp, int Ls, int S, int C, int R) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RING = QSTAGES * QSLAB * 8 * 8;  // floats per warp: (stage, 8 QSLAB rows, 8 ch)
+  const int SM = (S + 15) / 16 * 16;  // states padded to m-tiles
+  const int S8 = (S + 7) / 8 * 8;
+  const int nsl = (Ls + 8 * QSLAB - 1) / (8 * QSLAB);  // slabs a period, the last one ragged
+  const int PS = nsl * 8 * QSLAB + 4;  // Pmat row stride: A fragment loads hit 32 banks
+  const int AS = S8 + 4;              // A_L row stride, the same
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  float* pm = smem;                               // (SM, PS) Pmat, zeros past S
+  float* al = pm + SM * PS;                       // (SM, AS) A_L, zeros past S
+  float* ring = al + SM * AS + warp * (RING + S8 * 8);  // this warp's u ring
+  float* lw = ring + RING;                        // (S8, 8) this warp's local state
+  const int chunk = blockIdx.x, cw = blockIdx.y * QCT + 8 * warp;
+  const int k0 = chunk * R, k1 = min(Kp, k0 + R);
+  for (int i = t; i < SM * PS; i += blockDim.x) {
+    const int s = i / PS, j = i % PS;
+    pm[i] = (s < S && j < Ls) ? pmat[s * Ls + j] : 0.f;
+  }
+  for (int i = t; i < SM * AS; i += blockDim.x) {
+    const int s = i / AS, j = i % AS;
+    al[i] = (s < S && j < S) ? apow[S * S + s * S + j] : 0.f;
+  }
+  __syncthreads();
+  if (cw >= C) return;  // no channel of this warp; nothing below syncs the CTA
+  for (int i = lane; i < S8 * 8; i += 32) lw[i] = 0.f;
+  const bool vec = C % 4 == 0 && cw + 8 <= C && reinterpret_cast<uintptr_t>(u) % 16 == 0;
+  const int nf = (k1 - k0) * nsl;          // slabs of the chunk
+  // slab f: rows [8 QSLAB (f % nsl), +8 QSLAB) of period k0 + f / nsl, into stage f % QSTAGES;
+  // rows past the period's Ls are zeros (Pmat's columns there are zeros too)
+  auto issue = [&](int f) {
+    if (f < nf) {
+      float* dst = ring + (f % QSTAGES) * QSLAB * 64;
+      const int r0 = (f % nsl) * 8 * QSLAB, rows = min(8 * QSLAB, Ls - r0);
+      const size_t row0 = (size_t)(k0 + f / nsl) * Ls + r0;
+      if (vec) {
+        for (int i = lane; i < QSLAB * 16; i += 32) {
+          if (i / 2 < rows)
+            cp_async16(dst + 4 * i, u + (row0 + i / 2) * C + cw + 4 * (i % 2));
+          else
+            *reinterpret_cast<float4*>(dst + 4 * i) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        for (int i = lane; i < QSLAB * 64; i += 32) {
+          const int c = cw + i % 8;
+          dst[i] = (c < C && i / 8 < rows) ? __ldg(u + (row0 + i / 8) * C + c) : 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < QSTAGES - 1; ++s) issue(s);
+  int f = 0;
+  for (int k = k0; k < k1; ++k) {
+    float acc[MAX_MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MAX_MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][j] = 0.f;
+    for (int j = 0; j < nsl; ++j, ++f) {
+      cp_async_wait<QSTAGES - 2>();
+      __syncwarp();  // slab f landed for every lane; slab f - 1 read by every lane
+      issue(f + QSTAGES - 1);
+      const float* rs = ring + (f % QSTAGES) * QSLAB * 64;
+#pragma unroll 2
+      for (int kk = 0; kk < QSLAB; ++kk) {  // q_k = Pmat u_k
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_split(rs[(8 * kk + q4) * 8 + g], bh0, bl0);
+        tf32_split(rs[(8 * kk + q4 + 4) * 8 + g], bh1, bl1);
+        const int col = 8 * (QSLAB * j + kk) + q4;
+#pragma unroll
+        for (int mt = 0; mt < MAX_MT; ++mt) {
+          if (16 * mt >= SM) continue;
+          const float* ar = pm + (16 * mt + g) * PS + col;
+          const float v[4] = {ar[0], ar[8 * PS], ar[4], ar[8 * PS + 4]};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_split(v[i], ahi[i], alo[i]);
+          mma3(acc[mt], ahi, alo, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    for (int ks = 0; ks < S8 / 8; ++ks) {  // + A_L l_k
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_split(lw[(8 * ks + q4) * 8 + g], bh0, bl0);
+      tf32_split(lw[(8 * ks + q4 + 4) * 8 + g], bh1, bl1);
+#pragma unroll
+      for (int mt = 0; mt < MAX_MT; ++mt) {
+        if (16 * mt >= SM) continue;
+        const float* ar = al + (16 * mt + g) * AS + 8 * ks + q4;
+        const float v[4] = {ar[0], ar[8 * AS], ar[4], ar[8 * AS + 4]};
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tf32_split(v[i], ahi[i], alo[i]);
+        mma3(acc[mt], ahi, alo, bh0, bh1, bl0, bl1);
+      }
+    }
+    for (int i = lane; i < S * 8; i += 32)
+      if (cw + i % 8 < C) L[((size_t)k * S + i / 8) * C + cw + i % 8] = lw[i];
+    __syncwarp();  // l_k read
+#pragma unroll
+    for (int mt = 0; mt < MAX_MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = 16 * mt + g + 8 * (j >> 1);
+        if (s < S) lw[s * 8 + 2 * q4 + (j & 1)] = acc[mt][j];
+      }
+    __syncwarp();  // l_{k+1} written
+  }
+  for (int i = lane; i < S * 8; i += 32)
+    if (cw + i % 8 < C) lend[((size_t)chunk * S + i / 8) * C + cw + i % 8] = lw[i];
+}
+
+// Launch 2.  sb[k] = state before step k, k < K: s_0 = s0, s_{k+1} = A s_k +
+// q_k, A row-major; K - 1 sequential steps, parallel over (state row, channel).
+__global__ void carry_scan_kernel(const float* __restrict__ q, const float* __restrict__ s0,
+                                  const float* __restrict__ A, float* __restrict__ sb, int K,
+                                  int S, int C) {
   extern __shared__ float smem[];
-  float* at = smem;          // (S, S): at[t*S + s] = A_L[s][t]
+  float* at = smem;          // (S, S): at[t*S + s] = A[s][t]
   float* st = at + S * S;    // 2 x (S, SCT) double buffer
   const int tid = threadIdx.x;
   const int s = tid % S, cl = tid / S;
   const int c = blockIdx.x * SCT + cl;
   const bool active = c < C;
-  for (int idx = tid; idx < S * S; idx += blockDim.x) at[idx] = aT[idx];
+  for (int idx = tid; idx < S * S; idx += blockDim.x) at[idx] = A[(idx % S) * S + idx / S];
   st[s * SCT + cl] = active ? s0[s * C + c] : 0.f;
   __syncthreads();
   int cur = 0;
@@ -112,6 +276,7 @@ __global__ void boundary_scan_kernel(const float* __restrict__ q, const float* _
     if (active && k + 1 < K) qn = q[((size_t)(k + 1) * S + s) * C + c];
     const float* sc = st + cur * S * SCT;
     if (active) sb[((size_t)k * S + s) * C + c] = sc[s * SCT + cl];
+    if (k + 1 == K) break;  // the state after the last step is not needed
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     int t = 0;
     for (; t + 3 < S; t += 4) {
@@ -127,183 +292,456 @@ __global__ void boundary_scan_kernel(const float* __restrict__ q, const float* _
   }
 }
 
-// F[k*P + i][c] = log(sum over window i of span^2 + 0.01), span = [y_{k-1}, y_k]
-__global__ void features_kernel(const float* __restrict__ u, const float* __restrict__ sb,
-                                const float* __restrict__ h, const float* __restrict__ cpow,
-                                const float* __restrict__ prefix, const int* __restrict__ starts,
-                                float* __restrict__ F, int Ls, int S, int C, int P, int win,
-                                int tail) {
-  extern __shared__ float smem[];
-  float* hs = smem;                       // (Ls) impulse response, Tmat[t][j] = h[t-j]
-  float* uc = hs + Ls;                    // (Ls, FCT) current chunk
-  float* up = uc + Ls * FCT;              // (Ls, FCT) previous chunk
-  float* ys = up + Ls * FCT;              // (tail + Ls, FCT) span^2 from span index Ls - tail
-  float* sc = ys + (tail + Ls) * FCT;     // (S, FCT) state before period k
-  float* sp = sc + S * FCT;               // (S, FCT) state before period k-1
-  const int k = blockIdx.x;
-  const int c0 = blockIdx.y * FCT;
-  const int tid = threadIdx.x;
-  const int cc = tid % FCT, rg = tid / FCT;
-  const int c = c0 + cc;
-  for (int idx = tid; idx < Ls; idx += blockDim.x) hs[idx] = h[idx];
-  for (int idx = tid; idx < Ls * FCT; idx += blockDim.x) {
-    const int j = idx / FCT, ci = c0 + idx % FCT;
-    uc[idx] = ci < C ? u[((size_t)k * Ls + j) * C + ci] : 0.f;
-    up[idx] = (ci < C && k > 0 && tail > 0) ? u[((size_t)(k - 1) * Ls + j) * C + ci] : 0.f;
-  }
-  for (int idx = tid; idx < S * FCT; idx += blockDim.x) {
-    const int s = idx / FCT, ci = c0 + idx % FCT;
-    sc[idx] = ci < C ? sb[((size_t)k * S + s) * C + ci] : 0.f;
-    sp[idx] = (ci < C && k > 0) ? sb[((size_t)(k - 1) * S + s) * C + ci] : 0.f;
-  }
-  __syncthreads();
-  for (int t = rg; t < Ls; t += FRG) {
-    float acc = 0.f;
-    const float* cr = cpow + (size_t)t * S;
-    for (int s = 0; s < S; ++s) acc = fmaf(__ldg(cr + s), sc[s * FCT + cc], acc);
-    for (int j = 0; j <= t; ++j) acc = fmaf(hs[t - j], uc[j * FCT + cc], acc);
-    ys[(tail + t) * FCT + cc] = acc * acc;
-  }
-  for (int r = rg; r < tail; r += FRG) {
-    const int t = Ls - tail + r;
-    float y;
-    if (k == 0) {
-      y = prefix[t];
-    } else {
-      y = 0.f;
-      const float* cr = cpow + (size_t)t * S;
-      for (int s = 0; s < S; ++s) y = fmaf(__ldg(cr + s), sp[s * FCT + cc], y);
-      for (int j = 0; j <= t; ++j) y = fmaf(hs[t - j], up[j * FCT + cc], y);
-    }
-    ys[r * FCT + cc] = y * y;
-  }
-  __syncthreads();
-  if (c >= C) return;
-  for (int i = rg; i < P; i += FRG) {
-    const int base = starts[i] - (Ls - tail);
-    float sum = 0.f;
-    for (int w = 0; w < win; ++w) sum += ys[(base + w) * FCT + cc];
-    F[((size_t)k * P + i) * C + c] = logf(sum + 0.01f);
-  }
+// Shared memory of launch 3 (floats) for CT channels a CTA; L16 = Ls rounded
+// up to whole m-tiles of 16 rows.
+__host__ __device__ constexpr int features_smem_floats(int CT, int L16, int S, int tail) {
+  return L16 * (CT + US_PAD)                         // us
+         + L16 * ((S + 7) / 8 * 8 + 4)               // cps
+         + (tail + L16) * CT                         // ys
+         + 2 * (HPAD + L16)                          // hh, hl
+         + 2 * ((S + 7) / 8 * 8) * (CT + US_PAD)     // ss, scs
+         + (S + 15) / 16 * 16 * ((S + 7) / 8 * 8 + 4)  // ais
+         + S * CT;                                   // lsm
 }
 
-// mel[j] = smoothM^T med_slot[first argmax_kk score(j, kk, b), b]
-__global__ void epilogue_kernel(const float* __restrict__ F, const float* __restrict__ W5,
-                                const float* __restrict__ bm, const float* __restrict__ med,
-                                const float* __restrict__ smoothM, float* __restrict__ mel,
-                                int n_rows, int C, int B, int M, int step) {
-  extern __shared__ float smem[];
-  const int KB = KS * B;
-  const int depth = (M - 1) * step;
-  float* ws = smem;                        // (M, ECK, KB) W5 chunk
-  float* fs = ws + M * ECK * KB;           // (EF + depth, ECK) feature chunk
-  float* ds = fs + (EF + depth) * ECK;     // (EF, B) dequantized values
-  float* sms = ds + EF * B;                // (B, B) smoothing matrix
-  const int row0 = blockIdx.x * EF;
-  const int tid = threadIdx.x;
-  const int b = tid % B, fg = tid / B;
-  for (int idx = tid; idx < B * B; idx += blockDim.x) sms[idx] = smoothM[idx];
-  float acc[EFG][KS];
-#pragma unroll
-  for (int i = 0; i < EFG; ++i)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) acc[i][kk] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += ECK) {
-    __syncthreads();
-    for (int idx = tid; idx < M * ECK * KB; idx += blockDim.x) {
-      const int m = idx / (ECK * KB), rem = idx % (ECK * KB);
-      const int ci = c0 + rem / KB, col = rem % KB;
-      ws[idx] = ci < C ? W5[((size_t)m * C + ci) * KB + col] : 0.f;
+// Launch 3.  F[k*P + i][c] = log(sum over window i of span^2 + 0.01), span =
+// [y_{k-1}, y_k], y_k = Tmat u_k + Cpow s_k, s_k = L[k] + A_L^(k - cR) Sc[c].
+// The inputs of period k + 1 (its u tile, power A_L^i and chunk-local state)
+// are copied with cp.async while period k's windows run.
+template <int CT>
+__global__ void __launch_bounds__(FTHREADS, 1) features_kernel(
+    const float* __restrict__ u, const float* __restrict__ L, const float* __restrict__ Sc,
+    const float* __restrict__ apow, const float* __restrict__ hpk, const float* __restrict__ cpow,
+    const float* __restrict__ prefix, const int* __restrict__ starts, float* __restrict__ F,
+    int Kp, int Ls, int S, int C, int P, int win, int tail, int R) {
+  constexpr int NT = CT / 8;
+  constexpr int NSPLIT = NT / 2;         // warps a pair of m-tiles: 2 n-tiles each
+  constexpr int US = CT + US_PAD;
+  extern __shared__ __align__(16) float smem[];
+  const int S8 = (S + 7) / 8 * 8, SM = (S + 15) / 16 * 16;
+  const int CS = S8 + 4;                // Cpow and A_L^i row stride: A fragment loads hit 32 banks
+  const int L16 = (Ls + 15) / 16 * 16;  // rows of y computed: whole m-tiles, those past Ls unread
+  float* us = smem;                     // (L16, US) u tile, zero rows past Ls
+  float* cps = us + L16 * US;           // (L16, CS) Cpow, zeros past S and Ls
+  float* ys = cps + L16 * CS;           // (tail + L16, CT) y^2 over span [Ls - tail, 2 Ls)
+  float* hh = ys + (tail + L16) * CT;   // (HPAD + L16) tf32 hi of h, zeros before h[0] and past Ls
+  float* hl = hh + HPAD + L16;          // (HPAD + L16) lo
+  float* ss = hl + HPAD + L16;          // (S8, US) state before the period, zero rows past S
+  float* scs = ss + S8 * US;            // (S8, US) state before the period's scan chunk
+  float* ais = scs + S8 * US;           // (SM, CS) A_L^i, zeros past S
+  float* lsm = ais + SM * CS;           // (S, CT) chunk-local state before the period
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int c0 = blockIdx.y * CT;
+  const int k0 = blockIdx.x * FRUN, k1 = min(Kp, k0 + FRUN);
+  const int NM = L16 / 16, NK = (Ls + 7) / 8;  // m-tiles, k-steps (zero rows past Ls)
+  const bool vec = tile_vec(u, C, c0, CT);
+  const bool avec = S % 4 == 0 && reinterpret_cast<uintptr_t>(apow) % 16 == 0;
+  const bool lvec = vec && reinterpret_cast<uintptr_t>(L) % 16 == 0;
+  // u_k, A_L^(k - cR) and L[k] into shared memory; the caller commits
+  auto prefetch = [&](int k) {
+    load_tile<CT>(us, US, u, (size_t)k * Ls, Ls, C, c0, vec);
+    load_tile<CT>(lsm, CT, L, (size_t)k * S, S, C, c0, lvec);
+    const float* Ai = apow + (size_t)(k % R) * S * S;
+    if (avec) {
+      for (int i = t; i < S * S / 4; i += FTHREADS)
+        cp_async16(ais + (4 * i / S) * CS + 4 * i % S, Ai + 4 * i);
+    } else {
+      for (int i = t; i < S * S; i += FTHREADS) ais[(i / S) * CS + i % S] = Ai[i];
     }
-    for (int idx = tid; idx < (EF + depth) * ECK; idx += blockDim.x) {
-      const int row = row0 - depth + idx / ECK, ci = c0 + idx % ECK;
-      fs[idx] = (row >= 0 && row < n_rows && ci < C) ? F[(size_t)row * C + ci] : 0.f;
+  };
+  const int kfirst = k0 > 0 ? k0 - 1 : 0;  // the run's first period recomputes y_{k0-1}'s tail
+  for (int i = t; i < SM * CS; i += FTHREADS) ais[i] = 0.f;
+  for (int i = t; i < 2 * S8 * US; i += FTHREADS) ss[i] = 0.f;  // ss and scs
+  for (int i = Ls * US + t; i < L16 * US; i += FTHREADS) us[i] = 0.f;
+  __syncthreads();
+  prefetch(kfirst);
+  cp_async_commit();
+  for (int i = t; i < L16 * CS; i += FTHREADS) {
+    const int j = i % CS, r = i / CS;
+    cps[i] = (j < S && r < Ls) ? cpow[r * S + j] : 0.f;
+  }
+  for (int i = t; i < HPAD + L16; i += FTHREADS) {
+    const bool in = i >= HPAD && i < HPAD + Ls;
+    hh[i] = in ? hpk[i - HPAD] : 0.f;
+    hl[i] = in ? hpk[Ls + i - HPAD] : 0.f;
+  }
+  if (k0 == 0)
+    for (int i = t; i < tail * CT; i += FTHREADS) {
+      const float y = prefix[Ls - tail + i / CT];
+      ys[i] = y * y;
     }
-    __syncthreads();
-    for (int m = 0; m < M; ++m) {
-      for (int cc = 0; cc < ECK; ++cc) {
-        float a[EFG], w[KS];
-#pragma unroll
-        for (int i = 0; i < EFG; ++i) a[i] = fs[(fg * EFG + i + m * step) * ECK + cc];
-        const float* wr = ws + (m * ECK + cc) * KB + b;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) w[kk] = wr[kk * B];
-#pragma unroll
-        for (int i = 0; i < EFG; ++i)
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) acc[i][kk] = fmaf(a[i], w[kk], acc[i][kk]);
+  int chunk = -1;
+  for (int k = kfirst; k < k1; ++k) {
+    const bool pre = k < k0;  // y_{k0-1}: only the rows the windows reach
+    const int kc = k / R;
+    if (kc != chunk) {  // the previous fix-up's reads of scs precede the last barrier
+      chunk = kc;
+      for (int i = t; i < S * CT; i += FTHREADS) {
+        const int cc = c0 + i % CT;
+        scs[(i / CT) * US + i % CT] = cc < C ? Sc[((size_t)kc * S + i / CT) * C + cc] : 0.f;
       }
     }
-  }
+    cp_async_wait<0>();
+    __syncthreads();  // u_k, A_L^i, L[k] and scs in shared memory
+    // fix-up on the tensor cores: s_k = A_L^i S_kc + L[k], one (16, 8) tile a warp
+    for (int tile = warp; tile < (SM / 16) * NT; tile += FWARPS) {
+      const int mt = tile / NT, nt = tile % NT;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int ks = 0; ks < S8 / 8; ++ks) {
+        const float* ar = ais + (16 * mt + g) * CS + 8 * ks + q4;
+        const float v[4] = {ar[0], ar[8 * CS], ar[4], ar[8 * CS + 4]};
+        uint32_t ahi[4], alo[4], bh0, bl0, bh1, bl1;
 #pragma unroll
-  for (int i = 0; i < EFG; ++i) {
-    float best = acc[i][0] + bm[b];
-    int bi = 0;
+        for (int j = 0; j < 4; ++j) tf32_split(v[j], ahi[j], alo[j]);
+        const float* br = scs + (8 * ks + q4) * US + 8 * nt + g;
+        tf32_split(br[0], bh0, bl0);
+        tf32_split(br[4 * US], bh1, bl1);
+        mma3(acc, ahi, alo, bh0, bh1, bl0, bl1);
+      }
 #pragma unroll
-    for (int kk = 1; kk < KS; ++kk) {
-      const float v = acc[i][kk] + bm[kk * B + b];
-      if (v > best) { best = v; bi = kk; }  // strict: ties keep the first slot
+      for (int j = 0; j < 4; ++j) {
+        const int s = 16 * mt + g + 8 * (j >> 1), col = 8 * nt + 2 * q4 + (j & 1);
+        if (s < S) ss[s * US + col] = c0 + col < C ? acc[j] + lsm[s * CT + col] : 0.f;
+      }
     }
-    ds[(fg * EFG + i) * B + b] = med[bi * B + b];
-  }
-  __syncthreads();
+    __syncthreads();  // s_k written
+    // y_k: warp w takes n-tiles [2 (w % NSPLIT), +2) of the m-tile pairs
+    // (ma, mb) = (j, NM - 1 - j), j = w / NSPLIT, w / NSPLIT + FWARPS / NSPLIT, ...;
+    // the k-steps of ma are a prefix of mb's, so both share each B fragment
+    const int mt_lo = pre ? (Ls - tail) / 16 : 0;
+    const int ybase = tail - (pre ? Ls : 0);  // span row of y_k row 0
+    const int n0 = 16 * (warp % NSPLIT);      // first column of the warp's two n-tiles
+    for (int jp = warp / NSPLIT; 2 * jp < NM; jp += FWARPS / NSPLIT) {
+      const int mtile[2] = {jp, NM - 1 - jp};
+      const bool on[2] = {jp >= mt_lo, mtile[1] > jp && mtile[1] >= mt_lo};
+      if (!on[0] && !on[1]) continue;
+      float acc[2][2][4];
 #pragma unroll
-  for (int i = 0; i < EFG; ++i) {
-    const int r = fg * EFG + i;
-    float o = 0.f;
-    for (int bb = 0; bb < B; ++bb) o = fmaf(ds[r * B + bb], sms[bb * B + b], o);
-    if (row0 + r < n_rows) mel[(size_t)(row0 + r) * B + b] = o;
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[side][nt][j] = 0.f;
+      // Toeplitz: tile (mt, kk) = h[16 mt - 8 kk + r - c]; tiles past the diagonal are 0.
+      // With d = 16 mt - 8 kk + g - q the fragment is h[d, d + 8, d - 4, d + 4]: k-step
+      // kk + 1 reuses h[d] and h[d - 4] as its second and fourth values (nx)
+      const int na = min(2 * mtile[0] + 2, NK);
+      const int nk = on[1] ? min(2 * mtile[1] + 2, NK) : na;
+      uint32_t nx[2][4];  // (hi, lo) of the next k-step's h[d + 8], h[d + 4]
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int d = HPAD + 16 * mtile[side] + g - q4;
+        nx[side][0] = __float_as_uint(hh[d + 8]);
+        nx[side][1] = __float_as_uint(hl[d + 8]);
+        nx[side][2] = __float_as_uint(hh[d + 4]);
+        nx[side][3] = __float_as_uint(hl[d + 4]);
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < nk; ++kk) {
+        uint32_t bh[2][2], bl[2][2];
+        const float* br = us + (8 * kk + q4) * US + n0 + g;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          tf32_split(br[8 * nt], bh[nt][0], bl[nt][0]);
+          tf32_split(br[4 * US + 8 * nt], bh[nt][1], bl[nt][1]);
+        }
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          if (!on[side] || (side == 0 && kk >= na)) continue;
+          const int d = HPAD + 16 * mtile[side] - 8 * kk + g - q4;
+          const uint32_t ahi[4] = {__float_as_uint(hh[d]), nx[side][0], __float_as_uint(hh[d - 4]),
+                                   nx[side][2]};
+          const uint32_t alo[4] = {__float_as_uint(hl[d]), nx[side][1], __float_as_uint(hl[d - 4]),
+                                   nx[side][3]};
+          nx[side][0] = ahi[0];
+          nx[side][1] = alo[0];
+          nx[side][2] = ahi[2];
+          nx[side][3] = alo[2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            mma3(acc[side][nt], ahi, alo, bh[nt][0], bh[nt][1], bl[nt][0], bl[nt][1]);
+        }
+      }
+      // Cpow s_k into the same accumulators
+      for (int ks = 0; ks < S8 / 8; ++ks) {
+        uint32_t bh[2][2], bl[2][2];
+        const float* br = ss + (8 * ks + q4) * US + n0 + g;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          tf32_split(br[8 * nt], bh[nt][0], bl[nt][0]);
+          tf32_split(br[4 * US + 8 * nt], bh[nt][1], bl[nt][1]);
+        }
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          if (!on[side]) continue;
+          const float* ar = cps + (16 * mtile[side] + g) * CS + 8 * ks + q4;
+          const float v[4] = {ar[0], ar[8 * CS], ar[4], ar[8 * CS + 4]};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tf32_split(v[j], ahi[j], alo[j]);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            mma3(acc[side][nt], ahi, alo, bh[nt][0], bh[nt][1], bl[nt][0], bl[nt][1]);
+        }
+      }
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        if (!on[side]) continue;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int row = ybase + 16 * mtile[side] + g + 8 * (j >> 1);
+            if (row >= 0)
+              ys[row * CT + n0 + 8 * nt + 2 * q4 + (j & 1)] = acc[side][nt][j] * acc[side][nt][j];
+          }
+      }
+    }
+    __syncthreads();  // ys written; u_k, A_L^i, L[k] and s_k read
+    if (k + 1 < k1) prefetch(k + 1);
+    cp_async_commit();
+    if (!pre) {
+      for (int i = t; i < P * CT; i += FTHREADS) {
+        const int fi = i / CT, cc = i % CT, c = c0 + cc;
+        if (c >= C) continue;
+        const float* yr = ys + (starts[fi] - (Ls - tail)) * CT + cc;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+        int w = 0;
+        for (; w + 3 < win; w += 4) {
+          s0 += yr[w * CT];
+          s1 += yr[(w + 1) * CT];
+          s2 += yr[(w + 2) * CT];
+          s3 += yr[(w + 3) * CT];
+        }
+        for (; w < win; ++w) s0 += yr[w * CT];
+        F[((size_t)k * P + fi) * C + c] = logf(((s0 + s1) + (s2 + s3)) + 0.01f);
+      }
+      __syncthreads();  // windows read
+      for (int i = t; i < tail * CT; i += FTHREADS) ys[i] = ys[Ls * CT + i];  // y_k's tail
+    }
   }
 }
 
-// Launches 1-3: F (Kp*P, C) from u (Kp*Ls, C); q and sb are scratch.
-cudaError_t launch_logpower(const float* u, const float* s0, const float* pmatT, const float* aT,
-                            const float* h, const float* cpow, const float* prefix,
-                            const int* starts, float* q, float* sb, float* F, int Kp, int Ls,
-                            int S, int C, int P, int win, int tail, cudaStream_t stream) {
+// Launch 4.  mel[j] = smoothM^T med_slot[first argmax_kk score(j, kk, b), b];
+// wpk: W5's 3xTF32 B fragments (pass, warp, k-step, n-tile, lane) as float4
+// (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n]), the k-steps in the order the
+// kernel walks them: by slab of ECK channels (the last one ragged), then tap,
+// then channel (cuda_frontend.pack_lda_weights).  Only one slab of F is in
+// shared memory at a time, so any C fits.
+template <int ESTAGES>
+__global__ void __launch_bounds__(EWARPS * 32, 1) lda_epilogue_kernel(
+    const float* __restrict__ F, const float4* __restrict__ wpk, const float* __restrict__ bm,
+    const float* __restrict__ med, const float* __restrict__ smoothM, float* __restrict__ mel,
+    int n_rows, int C, int B, int M, int step) {
+  extern __shared__ __align__(16) float smem[];
+  const int C8 = (C + 7) / 8 * 8, CK = min(C8, ECK);
+  const int FS = CK + 4;  // FS: A fragment loads hit 32 banks
+  const int depth = (M - 1) * step;
+  const int KB = KS * B, npass = (KB + EPASS - 1) / EPASS;
+  const int ksteps = M * C8 / 8;
+  float4* ring = reinterpret_cast<float4*>(smem);  // (EWARPS, ESTAGES, ENT, 32)
+  float* sc = smem;                                // (EF, ESC) one pass's scores, over the ring
+  float* fs = smem + epilogue_region(ESTAGES);     // (EF + depth, FS) feature rows
+  float* best = fs + (EF + depth) * FS;            // (EF, B) best score so far, then med
+  int* bidx = reinterpret_cast<int*>(best + EF * B);  // (EF, B) its slot
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int row0 = blockIdx.x * EF;
+  int staged = -1;  // the slab of F in fs
+  float4* wring = ring + warp * ESTAGES * ENT * 32;
+  for (int p = 0; p < npass; ++p) {
+    const float4* wp = wpk + (size_t)(p * EWARPS + warp) * ksteps * ENT * 32;
+#pragma unroll
+    for (int s = 0; s < ESTAGES - 1; ++s) {
+      if (s < ksteps)
+#pragma unroll
+        for (int nt = 0; nt < ENT; ++nt)
+          cp_async16(wring + (s * ENT + nt) * 32 + lane, wp + (s * ENT + nt) * 32 + lane);
+      cp_async_commit();
+    }
+    float acc[EMT][ENT][4];
+#pragma unroll
+    for (int mt = 0; mt < EMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < ENT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
+    // k-step ks: channel k-step kc of tap m in slab `slab`, whose taps have w8 k-steps
+    for (int ks = 0, slab = 0, m = 0, kc = 0, w8 = CK / 8; ks < ksteps; ++ks) {
+      if (slab != staged) {  // the same at every thread
+        __syncthreads();     // every warp is done with the previous slab
+        for (int i = t; i < (EF + depth) * FS; i += EWARPS * 32) {
+          const int rr = i / FS, c = CK * slab + i % FS, row = row0 - depth + rr;
+          fs[i] = (row >= 0 && row < n_rows && i % FS < CK && c < C)
+                      ? __ldg(F + (size_t)row * C + c) : 0.f;
+        }
+        __syncthreads();  // the slab staged
+        staged = slab;
+      }
+      cp_async_wait<ESTAGES - 2>();  // k-step ks has landed
+      const int nx = ks + ESTAGES - 1;  // refill the slot that k-step ks-1 used
+      if (nx < ksteps)
+#pragma unroll
+        for (int nt = 0; nt < ENT; ++nt)
+          cp_async16(wring + ((nx % ESTAGES) * ENT + nt) * 32 + lane,
+                     wp + (nx * ENT + nt) * 32 + lane);
+      cp_async_commit();
+      float4 b[ENT];
+#pragma unroll
+      for (int nt = 0; nt < ENT; ++nt) b[nt] = wring[((ks % ESTAGES) * ENT + nt) * 32 + lane];
+      const float* ak = fs + (g + m * step) * FS + 8 * kc + q4;  // tap m: rows shifted by m step
+#pragma unroll
+      for (int mt = 0; mt < EMT; ++mt) {
+        const float* r = ak + 16 * mt * FS;
+        const float v[4] = {r[0], r[8 * FS], r[4], r[8 * FS + 4]};
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tf32_split(v[j], ahi[j], alo[j]);
+#pragma unroll
+        for (int nt = 0; nt < ENT; ++nt)
+          mma3(acc[mt][nt], ahi, alo, __float_as_uint(b[nt].x), __float_as_uint(b[nt].y),
+               __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+      }
+      if (++kc == w8) {  // the next tap; after the last one, the next slab
+        kc = 0;
+        if (++m == M) {
+          m = 0;
+          ++slab;
+          w8 = min(CK, C8 - CK * slab) / 8;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with its ring: the scores overwrite it
+#pragma unroll
+    for (int mt = 0; mt < EMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < ENT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sc[(16 * mt + g + 8 * (j >> 1)) * ESC + 8 * (ENT * warp + nt) + 2 * q4 + (j & 1)] =
+              acc[mt][nt][j];
+    __syncthreads();
+    // running first-max over the slots, in slot order
+    for (int i = t; i < EF * B; i += EWARPS * 32) {
+      const int f = i / B, b = i % B;
+      float bv = best[i];
+      int bi = bidx[i];
+      for (int kk = 0; kk < KS; ++kk) {
+        const int col = kk * B + b - p * EPASS;
+        if (col < 0 || col >= EPASS) continue;
+        const float v = sc[f * ESC + col] + bm[kk * B + b];
+        if (kk == 0 || v > bv) {  // strict: ties keep the first slot
+          bv = v;
+          bi = kk;
+        }
+      }
+      best[i] = bv;
+      bidx[i] = bi;
+    }
+    __syncthreads();  // the scores are read: the next pass's ring may overwrite them
+  }
+  for (int i = t; i < EF * B; i += EWARPS * 32) best[i] = med[bidx[i] * B + i % B];
+  __syncthreads();
+  for (int i = t; i < EF * B; i += EWARPS * 32) {
+    const int f = i / B, b = i % B;
+    if (row0 + f >= n_rows) continue;
+    float o = 0.f;
+    for (int bb = 0; bb < B; ++bb) o = fmaf(best[f * B + bb], __ldg(smoothM + bb * B + b), o);
+    mel[(size_t)(row0 + f) * B + b] = o;
+  }
+}
+
+// Launches 1-3: F (Kp*P, C) from u (Kp*Ls, C); L, lend and Sc are scratch.
+cudaError_t launch_logpower(const float* u, const float* s0, const float* pmat,
+                            const float* apow, const float* hpk, const float* cpow,
+                            const float* prefix, const int* starts, float* L, float* lend,
+                            float* Sc, float* F, int Kp, int Ls, int S, int C, int P, int win,
+                            int tail, int R, cudaStream_t stream) {
   cudaError_t err;
-  const size_t q_smem = (size_t)Ls * (QCT + S) * sizeof(float);
-  cudaFuncSetAttribute(period_inputs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
-  period_inputs_kernel<<<dim3(Kp, (C + QCT - 1) / QCT), QCT * QSG, q_smem, stream>>>(
-      u, pmatT, q, Ls, S, C);
+  const int nchunks = (Kp + R - 1) / R;
+  const int SM = (S + 15) / 16 * 16, S8 = (S + 7) / 8 * 8;
+  const int L64 = (Ls + 8 * QSLAB - 1) / (8 * QSLAB) * 8 * QSLAB;
+  const size_t q_smem = (size_t)(SM * (L64 + 4) + SM * (S8 + 4) +
+                                 QWARPS * (QSTAGES * QSLAB * 64 + S8 * 8)) * sizeof(float);
+  if ((err = cudaFuncSetAttribute(chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)q_smem)) != cudaSuccess)
+    return err;
+  chunk_scan_kernel<<<dim3(nchunks, (C + QCT - 1) / QCT), QWARPS * 32, q_smem, stream>>>(
+      u, pmat, apow, L, lend, Kp, Ls, S, C, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t s_smem = (size_t)(S * S + 2 * S * SCT) * sizeof(float);
-  boundary_scan_kernel<<<(C + SCT - 1) / SCT, S * SCT, s_smem, stream>>>(q, s0, aT, sb, Kp, S, C);
+  carry_scan_kernel<<<(C + SCT - 1) / SCT, S * SCT, s_smem, stream>>>(
+      lend, s0, apow + (size_t)R * S * S, Sc, nchunks, S, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t f_smem = (size_t)(Ls + 2 * Ls * FCT + (tail + Ls) * FCT + 2 * S * FCT) * sizeof(float);
-  cudaFuncSetAttribute(features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f_smem);
-  features_kernel<<<dim3(Kp, (C + FCT - 1) / FCT), FCT * FRG, f_smem, stream>>>(
-      u, sb, h, cpow, prefix, starts, F, Ls, S, C, P, win, tail);
+  // 32 channels a CTA where that fits in shared memory (Ls <= 256), else 16
+  const int L16 = (Ls + 15) / 16 * 16;
+  const size_t f32 = (size_t)features_smem_floats(32, L16, S, tail) * sizeof(float);
+  const size_t f16 = (size_t)features_smem_floats(16, L16, S, tail) * sizeof(float);
+  if (f32 <= 227 * 1024) {
+    if ((err = cudaFuncSetAttribute(features_kernel<32>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f32)) !=
+        cudaSuccess)
+      return err;
+    features_kernel<32><<<dim3((Kp + FRUN - 1) / FRUN, (C + 31) / 32), FTHREADS, f32, stream>>>(
+        u, L, Sc, apow, hpk, cpow, prefix, starts, F, Kp, Ls, S, C, P, win, tail, R);
+  } else {
+    if ((err = cudaFuncSetAttribute(features_kernel<16>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f16)) !=
+        cudaSuccess)
+      return err;
+    features_kernel<16><<<dim3((Kp + FRUN - 1) / FRUN, (C + 15) / 16), FTHREADS, f16, stream>>>(
+        u, L, Sc, apow, hpk, cpow, prefix, starts, F, Kp, Ls, S, C, P, win, tail, R);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int frontend_logpower(
-    const float* u, const float* s0, const float* pmatT, const float* aT, const float* h,
-    const float* cpow, const float* prefix, const int* starts, float* q, float* sb, float* F,
-    int Kp, int Ls, int S, int C, int P, int win, int tail, cudaStream_t stream) {
-  return (int)launch_logpower(u, s0, pmatT, aT, h, cpow, prefix, starts, q, sb, F, Kp, Ls, S, C,
-                              P, win, tail, stream);
+    const float* u, const float* s0, const float* pmat, const float* apow, const float* hpk,
+    const float* cpow, const float* prefix, const int* starts, float* L, float* lend, float* Sc,
+    float* F, int Kp, int Ls, int S, int C, int P, int win, int tail, int R,
+    cudaStream_t stream) {
+  return (int)launch_logpower(u, s0, pmat, apow, hpk, cpow, prefix, starts, L, lend, Sc, F, Kp,
+                              Ls, S, C, P, win, tail, R, stream);
 }
 
 extern "C" int frontend_decode_mels(
-    const float* u, const float* s0, const float* pmatT, const float* aT, const float* h,
-    const float* cpow, const float* prefix, const int* starts, const float* W5, const float* bm,
-    const float* med, const float* smoothM, float* q, float* sb, float* F, float* mel,
-    int Kp, int Ls, int S, int C, int P, int win, int tail, int B, int M, int step,
-    cudaStream_t stream) {
-  cudaError_t err = launch_logpower(u, s0, pmatT, aT, h, cpow, prefix, starts, q, sb, F, Kp, Ls,
-                                    S, C, P, win, tail, stream);
+    const float* u, const float* s0, const float* pmat, const float* apow, const float* hpk,
+    const float* cpow, const float* prefix, const int* starts, const float* wpk, const float* bm,
+    const float* med, const float* smoothM, float* L, float* lend, float* Sc, float* F,
+    float* mel, int Kp, int Ls, int S, int C, int P, int win, int tail, int R, int B, int M,
+    int step, cudaStream_t stream) {
+  cudaError_t err = launch_logpower(u, s0, pmat, apow, hpk, cpow, prefix, starts, L, lend, Sc, F,
+                                    Kp, Ls, S, C, P, win, tail, R, stream);
   if (err != cudaSuccess) return (int)err;
   const int n_rows = Kp * P;
   const int depth = (M - 1) * step;
-  const size_t e_smem =
-      (size_t)(M * ECK * KS * B + (EF + depth) * ECK + EF * B + B * B) * sizeof(float);
-  cudaFuncSetAttribute(epilogue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)e_smem);
-  epilogue_kernel<<<(n_rows + EF - 1) / EF, B * (EF / EFG), e_smem, stream>>>(
-      F, W5, bm, med, smoothM, mel, n_rows, C, B, M, step);
+  const int CK = (C + 7) / 8 * 8 < ECK ? (C + 7) / 8 * 8 : ECK;
+  // a 6-stage ring where it fits in shared memory (any C at 40 mel bins), else 4
+  const size_t e_rest = (size_t)((EF + depth) * (CK + 4) + 2 * EF * B) * sizeof(float);
+  const size_t e6 = epilogue_region(6) * sizeof(float) + e_rest;
+  const size_t e4 = epilogue_region(4) * sizeof(float) + e_rest;
+  const dim3 grid((n_rows + EF - 1) / EF);
+  const float4* wpk4 = reinterpret_cast<const float4*>(wpk);
+  if (e6 <= 227 * 1024) {
+    if ((err = cudaFuncSetAttribute(lda_epilogue_kernel<6>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)e6)) !=
+        cudaSuccess)
+      return (int)err;
+    lda_epilogue_kernel<6><<<grid, EWARPS * 32, e6, stream>>>(F, wpk4, bm, med, smoothM, mel,
+                                                              n_rows, C, B, M, step);
+  } else {
+    if ((err = cudaFuncSetAttribute(lda_epilogue_kernel<4>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)e4)) !=
+        cudaSuccess)
+      return (int)err;
+    lda_epilogue_kernel<4><<<grid, EWARPS * 32, e4, stream>>>(F, wpk4, bm, med, smoothM, mel,
+                                                              n_rows, C, B, M, step);
+  }
   return (int)cudaGetLastError();
 }

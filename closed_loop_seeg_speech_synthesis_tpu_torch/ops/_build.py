@@ -7,8 +7,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused.  A failed build raises; nothing falls back.
+named by a hash of its source, the headers in ``csrc/`` (``*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  A failed build raises; nothing falls back.
 
 Every C entry point takes device pointers, integer sizes and the CUDA
 stream, launches on that stream without synchronising, and returns
@@ -44,13 +45,22 @@ def _nvcc() -> str:
                        "of this package are built from source at first use")
 
 
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``csrc/<name>.cu``, every header ``csrc/*.cuh`` it may include,
+    and the flags: the library's name."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``.  The build's seconds and
     the compiler's register/shared-memory report are kept in ``build_info``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = BUILD_DIR / f"{name}-{digest(name)}.so"
     t0 = time.perf_counter()
     log = ""
     if not out.exists():

@@ -8,6 +8,13 @@ source of both is ``csrc/frontend_decode.cu``; its header note says how the
 TPU kernels' sequential grid was split for a GPU.  ``frontend_decode_mels_plain``
 and ``frontend_logpower_plain`` are the same functions in plain torch.
 
+The kernels run their products on the tensor cores in 3xTF32 and walk the
+block-boundary states as a two-level scan over chunks of ``SCAN_CHUNK``
+periods.  Their operands are packed here: the impulse response's hi/lo
+split and the power table A_L^0 .. A_L^R once in ``make_frontend_ops``
+(``FrontendOps.h_tf32``, ``FrontendOps.apow``), the LDA weights' hi/lo split
+in mma fragment order once per call (``pack_lda_weights``).
+
 Per schedule period (the frame grid repeats every P frames spanning exactly
 Ls samples; Ls is the filter's block length) the computation is: the
 48-state filter chain y = Tmat u + Cpow s, s <- A_L s + Pmat u; log-power
@@ -24,7 +31,14 @@ import numpy as np
 import torch
 
 from . import _build, framing, smoothing
+from .tf32 import pack_b_fragments, tf32_split
 from .iir import BlockedIIR, _boundary_states
+
+SCAN_CHUNK = 64     # periods per chunk of the kernels' two-level boundary scan
+LDA_WARPS, LDA_NT = 16, 3                   # csrc/frontend_decode.cu EWARPS, ENT
+LDA_PASS = LDA_WARPS * LDA_NT * 8           # score columns per pass (EPASS)
+LDA_SLAB = 128                              # channels of F staged at a time (ECK)
+MAX_LS = 512                                # longest period the kernels' shared memory takes
 
 
 @dataclasses.dataclass
@@ -40,6 +54,8 @@ class FrontendOps:
     starts: torch.Tensor  # (P,) int32 first span column of each window
     win: int              # window length (samples)
     tail: int             # samples at the end of the previous chunk that windows reach
+    h_tf32: torch.Tensor  # (2, Ls) TF32 hi and lo of h = Tmat[:, 0] (tf32_split)
+    apow: torch.Tensor    # (SCAN_CHUNK + 1, S, S) A_L^0 .. A_L^R (power_table)
 
     @property
     def Ls(self) -> int:
@@ -56,6 +72,23 @@ def _to_f32_ftz(a: torch.Tensor) -> torch.Tensor:
     bytes, and the kernel never meets a subnormal operand."""
     x = a.to(torch.float32)
     return torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0, x)
+
+
+def power_table(A_L: torch.Tensor, R: int) -> torch.Tensor:
+    """(R + 1, S, S) float64 table A_L^0 .. A_L^R, by repeated products."""
+    A = A_L.detach().to("cpu", torch.float64)
+    pows = [torch.eye(A.shape[0], dtype=torch.float64)]
+    for _ in range(R):
+        pows.append(pows[-1] @ A)
+    return torch.stack(pows)
+
+
+def serial_scan_steps(ops: FrontendOps, Kp: int) -> int:
+    """Dependent steps of the kernels' boundary scan over Kp periods: the
+    chunk-local scans (at most R steps, every chunk at once), then the carry
+    over the chunks (one step fewer than there are chunks)."""
+    R = ops.apow.shape[0] - 1
+    return min(R, Kp) + -(-Kp // R) - 1
 
 
 def make_frontend_ops(op: BlockedIIR, zf_prefix: np.ndarray, frame_ms: float,
@@ -82,10 +115,13 @@ def make_frontend_ops(op: BlockedIIR, zf_prefix: np.ndarray, frame_ms: float,
     prefix = np.zeros(Ls, np.float64)
     prefix[Ls - prefill :] = np.asarray(zf_prefix)
     f32 = lambda a: _to_f32_ftz(torch.as_tensor(a, device=device))
-    return FrontendOps(Tmat=f32(op.Tmat), Cpow=f32(op.Cpow), Pmat=f32(op.Pmat),
+    Tmat = f32(op.Tmat)
+    return FrontendOps(Tmat=Tmat, Cpow=f32(op.Cpow), Pmat=f32(op.Pmat),
                        A_L=f32(op.A_L), S_win=f32(S_win), prefix=f32(prefix),
                        starts=torch.as_tensor(starts, device=device), win=win,
-                       tail=max(0, Ls - int(starts.min())))
+                       tail=max(0, Ls - int(starts.min())),
+                       h_tf32=torch.stack(tf32_split(Tmat[:, 0])),
+                       apow=f32(power_table(op.A_L, SCAN_CHUNK)))
 
 
 def epilogue_constants(lda_coef_full, intercept, valid, classes, medians, gauss_kernel,
@@ -164,6 +200,8 @@ def _check_inputs(what: str, dev: torch.device, ops: FrontendOps, tensors: dict)
     and the kernel's limits hold."""
     if ops.A_L.shape[0] > 64:
         raise ValueError(f"{what} kernel takes <= 64 filter states; got {ops.A_L.shape[0]}")
+    if ops.Ls > MAX_LS:
+        raise ValueError(f"{what} kernel takes periods of <= {MAX_LS} samples; got {ops.Ls}")
     for name, (t, shape) in tensors.items():
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
@@ -182,13 +220,33 @@ def _launch_args(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor, Kp: int)
     need = Kp * Ls
     u = eeg[:need] if T >= need else torch.nn.functional.pad(eeg, (0, 0, 0, need - T))
     u = u.contiguous()
-    q = torch.empty((Kp, S, C), dtype=torch.float32, device=dev)
-    sb = torch.empty_like(q)
+    R = ops.apow.shape[0] - 1
+    local = torch.empty((Kp, S, C), dtype=torch.float32, device=dev)  # chunk-local states
+    ends = torch.empty((-(-Kp // R), S, C), dtype=torch.float32, device=dev)
+    carries = torch.empty_like(ends)                                  # states before each chunk
     F = torch.empty((Kp * P, C), dtype=torch.float32, device=dev)
-    h = ops.Tmat[:, 0].contiguous()           # Tmat[t, j] = h[t - j]
-    ptrs = (u, s0, ops.Pmat.T.contiguous(), ops.A_L.T.contiguous(), h, ops.Cpow.contiguous(),
-            ops.prefix, ops.starts)
-    return ptrs, (q, sb, F), (Kp, Ls, S, C, P, ops.win, ops.tail), F
+    ptrs = (u, s0, ops.Pmat, ops.apow, ops.h_tf32, ops.Cpow, ops.prefix, ops.starts)
+    return ptrs, (local, ends, carries, F), (Kp, Ls, S, C, P, ops.win, ops.tail, R), F
+
+
+def pack_lda_weights(W5: torch.Tensor, C: int, M: int) -> torch.Tensor:
+    """W5 (M*C, K*B) float32 -> its 3xTF32 B fragments for the epilogue
+    launch, (passes, LDA_WARPS, k-steps, LDA_NT, 32 lanes, 4) on W5's device
+    (``tf32.pack_b_fragments``).  The rows go in the order the launch walks
+    its k-steps: by slab of LDA_SLAB channels (the last one ragged), then
+    tap, then channel; each tap padded to C8 = 8 ceil(C / 8) channels and the
+    columns to whole passes of LDA_PASS, with zeros.  Warp w of pass p owns
+    the n-tiles at columns LDA_PASS p + 8 (LDA_NT w + t), t < LDA_NT."""
+    KB = W5.shape[1]
+    C8 = -(-C // 8) * 8
+    passes = -(-KB // LDA_PASS)
+    Wp = W5.new_zeros((M, C8, passes * LDA_PASS))
+    Wp[:, :C, :KB] = W5.reshape(M, C, KB)
+    rows = torch.cat([Wp[:, c : c + LDA_SLAB].reshape(-1, Wp.shape[2])
+                      for c in range(0, C8, LDA_SLAB)])
+    cols = (LDA_PASS * np.arange(passes)[:, None, None]
+            + 8 * (LDA_NT * np.arange(LDA_WARPS)[:, None] + np.arange(LDA_NT)))
+    return pack_b_fragments(rows, cols)
 
 
 def frontend_logpower(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
@@ -208,7 +266,7 @@ def frontend_logpower(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
     if Kp == 0:
         return eeg.new_empty((0, C))
     ptrs, scratch, sizes, F = _launch_args(ops, eeg, s0, Kp)
-    fn = _build.bind(_build.load("frontend_decode"), "frontend_logpower", 11, 7)
+    fn = _build.bind(_build.load("frontend_decode"), "frontend_logpower", 12, 8)
     err = fn(*(a.data_ptr() for a in ptrs + scratch), *sizes,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "frontend_logpower")
@@ -248,8 +306,9 @@ def frontend_decode_mels(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
         return eeg.new_empty((0, B))
     ptrs, scratch, sizes, _ = _launch_args(ops, eeg, s0, Kp)
     mel = torch.empty((Kp * ops.P, B), dtype=torch.float32, device=dev)
-    fn = _build.bind(_build.load("frontend_decode"), "frontend_decode_mels", 16, 10)
-    err = fn(*(a.data_ptr() for a in ptrs + (W5, bm, med_slot, smoothM) + scratch + (mel,)),
+    wpk = pack_lda_weights(W5, C, M)
+    fn = _build.bind(_build.load("frontend_decode"), "frontend_decode_mels", 17, 11)
+    err = fn(*(a.data_ptr() for a in ptrs + (wpk, bm, med_slot, smoothM) + scratch + (mel,)),
              *sizes, B, M, step_size, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "frontend_decode_mels")
     frontend_decode_mels.launches += 1

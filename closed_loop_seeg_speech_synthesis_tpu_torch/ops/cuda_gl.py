@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, tf32
 from .griffinlim import BLOCK_SAMPLES, FFT_SIZE, HOP, StreamingGLOps, streaming_gl_blocks, to_int16
 from .iir import BlockedIIR, StateSpace, blocked_operators, make_blocked_iir
 
@@ -70,20 +70,6 @@ def _gl_operands(gl: StreamingGLOps) -> tuple:
             _f32(rd.I_cos[Km]), _f32(gl.window))
 
 
-def tf32_round(x: np.ndarray) -> np.ndarray:
-    """float32 -> the nearest TF32 value (10 explicit mantissa bits, ties away
-    from zero), as ``cvt.rna.tf32.f32`` rounds on the card."""
-    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def tf32_split(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """(hi, lo) with hi = tf32(m) and lo = tf32(m - hi): m - hi is exact in
-    float32, and hi + lo is m within 2^-22 relative."""
-    hi = tf32_round(m)
-    return hi, tf32_round(np.asarray(m, np.float32) - hi)
-
-
 def fragment_columns(forward: bool) -> np.ndarray:
     """(8 warps, 4 n-tiles) first column of each 8-column tile a warp of the
     tensor-core kernel owns: forward, the cos and sin columns of bins
@@ -96,14 +82,8 @@ def fragment_columns(forward: bool) -> np.ndarray:
 
 def _pack_fragments(m: torch.Tensor, forward: bool) -> torch.Tensor:
     """(256, 256) float32 operand -> its 3xTF32 B fragments (warp, k-step,
-    n-tile, lane, 4): lane l of k-step s holds (hi[k][n], hi[k+4][n],
-    lo[k][n], lo[k+4][n]) with k = 8 s + l % 4 and n = tile column + l // 4."""
-    hi, lo = tf32_split(m.cpu().numpy())
-    lane = np.arange(32)
-    k = (8 * np.arange(m.shape[0] // 8)[:, None] + lane % 4)[None, :, None, :]
-    n = (fragment_columns(forward)[:, :, None] + lane // 4)[:, None, :, :]
-    packed = np.stack([hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]], axis=-1)
-    return torch.as_tensor(np.ascontiguousarray(packed), device=m.device)
+    n-tile, lane, 4), the n-tiles of ``fragment_columns``."""
+    return tf32.pack_b_fragments(m, fragment_columns(forward))
 
 
 def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float64,

@@ -18,8 +18,8 @@ one NVIDIA GPU.  Run from the repository root:
 
 The variants are copies of the source edited here (``variants``; its
 anchors are held to the source by tests/test_torch_gl_split.py) and built
-with the same nvcc flags into build/kernels/; the package's own build is
-untouched.
+by ``probe_tools`` with the same nvcc flags into build/kernels/; the
+package's own build is untouched.
 Prints the card's name and power limit first.  Without a CUDA device it
 exits 1.
 """
@@ -32,6 +32,9 @@ import subprocess
 import sys
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import probe_tools  # noqa: E402
 
 SRC = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu"
 ONE_ACC = ('''        float c[4] = {0.f, 0.f, 0.f, 0.f};
@@ -75,10 +78,8 @@ def stamped(src, kernel, stamps):
     end = src.index("\n}\n", start)
     body = src[start:end]
     for anchor, k in stamps:
-        if body.count(anchor) != 1:
-            raise ValueError(f"{kernel}: anchor not found once: {anchor!r}")
         stamp = "    __syncthreads();\n" if kernel == "gl_cluster_kernel" and k == 6 else ""
-        body = body.replace(anchor, anchor + stamp + f"    STAMP(8 * it + {k});\n")
+        body = probe_tools.swap(body, anchor, anchor + stamp + f"    STAMP(8 * it + {k});\n")
     body = body.replace("{\n", "{\n  int it = 0;\n  STAMP(127);\n", 1)
     body = body.replace("for (int it = 0;", "for (it = 0;")
     return src[:start] + body + src[end:]
@@ -88,16 +89,13 @@ def variants(src):
     """The probe's copies of gl_audio.cu: "one_acc" sums every k-step in one
     tensor-core accumulator; "stamps" records clock64 at the phase
     boundaries of both Griffin-Lim kernels and adds ``probe_stamps_read``."""
-    if src.count(ONE_ACC[0]) != 1:
-        raise ValueError("gl_mma_kernel: the per-k-step accumulator is not found once")
+    one_acc = probe_tools.swap(src, *ONE_ACC)
     prelude = ("namespace {\n__device__ long long probe_stamps[%d];\n#define STAMP(i) do { if "
                "(blockIdx.x == 0 && threadIdx.x == 0) probe_stamps[(i)] = clock64(); } while (0)\n"
                % SLOTS)
     timed = stamped(stamped(src.replace("namespace {\n", prelude, 1), "gl_mma_kernel", MMA_STAMPS),
                     "gl_cluster_kernel", CLUSTER_STAMPS)
-    timed += ('\nextern "C" int probe_stamps_read(long long* out) {\n  return (int)cudaMemcpyFromSymbol('
-              'out, probe_stamps, sizeof(probe_stamps));\n}\n')
-    return {"one_acc": src.replace(*ONE_ACC), "stamps": timed}
+    return {"one_acc": one_acc, "stamps": timed + probe_tools.reader("probe_stamps", "probe_stamps_read")}
 
 
 @contextlib.contextmanager
@@ -110,15 +108,9 @@ def regime_threshold(cuda_gl, cluster_max_b):
         cuda_gl.CLUSTER_MAX_B = saved
 
 
-def build(_build, name, src):
-    out = os.path.join(str(_build.BUILD_DIR), f"probe_{name}")
-    with open(out + ".cu", "w") as f:
-        f.write(src)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out + ".so", out + ".cu"],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"gl_kernel_probe: nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(out + ".so")
+def build_variants(src):
+    """name -> library of each copy in ``variants(src)``, built together."""
+    return probe_tools.build_all({name: {"gl_audio.cu": text} for name, text in variants(src).items()})
 
 
 def main():
@@ -127,21 +119,17 @@ def main():
     if not torch.cuda.is_available():
         print("gl_kernel_probe: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, cuda_gl
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as fd
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = probe_tools.card()
     print(card, flush=True)
-    srcs = variants(open(SRC).read())
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the package's build beside the copies'
         kernel = pool.submit(_build.load, "gl_audio")
-        built = {name: pool.submit(build, _build, name, text) for name, text in srcs.items()}
-        libs = {"kernel": kernel.result(), **{name: f.result() for name, f in built.items()}}
+        libs = build_variants(open(SRC).read())
+        libs["kernel"] = kernel.result()
     load = _build.load
 
     def use(name):

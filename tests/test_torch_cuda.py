@@ -39,12 +39,22 @@ def rs():
     return np.random.RandomState(1234)
 
 
+# (channels, seconds): 4 s is one run of 16 periods and a ragged one inside
+# one scan chunk; 70 s is 17.6 runs and 4.4 chunks of 64 periods at 1024 Hz;
+# the LDA epilogue stages F in slabs of 128 channels: 256 takes two, 400 four
+# (the last one ragged)
+FRONTEND_SHAPES = [(16, 4), (16, 70), (128, 70), (256, 20), (400, 4)]
+# 1152 and 1920 Hz have periods of 288 and 96 samples, not whole 64-row
+# slabs of u (launch 1) nor, at 1920 Hz, whole 16-row m-tiles of y (launch 3)
+FRONTEND_RATES = [1024.0, 2048.0, 1152.0, 1920.0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sr", [1024.0, 2048.0])
-def test_frontend_kernel_matches_plain(rs, cuda_device, sr):
+@pytest.mark.parametrize("C,seconds", FRONTEND_SHAPES)
+@pytest.mark.parametrize("sr", FRONTEND_RATES)
+def test_frontend_kernel_matches_plain(rs, cuda_device, sr, C, seconds):
     """f32 kernel vs f32 plain version: >= 99.9% of entries within rtol 1e-5 /
     atol 1e-6 (other summation orders flip rare near-tie labels)."""
-    C = 16
     valid = np.ones((40, 9), bool)
     valid[3, :5] = False
     loaded = params.from_arrays(rs.randn(40, 9, 20) * 0.3, rs.randn(40, 9),
@@ -54,7 +64,8 @@ def test_frontend_kernel_matches_plain(rs, cuda_device, sr):
     cfg = pipeline.DecoderConfig(sr=sr, n_channels=C, dtype=torch.float32)
     dec = pipeline.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"],
                                         device=cuda_device)
-    x = torch.as_tensor(rs.randn(int(sr * 4) + 77, C), dtype=torch.float32, device=cuda_device)
+    x = torch.as_tensor(rs.randn(int(sr * seconds) + 77, C), dtype=torch.float32,
+                        device=cuda_device)
     nf = len(framing.streaming_frame_ends(50, 10, sr, x.shape[0] + cfg.prefill))
     consts = cuda_frontend.epilogue_constants(dec.lda_coef_full, dec.lda.intercept, dec.lda.valid,
                                               dec.lda.classes, dec.medians, dec.gauss_kernel, C)
@@ -105,13 +116,14 @@ def _decoder(rs, device, sr, C, dtype=torch.float32, **options):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sr", [1024.0, 2048.0])
-def test_logpower_kernel_matches_plain(rs, cuda_device, sr):
+@pytest.mark.parametrize("C,seconds", FRONTEND_SHAPES)
+@pytest.mark.parametrize("sr", FRONTEND_RATES)
+def test_logpower_kernel_matches_plain(rs, cuda_device, sr, C, seconds):
     """K3 vs its plain version in f32: features within atol 1e-4 (the JAX
     package's gate for its kernel, tests/test_pallas_kernels.py:76)."""
-    C = 16
     cfg, dec = _decoder(rs, cuda_device, sr, C)
-    x = torch.as_tensor(rs.randn(int(sr * 4) + 77, C), dtype=torch.float32, device=cuda_device)
+    x = torch.as_tensor(rs.randn(int(sr * seconds) + 77, C), dtype=torch.float32,
+                        device=cuda_device)
     nf = len(framing.streaming_frame_ends(50, 10, sr, x.shape[0] + cfg.prefill))
     s0 = pipeline._initial_state(dec, x).contiguous()
     before = cuda_frontend.frontend_logpower.launches
@@ -121,6 +133,46 @@ def test_logpower_kernel_matches_plain(rs, cuda_device, sr):
     F_p = cuda_frontend.frontend_logpower_plain(dec.frontend_ops, x, s0, nf)
     assert F_k.shape == F_p.shape == (nf, C)
     assert float((F_k - F_p).abs().max()) < 1e-4
+
+
+def _p999(a, b):
+    return float((a.double() - b.double()).abs().flatten().quantile(0.999))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["frontend_logpower", "frontend_decode_mels"])
+@pytest.mark.parametrize("sr", [1024.0, 2048.0])
+def test_frontend_kernel_tracks_float64(rs, cuda_device, sr, entry):
+    """The error budget of the kernels' 3xTF32 products and two-level scan:
+    against the plain version in float64 (the same float32 constants), the
+    kernel's p99.9 error is at most twice the plain float32 version's, for
+    the features (K3) and the mel frames (K1), at 128 channels over 5
+    minutes.  K1's p99.9 is set by the dequantized labels, so its LDA
+    products are held by the label flips too (entries outside rtol 1e-4 /
+    atol 1e-5): at most twice the plain version's plus 1e-5, chip_smoke.py's
+    gate, which a single-pass TF32 epilogue fails (frontend_kernel_probe.py)."""
+    C = 128
+    cfg, dec = _decoder(rs, cuda_device, sr, C)
+    x = torch.as_tensor(rs.randn(int(sr * 300) + 77, C), dtype=torch.float32, device=cuda_device)
+    nf = len(framing.streaming_frame_ends(50, 10, sr, x.shape[0] + cfg.prefill))
+    s0 = pipeline._initial_state(dec, x).contiguous()
+    args = ()
+    if entry == "frontend_decode_mels":
+        args = cuda_frontend.epilogue_constants(dec.lda_coef_full, dec.lda.intercept, dec.lda.valid,
+                                                dec.lda.classes, dec.medians, dec.gauss_kernel, C)
+    kernel = getattr(cuda_frontend, entry)
+    plain = getattr(cuda_frontend, entry + "_plain")
+    out_k = kernel(dec.frontend_ops, x, s0, *args, nf)
+    out_32 = plain(dec.frontend_ops, x, s0, *args, nf)
+    out_64 = plain(dec.frontend_ops, x.double(), s0.double(), *args, nf)
+    assert out_64.dtype == torch.float64
+    err_k, err_32 = _p999(out_k, out_64), _p999(out_32, out_64)
+    assert err_k <= 2 * err_32, (err_k, err_32)
+    if entry == "frontend_decode_mels":
+        flips = lambda out: 1.0 - torch.isclose(out.double(), out_64, rtol=1e-4,
+                                                atol=1e-5).double().mean().item()
+        f_k, f_32 = flips(out_k), flips(out_32)
+        assert f_k <= 2 * f_32 + 1e-5, (f_k, f_32)
 
 
 def _attainment(re, log_mels, ops):
@@ -237,16 +289,29 @@ def test_gl_wrappers_reject_misaligned_inits(rs, cuda_device):
 def test_gl_kernel_probe_variants_build(cuda_device):
     """gl_kernel_probe.py's edited copies of csrc/gl_audio.cu compile with the
     package's nvcc flags (tests/test_torch_gl_split.py holds their anchors)."""
-    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build
-
     root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("gl_kernel_probe", root / "gl_kernel_probe.py")
-    probe = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(probe)
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {name: probe.build(_build, name, text)
-            for name, text in probe.variants((root / probe.SRC).read_text()).items()}
+    probe = _load_script(root / "gl_kernel_probe.py")
+    libs = probe.build_variants((root / probe.SRC).read_text())
     assert hasattr(libs["one_acc"], "gl_blocks") and hasattr(libs["stamps"], "probe_stamps_read")
+
+
+def _load_script(path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_frontend_kernel_probe_variants_build(cuda_device):
+    """frontend_kernel_probe.py's edited copies of csrc/frontend_decode.cu and
+    tf32_mma.cuh compile with the package's nvcc flags
+    (tests/test_torch_frontend_scan.py holds their anchors)."""
+    root = Path(__file__).resolve().parents[1]
+    probe = _load_script(root / "frontend_kernel_probe.py")
+    libs = probe.build_variants((root / probe.SRC).read_text(), (root / probe.HEADER).read_text())
+    assert all(hasattr(lib, "frontend_decode_mels") for lib in libs.values())
+    assert hasattr(libs["stamped"], "probe_read")
 
 
 @pytest.mark.cuda

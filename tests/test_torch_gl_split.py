@@ -27,6 +27,7 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as t_fd
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir as t_iir
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import tf32
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +83,7 @@ def test_3xtf32_product_keeps_f32_accuracy(ops, rng, forward):
     m = ops.gl_f32[1 if forward else 2].numpy().astype(np.float64)
     hi, lo = (p.astype(np.float64) for p in _unpack(ops.gl_tf32[0 if forward else 1], forward))
     a = (rng.randn(64, 256) * np.hanning(256)).astype(np.float32)
-    a_hi, a_lo = (p.astype(np.float64) for p in cuda_gl.tf32_split(a))
+    a_hi, a_lo = (p.numpy().astype(np.float64) for p in tf32.tf32_split(torch.as_tensor(a)))
     ref = a.astype(np.float64) @ m
     three = a_lo @ hi + a_hi @ lo + a_hi @ hi
     one = a_hi @ hi
@@ -108,8 +109,8 @@ def test_tf32_round_is_nearest_ties_away():
                   1.0 + 2.0**-12, 0.0], np.float32)
     expected = np.array([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 0.0],
                         np.float32)
-    np.testing.assert_array_equal(cuda_gl.tf32_round(x), expected)
-    hi, lo = cuda_gl.tf32_split(x)
+    np.testing.assert_array_equal(tf32.tf32_round(torch.as_tensor(x)).numpy(), expected)
+    hi, lo = (p.numpy() for p in tf32.tf32_split(torch.as_tensor(x)))
     np.testing.assert_array_equal(hi.astype(np.float64) + lo, x.astype(np.float64))
 
 
@@ -162,7 +163,7 @@ def test_probe_stamps_every_phase_of_the_kernel(probe, kernel):
 
 def test_probe_refuses_a_source_without_its_anchors(probe):
     src = (ROOT / probe.SRC).read_text()
-    with pytest.raises(ValueError, match="accumulator"):
+    with pytest.raises(ValueError, match="anchor"):
         probe.variants(src.replace(probe.ONE_ACC[0], ""))
-    with pytest.raises(ValueError, match="gl_cluster_kernel"):
+    with pytest.raises(ValueError, match="anchor"):
         probe.variants(src.replace(probe.CLUSTER_STAMPS[0][0], "  {\n"))

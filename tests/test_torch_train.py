@@ -100,13 +100,19 @@ def _assert_lda_close(t_params_, j_params_):
 
 @pytest.mark.parametrize("window_length", [0.016, 0.05])
 def test_compute_spectrogram_matches_jax(rng, window_length):
-    """16 kHz audio with a silent stretch (the 1e-7 fuzz before the log)."""
+    """16 kHz audio with a silent stretch (the 1e-7 fuzz before the log).
+
+    rtol 1e-10 and atol 1e-12 on the log-mel values: some lie near 0 (the
+    smallest ~4e-5 at the 16 ms window), where the ~1e-15 absolute
+    difference between two matmul orders is a relative 3e-12 or more, so
+    rtol alone would hold such entries to below f64 resolution.  The largest
+    difference seen is 5.8e-15."""
     audio = rng.randn(16000 * 2) * 0.1
     audio[4000:9000] = 0.0
     s_j = np.asarray(j_spec(jnp.asarray(audio), 16000, window_length, 0.01))
     s_t = t_spec(_t(audio), 16000, window_length, 0.01).numpy()
     assert s_t.shape == s_j.shape and s_t.dtype == np.float64
-    np.testing.assert_allclose(s_t, s_j, rtol=1e-10)
+    np.testing.assert_allclose(s_t, s_j, rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("sr,seconds,C", [(1024, 30, 40), (2048, 5, 8)])
