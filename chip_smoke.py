@@ -10,7 +10,8 @@ on one NVIDIA GPU.  Run from the repository root:
 3. Holds each of the four kernels against its plain torch version on the
    card, at the shapes of its path: K1 (sEEG -> mel frames) and K3 (sEEG ->
    log-power features) on a 30-minute 128-channel 1024 Hz session and on
-   60 s at 2048 Hz; K2 (mel frames -> int16 audio) and K4 (mel frames ->
+   60 s at 2048, 4096 and 8192 Hz (periods of 1,024 and 2,048 samples, which
+   the kernels stream in slabs); K2 (mel frames -> int16 audio) and K4 (mel frames ->
    Griffin-Lim blocks) without iterations, with the converging phase
    estimator and with the reference's exp(angle) estimator (quality-gated,
    it is chaotic); K4's two regimes (the tensor-core kernel above
@@ -70,6 +71,20 @@ on one NVIDIA GPU.  Run from the repository root:
    path (the one the tests hold to the JAX package): the same features,
    coefficients within rtol 1e-6.  With h5py and sklearn installed,
    ``cli.train.main`` runs end to end on an HDF5 file.
+11. Runs experiment 1 on the card: the protocol session of
+   ``benchmarks/exp1_protocol.py`` (100 words, 128 ch, 1024 Hz, 48 kHz
+   audio, seed 0; ``io.session.make_synthetic_session``) trains its model,
+   then ``eval.exp1.Experiment1`` from arrays (``RandomState(0)``) in float32
+   runs the 10-fold proposed method (K1 and K2 launch once a fold) and
+   ``EXP1_RUNS`` chance runs of 10 folds (K1 once a fold, no K2); prints the
+   proposed mean per-bin r beside the TPU record's, the chance runs' r and
+   the time of one chance run by stage.  Gates: proposed r >= 0.9 and above
+   every chance run's; one fold in f32 through K1 + K2 against the same fold
+   in float64 within the label-flip budget and 0.02 of its r.  K1 and K2 are
+   held against their plain versions at a fold's shapes (K1's scan there
+   has a ragged last chunk) under step 3's gates and timed there; the
+   kernels line records the launches counted in one fold, in the proposed
+   method and per chance fold.
 
 Any failure exits nonzero.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -90,6 +105,10 @@ import threading
 import numpy as np
 
 SR, C, MINUTES, MINUTES_2048 = 1024, 128, 30, 1
+LONG_RATES, LONG_S = (4096, 8192), 60  # periods over 512 samples: K1/K3 stream them in slabs
+EXP1_WORDS, EXP1_RUNS, EXP1_FOLDS = 100, 20, 10  # benchmarks/exp1_protocol.py's session; chance runs
+EXP1_R_MIN, EXP1_R_DIFF = 0.9, 0.02  # proposed mean r (TPU record 0.935); f32 vs f64 fold
+TPU_EXP1_R, TPU_CHANCE_MAX = 0.935, 0.4609  # benchmarks/recorded/exp1_protocol_128ch.json
 ONLINE_S, LOOP_S, PACKET = 60, 20, 32
 N_FEATS, GL_NORM = 150, 10.0
 AGREE_RTOL, AGREE_ATOL, AGREE_MIN = 1e-5, 1e-6, 0.999   # tests/test_pallas_kernels.py:125-126
@@ -253,6 +272,54 @@ def mel_agreement(torch, a, b):
     agree = torch.isclose(a, b, rtol=AGREE_RTOL, atol=AGREE_ATOL).double().mean().item()
     flips = 1.0 - torch.isclose(a, b, rtol=FLIP_RTOL, atol=FLIP_ATOL).double().mean().item()
     return agree, flips, (a - b).abs().max().item()
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def launch_counters(torch):
+    """(zero_counts, read_counts) over the four kernel wrappers' launch
+    counts, each synchronized with the card."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl
+
+    counters = {"frontend_decode_mels": cuda_frontend.frontend_decode_mels,
+                "frontend_logpower": cuda_frontend.frontend_logpower,
+                "gl_audio": cuda_gl.gl_audio, "gl_blocks": cuda_gl.gl_blocks}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counters.items()}
+
+    return zero_counts, read_counts
+
+
+def k2_agreement(cuda_gl, lm, rand, ops, label):
+    """K2 against its plain version on the same inputs: without iterations
+    within 1 LSB everywhere, with 8 converging iterations within 1 LSB on
+    WITHIN_MIN of the samples.  Without iterations a block's sample 0 meets
+    the Blackman end value (-1.4e-17) unwindowed, so that one init sample is
+    zeroed (tests/test_torch_kernels.py).  Returns the max |diff| without
+    iterations, in LSB."""
+    rand0 = rand.clone()
+    rand0[0, 0] = 0.0
+    lsb = lambda r, iterations, phase_bug: (
+        cuda_gl.gl_audio(lm, r, ops, GL_NORM, iterations, phase_bug).long()
+        - cuda_gl.gl_audio_plain(lm, r, ops, GL_NORM, iterations, phase_bug).long()).abs()
+    d0, d1 = lsb(rand0, 0, True), lsb(rand, 8, False)
+    err, within = int(d0.max()), (d1 <= 1).double().mean().item()
+    say(f"  {label}, B = {lm.shape[0] - 1}: iterations=0 max |diff| {err} LSB; phase_bug=False, "
+        f"8 iterations: {within:.6f} of samples within 1 LSB, max {int(d1.max())}")
+    check(err <= 1, f"K2 {label} iterations=0 within 1 LSB")
+    check(within >= WITHIN_MIN, f"K2 {label} phase_bug=False within 1 LSB on >= {WITHIN_MIN} of samples")
+    return err
 
 
 def hop_energy(torch, audio):
@@ -434,6 +501,127 @@ def training_phase(torch, dev, noise, sr, zero_counts, read_counts):
     return eeg, audio
 
 
+def exp1_phase(torch, dev, card, zero_counts, read_counts, runs=EXP1_RUNS):
+    """Step 11 of the module docstring, with ``runs`` chance runs
+    (exp1_protocol_torch.py runs the protocol's 100).  Returns the launches
+    counted in the proposed method, in the chance level and in one f32 fold,
+    the fold's runner and staged inputs (K1's and K2's arguments at a fold's
+    shapes), and the figures printed."""
+    import time
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1, exp1_batched, metrics
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as session_mod
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import trainer
+
+    t0 = time.perf_counter()
+    eeg, audio, words, _ = session_mod.make_synthetic_session(EXP1_WORDS, SR, AUDIO_SR, C, seed=0)
+    say(f"  session: {len(words)} words, {eeg.shape[0]} samples x {C} ch @ {SR} Hz, "
+        f"{len(audio)} audio samples @ {AUDIO_SR} Hz, built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    model = trainer.train(eeg, audio, SR, AUDIO_SR, [], device=dev)
+    say(f"  session model (trainer.train, f32 on the card): {time.perf_counter() - t0:.2f} s, "
+        f"{len(model.select)} features")
+    rng = np.random.RandomState(0)
+    sess = session_mod.Session.from_arrays(eeg, SR, audio, AUDIO_SR, words, downsample_audio=False,
+                                           rng=rng)
+    config = configparser.ConfigParser()
+    config["Experiment1"] = {"griffin_lim_norm": str(int(GL_NORM))}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        e = exp1.Experiment1(config, None, tmp, rng=rng, device=dev, session=sess, bad_channels=[])
+        t0 = time.perf_counter()
+        args = e._construct_datasets_for_run(EXP1_FOLDS)
+        stage_s = time.perf_counter() - t0
+        say(f"  fold staging (_construct_datasets_for_run, {EXP1_FOLDS} folds, host threads): "
+            f"{stage_s:.3f} s")
+
+        zero_counts()
+        t0 = time.perf_counter()
+        timings = {}
+        pm_mean, _ = e.proposed_method(nb_folds=EXP1_FOLDS, args=args, timings=timings)
+        pm_s = time.perf_counter() - t0
+        out["proposed_launches"] = launches = read_counts()
+        pm_r = float(np.mean(pm_mean))
+        say(f"  proposed method: {pm_s:.3f} s for {EXP1_FOLDS} retrain+decodes; stages (ms, "
+            f"summed): " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()) + f" [{card}]")
+        say(f"  proposed launches: {launches}")
+        check(launches["frontend_decode_mels"] == EXP1_FOLDS and launches["gl_audio"] == EXP1_FOLDS,
+              f"K1 and K2 launched {EXP1_FOLDS} times each in proposed_method")
+        say(f"  proposed mean per-bin Pearson r {pm_r:.4f} (the JAX package's TPU record on this "
+            f"session: {TPU_EXP1_R}; a quality figure, not a time)")
+        check(pm_r >= EXP1_R_MIN, f"proposed mean r >= {EXP1_R_MIN}")
+
+        zero_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        rc_mean, rc_std = e.chance_level_batched(nb_runs=runs, nb_folds=EXP1_FOLDS,
+                                                 batch_size=runs, base_args=args, timings=timings)
+        chance_s = time.perf_counter() - t0
+        out["chance_launches"] = read_counts()
+        orig = np.load(os.path.join(tmp, "orig.npy"))
+        run_r = []
+        for i in range(1, runs + 1):
+            rc = np.load(os.path.join(tmp, f"rc_reco_i={i:03}.npy"))
+            n = min(len(rc), len(orig))
+            run_r.append(float(metrics.pearson_correlation(orig[:n], rc[:n])[0]))
+        targets_ms = timings.pop("fold_targets")
+        per_run = {k: v / runs for k, v in timings.items()}
+        run_ms = (chance_s * 1e3 - targets_ms) / runs
+        say(f"  chance level: {runs} runs x {EXP1_FOLDS} folds in {chance_s:.3f} s, of which "
+            f"the folds' targets (decimate, spectrogram, quantizer on the host; once a fold a "
+            f"call) {targets_ms:.1f} ms; one chance run ({EXP1_FOLDS} retrain+decodes) "
+            f"{run_ms:.1f} ms: " + ", ".join(f"{k} {v:.1f} ms" for k, v in per_run.items())
+            + f", other host work {run_ms - sum(per_run.values()):.1f} ms; the folds' staging "
+            f"before both {stage_s * 1e3:.1f} ms [{card}]")
+        say(f"  chance launches: {out['chance_launches']}")
+        chance_r = (float(np.mean(rc_mean)), float(np.mean(rc_std)))
+        say(f"  chance level r over the runs: mean {chance_r[0]:.4f}, std {chance_r[1]:.4f} "
+            f"(per-bin, averaged over bins); chance runs' mean r: min {min(run_r):.4f}, median "
+            f"{float(np.median(run_r)):.4f}, max {max(run_r):.4f} (TPU record's largest of "
+            f"100: {TPU_CHANCE_MAX})")
+        check(out["chance_launches"]["frontend_decode_mels"] == runs * EXP1_FOLDS
+              and out["chance_launches"]["gl_audio"] == 0,
+              "K1 launched once per chance fold, K2 not at all")
+        check(pm_r > max(run_r), "proposed mean r above every chance run's")
+        out["figures"] = {"proposed_s": pm_s, "proposed_mean_r": pm_r, "chance_runs": runs,
+                          "chance_s": chance_s, "chance_run_ms": run_ms,
+                          "chance_run_stage_ms": per_run, "fold_targets_ms": targets_ms,
+                          "fold_staging_s": stage_s, "chance_mean_r": chance_r[0],
+                          "chance_std_r": chance_r[1], "chance_run_r_min": min(run_r),
+                          "chance_run_r_median": float(np.median(run_r)),
+                          "chance_run_r_max": max(run_r)}
+
+    # one fold in f32 through K1 + K2 against the same fold in float64 (the
+    # plain path, on the card)
+    k, x_train, y_train, x_test, y_test, *_ = args[0]
+    specs = {}
+    q, medians, y_mean = exp1_batched.fold_targets(y_train)
+    for dtype in (torch.float32, torch.float64):
+        fr = exp1_batched.FoldRunner(len(x_train), len(x_test), C, SR, GL_NORM,
+                                     nb_feats=min(N_FEATS, 5 * C), dtype=dtype, device=dev)
+        fold = (fr.put(x_train), fr.put(x_test), fr.put(q, torch.int64), fr.put(y_mean),
+                fr.put(medians))
+        zero_counts()
+        specs[dtype] = fr.run(*fold, seed=exp1_batched.fold_in(0, k))
+        counts = read_counts()
+        check((counts["frontend_decode_mels"], counts["gl_audio"]) ==
+              ((1, 1) if dtype == torch.float32 else (0, 0)),
+              f"fold {k} in {dtype}: K1 and K2 launched {counts}")
+        if dtype == torch.float32:
+            out["fold"], out["fold_launches"] = (fr, fold), counts
+    s32, s64 = specs[torch.float32][0], specs[torch.float64][0]
+    _, flips, _ = mel_agreement(torch, s32.double(), s64)
+    y = torch.as_tensor(y_test, device=dev)
+    n = min(len(y), len(s32))
+    r32, r64 = mean_pearson(torch, s32[:n], y[:n]), mean_pearson(torch, s64[:n], y[:n])
+    say(f"  fold {k}, f32 through K1 + K2 vs float64 plain: label flips {flips:.6f}, mean r "
+        f"{r32:.4f} vs {r64:.4f}")
+    check(flips < FLIP_MAX and abs(r32 - r64) <= EXP1_R_DIFF,
+          f"fold {k}: f32 within the label-flip budget and {EXP1_R_DIFF} r of float64")
+    out["figures"].update(fold_f32_vs_f64_flips=flips, fold_r_f32=r32, fold_r_f64=r64)
+    return out
+
+
 def main():
     import torch
 
@@ -450,8 +638,7 @@ def main():
     from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params, pipeline
 
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     say(card)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
@@ -501,6 +688,28 @@ def main():
                                          cuda_frontend.frontend_decode_mels_plain(*k1_args2))
     say(f"  2048 Hz, {MINUTES_2048} min: agreement {agree2:.6f}, flip rate {flips2:.6f}, max abs err {err2:.3e}")
     check(agree2 >= AGREE_MIN and flips2 < FLIP_MAX, "K1 2048 Hz agreement and label flips")
+    # periods of 1,024 and 2,048 samples: the launches that stream y in slabs
+    long_args = {}
+    long_times = {"frontend_decode_mels": {}, "frontend_logpower": {}}
+
+    def timed(kernel, plain, args, bnd):
+        return {"ms": cuda_ms(torch, lambda: kernel(*args)),
+                "plain_ms": cuda_ms(torch, lambda: plain(*args)), "bound_ms": bnd[0]}
+    for sr_l in LONG_RATES:
+        cfg_l, dec_l = cli._build_decoder(loaded, sr_l, C, GL_NORM, torch.float32, dev)
+        eeg_l = torch.randn((sr_l * LONG_S, C), generator=g, device=dev)
+        long_args[sr_l] = args_l = k1_inputs(dec_l, cfg_l, eeg_l)
+        agree_l, flips_l, err_l = mel_agreement(torch, cuda_frontend.frontend_decode_mels(*args_l),
+                                                cuda_frontend.frontend_decode_mels_plain(*args_l))
+        say(f"  {sr_l} Hz (period {dec_l.frontend_ops.Ls} samples), {LONG_S} s: agreement "
+            f"{agree_l:.6f}, flip rate {flips_l:.6f}, max abs err {err_l:.3e}")
+        check(agree_l >= AGREE_MIN and flips_l < FLIP_MAX, f"K1 {sr_l} Hz agreement and label flips")
+        long_times["frontend_decode_mels"][sr_l] = t_l = timed(
+            cuda_frontend.frontend_decode_mels, cuda_frontend.frontend_decode_mels_plain, args_l,
+            frontend_bound(dec_l.frontend_ops, eeg_l.shape[0], C, args_l[7], args_l[3]))
+        say(f"  time at {sr_l} Hz, {LONG_S} s: kernel {t_l['ms']:.3f} ms, plain {t_l['plain_ms']:.3f} "
+            f"ms, bound {t_l['bound_ms']:.3f} ms [{card}]")
+        profile(torch, lambda: cuda_frontend.frontend_decode_mels(*args_l), 1, "call", top=4)
     k1_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels(*k1_args))
     k1_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels_plain(*k1_args))
     k1_bound = frontend_bound(dec.frontend_ops, T, C, n_frames, k1_args[3])
@@ -508,7 +717,7 @@ def main():
         f"bound {k1_bound[0]:.3f} ms ({k1_bound[1]}, products in 3xTF32) [{card}]")
     fops = dec.frontend_ops
     Kp = -(-n_frames // fops.P)
-    R = fops.apow.shape[0] - 1
+    R = cuda_frontend.scan_chunk(fops, Kp)
     scan_steps = cuda_frontend.serial_scan_steps(fops, Kp)
 
     head_k1 = k1_inputs(dec, cfg, eeg[: 60 * SR])  # the session's first minute
@@ -573,6 +782,15 @@ def main():
     k3_args = k1_args[:3] + (n_frames,)
     k3_err = k3_check(k3_args, f"1024 Hz, {MINUTES} min")
     k3_check(k1_args2[:3] + (k1_args2[7],), f"2048 Hz, {MINUTES_2048} min")
+    for sr_l, args_l in long_args.items():
+        a3 = args_l[:3] + (args_l[7],)
+        k3_check(a3, f"{sr_l} Hz, {LONG_S} s")
+        long_times["frontend_logpower"][sr_l] = t_l = timed(
+            cuda_frontend.frontend_logpower, cuda_frontend.frontend_logpower_plain, a3,
+            frontend_bound(args_l[0], args_l[1].shape[0], C, args_l[7]))
+        say(f"  time at {sr_l} Hz, {LONG_S} s: kernel {t_l['ms']:.3f} ms, plain {t_l['plain_ms']:.3f} "
+            f"ms, bound {t_l['bound_ms']:.3f} ms [{card}]")
+    del long_args
     k3_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower(*k3_args))
     k3_plain_ms = cuda_ms(torch, lambda: cuda_frontend.frontend_logpower_plain(*k3_args))
     k3_bound = frontend_bound(dec.frontend_ops, T, C, n_frames)
@@ -591,20 +809,9 @@ def main():
     lm = mel_k.contiguous()
     rand = gl.default_rand_init(B_gl, 0, 0, torch.float32, dev)
     ops = dec.gl_audio_ops
-    # without iterations the block's sample 0 meets the Blackman end value
-    # (-1.4e-17) unwindowed: zero that one init sample (tests/test_torch_kernels.py)
-    rand0 = rand.clone()
+    k2_err = k2_agreement(cuda_gl, lm, rand, ops, f"{MINUTES} min")
+    rand0 = rand.clone()  # K4 without iterations below: sample 0 zeroed as in k2_agreement
     rand0[0, 0] = 0.0
-    d0 = (cuda_gl.gl_audio(lm, rand0, ops, GL_NORM, 0, True).long()
-          - cuda_gl.gl_audio_plain(lm, rand0, ops, GL_NORM, 0, True).long()).abs()
-    k2_err = int(d0.max())
-    say(f"  iterations=0: max |diff| {k2_err} LSB")
-    check(k2_err <= 1, "K2 iterations=0 within 1 LSB")
-    d1 = (cuda_gl.gl_audio(lm, rand, ops, GL_NORM, 8, False).long()
-          - cuda_gl.gl_audio_plain(lm, rand, ops, GL_NORM, 8, False).long()).abs()
-    within = (d1 <= 1).double().mean().item()
-    say(f"  phase_bug=False, 8 iterations: {within:.6f} of samples within 1 LSB, max {int(d1.max())}")
-    check(within >= 0.999, "K2 phase_bug=False within 1 LSB on >= 99.9% of samples")
     a_k = cuda_gl.gl_audio(lm, rand, ops, GL_NORM, 8, True)
     a_p = cuda_gl.gl_audio_plain(lm, rand, ops, GL_NORM, 8, True)
     att_k, att_p = attainment(torch, a_k, lm, dec.gl_ops), attainment(torch, a_p, lm, dec.gl_ops)
@@ -685,20 +892,7 @@ def main():
 
     # ---- the main path --------------------------------------------------
     say(f"== main path: cli.decode.perform_offline_decoding, {C} ch, {SR} Hz, {MINUTES} min")
-    torch.cuda.synchronize()
-    counters = {"frontend_decode_mels": cuda_frontend.frontend_decode_mels,
-                "frontend_logpower": cuda_frontend.frontend_logpower,
-                "gl_audio": cuda_gl.gl_audio, "gl_blocks": cuda_gl.gl_blocks}
-
-    def zero_counts():
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {name: fn.launches for name, fn in counters.items()}
-
+    zero_counts, read_counts = launch_counters(torch)
     zero_counts()
     spec, audio, _, _ = cli.perform_offline_decoding(loaded, eeg, SR, GL_NORM, device=dev)
     launches = read_counts()
@@ -973,6 +1167,57 @@ def main():
                           for f in ("LDAs.pkl", "training_features.npy", "train.ini", "train.log")),
                   "train CLI artifacts written and loaded")
 
+    # ---- exp1 ---------------------------------------------------------------
+    say(f"== exp1 on the card: Experiment1 from arrays, {EXP1_WORDS} words, {C} ch, {SR} Hz, "
+        f"{EXP1_FOLDS} folds, {EXP1_RUNS} chance runs, f32")
+    ex = exp1_phase(torch, dev, card, zero_counts, read_counts)
+    # K1 and K2 at a fold's shapes (30 s held out, its trained model)
+    fr, (xt, xe, q, ym, med) = ex["fold"]
+    fold_params = fr.fit(xt, q, ym, med)
+    k1_fold = k1_inputs(fold_params, fr.cfg, xe)
+    mel_f = cuda_frontend.frontend_decode_mels(*k1_fold)
+    torch.cuda.synchronize()
+    # a fold's scan runs ragged chunks (scan_chunk of its periods), which the
+    # 30-min and 60 s shapes above do not
+    agree_f, flips_f, k1_fold_err = mel_agreement(torch, mel_f,
+                                                  cuda_frontend.frontend_decode_mels_plain(*k1_fold))
+    kp_f = -(-k1_fold[-3] // fold_params.frontend_ops.P)
+    say(f"  K1 at a fold's shapes ({xe.shape[0]} samples, {kp_f} periods, scan chunk "
+        f"{cuda_frontend.scan_chunk(fold_params.frontend_ops, kp_f)}): agreement {agree_f:.6f}, "
+        f"flip rate {flips_f:.6f}, max abs err {k1_fold_err:.3e}")
+    check(agree_f >= AGREE_MIN and flips_f < FLIP_MAX, "K1 at a fold's shapes: agreement and label flips")
+    rand_f = gl.default_rand_init(mel_f.shape[0] - 1, 0, 0, torch.float32, dev)
+    k2_fold_err = k2_agreement(cuda_gl, mel_f.contiguous(), rand_f, fold_params.gl_audio_ops,
+                               "at a fold's shapes")
+    k2_fold = (mel_f.contiguous(), rand_f, fold_params.gl_audio_ops, GL_NORM, 8, True)
+    exp1_times = {
+        "frontend_decode_mels": (cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels(*k1_fold)),
+                                 cuda_ms(torch, lambda: cuda_frontend.frontend_decode_mels_plain(*k1_fold)),
+                                 frontend_bound(fold_params.frontend_ops, xe.shape[0], C,
+                                                mel_f.shape[0], k1_fold[3])),
+        "gl_audio": (cuda_ms(torch, lambda: cuda_gl.gl_audio(*k2_fold)),
+                     cuda_ms(torch, lambda: cuda_gl.gl_audio_plain(*k2_fold)),
+                     gl_bound(cuda_gl, mel_f.shape[0] - 1, mel_f.shape[1], 8, True,
+                              fold_params.gl_audio_ops, tail=True)),
+    }
+    for name, (ms, plain_ms, bnd) in exp1_times.items():
+        say(f"  {name} at a fold's shapes ({xe.shape[0]} samples, {mel_f.shape[0]} frames): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    profile(torch, lambda: cuda_frontend.frontend_decode_mels(*k1_fold), 1, "call", top=4)
+
+    exp1_errs = {"frontend_decode_mels": k1_fold_err, "gl_audio": k2_fold_err}
+
+    def exp1_extra(name):
+        # launches as counted: in one f32 fold, in the proposed method, and
+        # in the chance level over its runs and folds
+        ms, plain_ms, bnd = exp1_times[name]
+        return {"exp1_launches_per_fold": ex["fold_launches"][name],
+                "exp1_launches_proposed": ex["proposed_launches"][name],
+                "exp1_launches_per_chance_fold":
+                    ex["chance_launches"][name] / (EXP1_RUNS * EXP1_FOLDS),
+                "exp1_max_abs_err": exp1_errs[name],
+                "exp1_ms": ms, "exp1_plain_ms": plain_ms, "exp1_bound_ms": bnd[0]}
+
     def row(name, src, replaces, launches, err, ms, plain_ms, bnd, regime, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"closed_loop_seeg_speech_synthesis_tpu_torch/csrc/{src}",
@@ -985,12 +1230,14 @@ def main():
         row("frontend_decode_mels", "frontend_decode.cu", "pallas_frontend.py:195",
             launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "3xtf32",
             serial_scan_steps=scan_steps, reference_matmul_ms=k1_mm_ms, float64_p999=k1_f64,
-            float64_flips=k1_flips),
+            float64_flips=k1_flips, long_period=long_times["frontend_decode_mels"],
+            **exp1_extra("frontend_decode_mels")),
         row("gl_audio", "gl_audio.cu", "pallas_gl.py:153", launches["gl_audio"], k2_err, k2_ms,
-            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl)),
+            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl), **exp1_extra("gl_audio")),
         row("frontend_logpower", "frontend_decode.cu", "pallas_frontend.py:94",
             split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "3xtf32",
-            serial_scan_steps=scan_steps, reference_matmul_ms=k3_mm_ms, float64_p999=k3_f64),
+            serial_scan_steps=scan_steps, reference_matmul_ms=k3_mm_ms, float64_p999=k3_f64,
+            long_period=long_times["frontend_logpower"]),
         row("gl_blocks", "gl_audio.cu", "pallas_gl.py:141",
             split_launches["gl_blocks"] + on_launches["gl_blocks"], k4_err, k4_ms, k4_plain_ms,
             k4_bound, cuda_gl.regime(B_gl), online_launches=on_launches["gl_blocks"],

@@ -108,21 +108,29 @@ def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
     periods more playout latency).
     ``rand_init``: a (n_blocks, 480) table of Griffin-Lim inits indexed by
     global block index; by default the block-indexed inits of seed 0.
-    Returns (spectrogram, audio, received sEEG, rate) as numpy arrays."""
-    from ..runtime.streams import StreamInlet
+    Returns (spectrogram, audio, received sEEG, rate) as numpy arrays.
+
+    The stream's rate and channel count are read without subscribing; the
+    decoder is built and warmed up, and only then is the stream opened, so
+    a sender faster than real time (``dev_streamer --asap``) does not drop
+    a subscriber that is still building.  With ``max_packets``, a stream
+    that ends short raises (``OnlineDecoder.run_stream``)."""
+    from ..runtime import streams
 
     device = pipeline.resolve_device(device)
     dtype = dtype or pipeline.default_compute_dtype(device)
     stream_name = config["Decoding"]["stream_name"]
-    inlet = StreamInlet(stream_name, backend=backend)
-    sfreq = int(inlet.nominal_srate)
+    channels, srate = streams.stream_info(stream_name, backend=backend)
+    sfreq = int(srate)
     packet_size = 64 if sfreq == 2048 else 32
     logger.info("Using a sampling rate of %s, packet size %d.", sfreq, packet_size)
-    cfg, dec = _build_decoder(loaded, sfreq, inlet.channels, gl_norm, dtype, device, packet_size)
+    cfg, dec = _build_decoder(loaded, sfreq, channels, gl_norm, dtype, device, packet_size)
     sink = make_sink("auto", wav_path=None, sample_rate=cfg.audio_sr)
     decoder = online.OnlineDecoder(cfg, dec, bad_channels=loaded["bad_channels"], sink=sink,
                                    chunk_steps=chunk_steps,
                                    rand_source=0 if rand_init is None else rand_init)
+    decoder.warmup()
+    inlet = streams.StreamInlet(stream_name, backend=backend)
 
     stop = stop_event or threading.Event()
     # marker logging off the hot path, in a daemon thread (the reference

@@ -22,7 +22,8 @@
 // Besides that, the boundary recurrence is sequential over the periods.
 //
 // Launches:
-//   1. chunk_scan: one CTA per chunk of R consecutive periods (R = 64) and
+//   1. chunk_scan: one CTA per chunk of R consecutive periods (R =
+//      ceil(sqrt(Kp)) up to 64, cuda_frontend.scan_chunk: 64 at 30 min) and
 //      128 channels.  Each warp scans 8 channels on its own (no CTA barrier
 //      in the loop): l_{k+1} = Pmat u_k + A_L l_k from l = 0 as one
 //      accumulation on the tensor cores (Pmat and A_L staged once per CTA;
@@ -70,8 +71,16 @@
 // runs at about a quarter of an m16n8k8 a cycle per SM, and the fix-up and
 // the windows leave the tensor cores idle for a quarter of each period (one
 // CTA an SM); chunk_scan's 16 warps, one n-tile each, reach about a sixth.
-// Any period length Ls up to 512 works: launch 1 zero-fills a period's last,
+// Any period length Ls up to 2048 works: launch 1 zero-fills a period's last,
 // ragged slab of u, launch 3 rounds Ls up to whole m-tiles with zero rows.
+// Periods over 512 samples (4096 and 8192 Hz) do not fit shared memory as
+// above, so what grows with Ls is streamed: launch 1 reads Pmat's A
+// fragments through L1 in place of staging Pmat, and launch 3 runs as
+// features_slab_kernel, which computes y_k in slabs of YROWS rows (u staged
+// in k-slabs of UROWS rows, Cpow's A fragments read through L1) and keeps
+// y^2 in a ring of YROWS + max(tail, win) rows, summing each window once the
+// slab that holds its last row is written.  Periods up to 512 samples take
+// the single-slab kernels unchanged.
 // Every C entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -94,6 +103,8 @@ constexpr int FWARPS = 16;       // launch 3
 constexpr int FTHREADS = 32 * FWARPS;
 constexpr int FRUN = 16;         // periods per CTA, launch 3
 constexpr int HPAD = 16;         // zeros before h[0] in shared memory
+constexpr int YROWS = 256;       // rows of y a slab, features_slab_kernel (16 m-tiles)
+constexpr int UROWS = 64;        // rows of u a staged k-slab, features_slab_kernel
 constexpr int EF = 64;           // frames per CTA, launch 4
 constexpr int EMT = EF / 16;
 constexpr int EWARPS = 16;
@@ -136,7 +147,10 @@ __device__ __forceinline__ bool tile_vec(const float* u, int C, int c0, int CT) 
 // start), lend[chunk] = the state after its last period; apow[1] = A_L.
 // Warp w scans channels c0 + [8w, 8w + 8) on its own (its n-tile, every
 // m-tile of states), its u columns streamed through its own cp.async ring of
-// QSLAB k-steps a stage, its state l in its own shared memory.
+// QSLAB k-steps a stage, its state l in its own shared memory.  PSMEM: Pmat
+// staged in shared memory (periods up to 512 samples), else its A fragments
+// are read through L1 (longer periods, whose Pmat does not fit beside the rings).
+template <bool PSMEM>
 __global__ void __launch_bounds__(QWARPS * 32, 1) chunk_scan_kernel(
     const float* __restrict__ u, const float* __restrict__ pmat, const float* __restrict__ apow,
     float* __restrict__ L, float* __restrict__ lend, int Kp, int Ls, int S, int C, int R) {
@@ -149,16 +163,16 @@ __global__ void __launch_bounds__(QWARPS * 32, 1) chunk_scan_kernel(
   const int AS = S8 + 4;              // A_L row stride, the same
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, q4 = lane & 3;
-  float* pm = smem;                               // (SM, PS) Pmat, zeros past S
-  float* al = pm + SM * PS;                       // (SM, AS) A_L, zeros past S
+  float* pm = smem;                               // (SM, PS) Pmat, zeros past S (PSMEM)
+  float* al = pm + (PSMEM ? SM * PS : 0);         // (SM, AS) A_L, zeros past S
   float* ring = al + SM * AS + warp * (RING + S8 * 8);  // this warp's u ring
   float* lw = ring + RING;                        // (S8, 8) this warp's local state
   const int chunk = blockIdx.x, cw = blockIdx.y * QCT + 8 * warp;
   const int k0 = chunk * R, k1 = min(Kp, k0 + R);
-  for (int i = t; i < SM * PS; i += blockDim.x) {
-    const int s = i / PS, j = i % PS;
-    pm[i] = (s < S && j < Ls) ? pmat[s * Ls + j] : 0.f;
-  }
+  // Pmat[s][j], 0 past S and Ls
+  auto pmat_at = [&](int s, int j) { return (s < S && j < Ls) ? __ldg(pmat + s * Ls + j) : 0.f; };
+  if (PSMEM)
+    for (int i = t; i < SM * PS; i += blockDim.x) pm[i] = pmat_at(i / PS, i % PS);
   for (int i = t; i < SM * AS; i += blockDim.x) {
     const int s = i / AS, j = i % AS;
     al[i] = (s < S && j < S) ? apow[S * S + s * S + j] : 0.f;
@@ -214,8 +228,15 @@ __global__ void __launch_bounds__(QWARPS * 32, 1) chunk_scan_kernel(
 #pragma unroll
         for (int mt = 0; mt < MAX_MT; ++mt) {
           if (16 * mt >= SM) continue;
-          const float* ar = pm + (16 * mt + g) * PS + col;
-          const float v[4] = {ar[0], ar[8 * PS], ar[4], ar[8 * PS + 4]};
+          float v[4];
+          if (PSMEM) {
+            const float* ar = pm + (16 * mt + g) * PS + col;
+            v[0] = ar[0], v[1] = ar[8 * PS], v[2] = ar[4], v[3] = ar[8 * PS + 4];
+          } else {
+            const int s = 16 * mt + g;
+            v[0] = pmat_at(s, col), v[1] = pmat_at(s + 8, col);
+            v[2] = pmat_at(s, col + 4), v[3] = pmat_at(s + 8, col + 4);
+          }
           uint32_t ahi[4], alo[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) tf32_split(v[i], ahi[i], alo[i]);
@@ -523,6 +544,221 @@ __global__ void __launch_bounds__(FTHREADS, 1) features_kernel(
   }
 }
 
+// Shared memory of features_slab_kernel (floats), 16 channels a CTA; H rows
+// of y^2 in the ring.
+__host__ __device__ constexpr int features_slab_smem_floats(int L16, int S, int H) {
+  return 2 * UROWS * (16 + US_PAD)                   // us: two k-slabs of u
+         + 2 * (HPAD + L16)                          // hh, hl
+         + H * 16                                    // yr
+         + 2 * ((S + 7) / 8 * 8) * (16 + US_PAD)     // ss, scs
+         + (S + 15) / 16 * 16 * ((S + 7) / 8 * 8 + 4)  // ais
+         + S * 16;                                   // lsm
+}
+
+// Launch 3 at periods too long for features_kernel's shared memory (Ls >
+// 512): the same F.  One CTA (16 warps) per run of FRUN periods and 16
+// channels.  Per period the fix-up s_k = A_L^i S_c + L[k] as in
+// features_kernel, then y_k in slabs of YROWS rows (16 m-tiles): warp w takes
+// n-tile w % 2 and the m-tile pair (j, 15 - j), j = w / 2, of equal work in
+// each slab, the pair sharing every B fragment; u's rows [0, slab end) are
+// staged UROWS at a time (two buffers, cp.async), the Toeplitz A fragments
+// come from h's hi/lo split (the zero tiles above the diagonal skipped) and
+// Cpow's through L1.  y^2 goes to a ring of H = YROWS + max(tail, win) rows:
+// row r of y_k sits at ring row ((k - k0 + 1) Ls + r) % H, so span row p of
+// period k is ring row ((k - k0) Ls + p) % H.  After each slab the windows
+// whose last row it wrote are summed (in features_kernel's order); the
+// oldest row such a window reads is at most H - YROWS rows before the slab.
+// The run's first period recomputes only the rows of y_{k0-1} the windows
+// reach (or reads the zero-fill prefix at k0 = 0).
+__global__ void __launch_bounds__(FTHREADS, 1) features_slab_kernel(
+    const float* __restrict__ u, const float* __restrict__ L, const float* __restrict__ Sc,
+    const float* __restrict__ apow, const float* __restrict__ hpk, const float* __restrict__ cpow,
+    const float* __restrict__ prefix, const int* __restrict__ starts, float* __restrict__ F,
+    int Kp, int Ls, int S, int C, int P, int win, int tail, int R, int H) {
+  constexpr int CT = 16, US = CT + US_PAD;
+  extern __shared__ __align__(16) float smem[];
+  const int S8 = (S + 7) / 8 * 8, SM = (S + 15) / 16 * 16;
+  const int CS = S8 + 4;                 // A_L^i row stride: A fragment loads hit 32 banks
+  const int L16 = (Ls + 15) / 16 * 16;
+  float* us = smem;                      // (2, UROWS, US) k-slabs of u_k, zero rows past Ls
+  float* hh = us + 2 * UROWS * US;       // (HPAD + L16) tf32 hi of h, zeros before h[0] and past Ls
+  float* hl = hh + HPAD + L16;           // (HPAD + L16) lo
+  float* yr = hl + HPAD + L16;           // (H, CT) ring of y^2 rows
+  float* ss = yr + H * CT;               // (S8, US) state before the period, zero rows past S
+  float* scs = ss + S8 * US;             // (S8, US) state before the period's scan chunk
+  float* ais = scs + S8 * US;            // (SM, CS) A_L^i, zeros past S
+  float* lsm = ais + SM * CS;            // (S, CT) chunk-local state before the period
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int c0 = blockIdx.y * CT;
+  const int k0 = blockIdx.x * FRUN, k1 = min(Kp, k0 + FRUN);
+  const int n0 = 8 * (warp & 1), jp = warp >> 1;
+  const bool vec = tile_vec(u, C, c0, CT);
+  const bool avec = S % 4 == 0 && reinterpret_cast<uintptr_t>(apow) % 16 == 0;
+  const bool lvec = vec && reinterpret_cast<uintptr_t>(L) % 16 == 0;
+  // Cpow[r][c], 0 past Ls and S
+  auto cpow_at = [&](int r, int c) { return (r < Ls && c < S) ? __ldg(cpow + r * S + c) : 0.f; };
+  // rows [UROWS kb, +UROWS) of u_k into buffer b, zeros past Ls; the caller commits
+  auto stage = [&](int k, int kb, int b) {
+    float* dst = us + b * UROWS * US;
+    const int r0 = UROWS * kb, rows = min(UROWS, Ls - r0);
+    load_tile<CT>(dst, US, u, (size_t)k * Ls + r0, rows, C, c0, vec);
+    for (int i = rows * CT + t; i < UROWS * CT; i += FTHREADS) dst[(i / CT) * US + i % CT] = 0.f;
+  };
+  for (int i = t; i < SM * CS; i += FTHREADS) ais[i] = 0.f;
+  for (int i = t; i < 2 * S8 * US; i += FTHREADS) ss[i] = 0.f;  // ss and scs
+  for (int i = t; i < HPAD + L16; i += FTHREADS) {
+    const bool in = i >= HPAD && i < HPAD + Ls;
+    hh[i] = in ? hpk[i - HPAD] : 0.f;
+    hl[i] = in ? hpk[Ls + i - HPAD] : 0.f;
+  }
+  if (k0 == 0)
+    for (int i = t; i < tail * CT; i += FTHREADS) {
+      const int r = Ls - tail + i / CT;  // ring row of prefix row r: r
+      const float y = prefix[r];
+      yr[(r % H) * CT + i % CT] = y * y;
+    }
+  const int kfirst = k0 > 0 ? k0 - 1 : 0;
+  int chunk = -1;
+  for (int k = kfirst; k < k1; ++k) {
+    const bool pre = k < k0;  // y_{k0-1}: only the rows the windows reach
+    const int kc = k / R;
+    __syncthreads();  // the previous period's fix-up and products are done with its inputs
+    if (kc != chunk) {
+      chunk = kc;
+      for (int i = t; i < S * CT; i += FTHREADS) {
+        const int cc = c0 + i % CT;
+        scs[(i / CT) * US + i % CT] = cc < C ? Sc[((size_t)kc * S + i / CT) * C + cc] : 0.f;
+      }
+    }
+    load_tile<CT>(lsm, CT, L, (size_t)k * S, S, C, c0, lvec);
+    const float* Ai = apow + (size_t)(k % R) * S * S;
+    if (avec) {
+      for (int i = t; i < S * S / 4; i += FTHREADS)
+        cp_async16(ais + (4 * i / S) * CS + 4 * i % S, Ai + 4 * i);
+    } else {
+      for (int i = t; i < S * S; i += FTHREADS) ais[(i / S) * CS + i % S] = Ai[i];
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // A_L^i, L[k] and scs staged
+    for (int tile = warp; tile < (SM / 16) * (CT / 8); tile += FWARPS) {
+      const int mt = tile / (CT / 8), nt = tile % (CT / 8);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int ks = 0; ks < S8 / 8; ++ks) {
+        const float* ar = ais + (16 * mt + g) * CS + 8 * ks + q4;
+        const float v[4] = {ar[0], ar[8 * CS], ar[4], ar[8 * CS + 4]};
+        uint32_t ahi[4], alo[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tf32_split(v[j], ahi[j], alo[j]);
+        const float* br = scs + (8 * ks + q4) * US + 8 * nt + g;
+        tf32_split(br[0], bh0, bl0);
+        tf32_split(br[4 * US], bh1, bl1);
+        mma3(acc, ahi, alo, bh0, bh1, bl0, bl1);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int s = 16 * mt + g + 8 * (j >> 1), col = 8 * nt + 2 * q4 + (j & 1);
+        if (s < S) ss[s * US + col] = c0 + col < C ? acc[j] + lsm[s * CT + col] : 0.f;
+      }
+    }
+    // (the first k-slab barrier below orders these writes of s_k before its reads)
+    const int ylo = pre ? Ls - tail : 0;  // the first row of y_k to compute
+    const int base = (k - k0 + 1) * Ls;   // ring row of y_k's row 0, before the modulo
+    for (int m0 = ylo / YROWS * YROWS; m0 < Ls; m0 += YROWS) {
+      const int mtile[2] = {m0 / 16 + jp, m0 / 16 + 15 - jp};
+      const bool on[2] = {16 * mtile[0] < Ls && 16 * mtile[0] + 16 > ylo,
+                          16 * mtile[1] < Ls && 16 * mtile[1] + 16 > ylo};
+      float acc[2][4];
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[side][j] = 0.f;
+      const int nkb = (min(m0 + YROWS, Ls) + UROWS - 1) / UROWS;  // k-slabs the slab reaches
+      stage(k, 0, 0);
+      cp_async_commit();
+      for (int kb = 0; kb < nkb; ++kb) {
+        if (kb + 1 < nkb) stage(k, kb + 1, (kb + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // k-slab kb staged (and, at kb = 0, s_k written)
+        const float* ub = us + (kb & 1) * UROWS * US;
+#pragma unroll 2
+        for (int kk = 0; kk < UROWS / 8; ++kk) {
+          const int K = kb * (UROWS / 8) + kk;  // the k-step within the period
+          uint32_t bh0, bl0, bh1, bl1;
+          const float* br = ub + (8 * kk + q4) * US + n0 + g;
+          tf32_split(br[0], bh0, bl0);
+          tf32_split(br[4 * US], bh1, bl1);
+#pragma unroll
+          for (int side = 0; side < 2; ++side) {
+            if (!on[side] || K > 2 * mtile[side] + 1) continue;  // zero tile
+            // Toeplitz tile (mt, K) = h[16 mt - 8 K + r - c]: h[d, d + 8, d - 4, d + 4]
+            const int d = HPAD + 16 * mtile[side] - 8 * K + g - q4;
+            const uint32_t ahi[4] = {__float_as_uint(hh[d]), __float_as_uint(hh[d + 8]),
+                                     __float_as_uint(hh[d - 4]), __float_as_uint(hh[d + 4])};
+            const uint32_t alo[4] = {__float_as_uint(hl[d]), __float_as_uint(hl[d + 8]),
+                                     __float_as_uint(hl[d - 4]), __float_as_uint(hl[d + 4])};
+            mma3(acc[side], ahi, alo, bh0, bh1, bl0, bl1);
+          }
+        }
+        __syncthreads();  // k-slab kb read: its buffer may be staged again
+      }
+      // Cpow s_k into the same accumulators
+      for (int ks = 0; ks < S8 / 8; ++ks) {
+        uint32_t bh0, bl0, bh1, bl1;
+        const float* br = ss + (8 * ks + q4) * US + n0 + g;
+        tf32_split(br[0], bh0, bl0);
+        tf32_split(br[4 * US], bh1, bl1);
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          if (!on[side]) continue;
+          const int r = 16 * mtile[side] + g, c = 8 * ks + q4;
+          const float v[4] = {cpow_at(r, c), cpow_at(r + 8, c), cpow_at(r, c + 4),
+                              cpow_at(r + 8, c + 4)};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tf32_split(v[j], ahi[j], alo[j]);
+          mma3(acc[side], ahi, alo, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        if (!on[side]) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = 16 * mtile[side] + g + 8 * (j >> 1);
+          if (row < Ls && row >= ylo)
+            yr[((base + row) % H) * CT + n0 + 2 * q4 + (j & 1)] = acc[side][j] * acc[side][j];
+        }
+      }
+      __syncthreads();  // the slab's y^2 in the ring
+      if (pre) continue;
+      // the windows whose last span row, Ls + e - 1, lies in this slab (at the
+      // first slab, also those ending in y_{k-1})
+      const int hi = Ls + min(m0 + YROWS, Ls);
+      for (int i = t; i < P * CT; i += FTHREADS) {
+        const int fi = i / CT, cc = i % CT, c = c0 + cc;
+        const int e = starts[fi] + win;
+        if (c >= C || e > hi || (m0 > 0 && e <= Ls + m0)) continue;
+        const int r0 = ((k - k0) * Ls + starts[fi]) % H;
+        auto y2 = [&](int w) { const int r = r0 + w; return yr[(r < H ? r : r - H) * CT + cc]; };
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+        int w = 0;
+        for (; w + 3 < win; w += 4) {
+          s0 += y2(w);
+          s1 += y2(w + 1);
+          s2 += y2(w + 2);
+          s3 += y2(w + 3);
+        }
+        for (; w < win; ++w) s0 += y2(w);
+        F[((size_t)k * P + fi) * C + c] = logf(((s0 + s1) + (s2 + s3)) + 0.01f);
+      }
+      // the next slab's ring writes follow its first k-slab barrier
+    }
+  }
+}
+
 // Launch 4.  mel[j] = smoothM^T med_slot[first argmax_kk score(j, kk, b), b];
 // wpk: W5's 3xTF32 B fragments (pass, warp, k-step, n-tile, lane) as float4
 // (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n]), the k-steps in the order the
@@ -663,13 +899,25 @@ cudaError_t launch_logpower(const float* u, const float* s0, const float* pmat,
   const int nchunks = (Kp + R - 1) / R;
   const int SM = (S + 15) / 16 * 16, S8 = (S + 7) / 8 * 8;
   const int L64 = (Ls + 8 * QSLAB - 1) / (8 * QSLAB) * 8 * QSLAB;
-  const size_t q_smem = (size_t)(SM * (L64 + 4) + SM * (S8 + 4) +
-                                 QWARPS * (QSTAGES * QSLAB * 64 + S8 * 8)) * sizeof(float);
-  if ((err = cudaFuncSetAttribute(chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)q_smem)) != cudaSuccess)
-    return err;
-  chunk_scan_kernel<<<dim3(nchunks, (C + QCT - 1) / QCT), QWARPS * 32, q_smem, stream>>>(
-      u, pmat, apow, L, lend, Kp, Ls, S, C, R);
+  const size_t q_rest = (size_t)(SM * (S8 + 4) + QWARPS * (QSTAGES * QSLAB * 64 + S8 * 8)) *
+                        sizeof(float);
+  const size_t q_smem = q_rest + (size_t)SM * (L64 + 4) * sizeof(float);
+  const dim3 q_grid(nchunks, (C + QCT - 1) / QCT);
+  if (q_smem <= 227 * 1024) {  // Pmat in shared memory (Ls <= 512)
+    if ((err = cudaFuncSetAttribute(chunk_scan_kernel<true>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem)) !=
+        cudaSuccess)
+      return err;
+    chunk_scan_kernel<true><<<q_grid, QWARPS * 32, q_smem, stream>>>(u, pmat, apow, L, lend, Kp,
+                                                                    Ls, S, C, R);
+  } else {
+    if ((err = cudaFuncSetAttribute(chunk_scan_kernel<false>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_rest)) !=
+        cudaSuccess)
+      return err;
+    chunk_scan_kernel<false><<<q_grid, QWARPS * 32, q_rest, stream>>>(u, pmat, apow, L, lend, Kp,
+                                                                     Ls, S, C, R);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t s_smem = (size_t)(S * S + 2 * S * SCT) * sizeof(float);
@@ -677,11 +925,21 @@ cudaError_t launch_logpower(const float* u, const float* s0, const float* pmat,
       lend, s0, apow + (size_t)R * S * S, Sc, nchunks, S, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 32 channels a CTA where that fits in shared memory (Ls <= 256), else 16
+  // 32 channels a CTA where that fits in shared memory (Ls <= 256), else 16;
+  // periods where neither fits (Ls > 512) stream y_k in slabs
   const int L16 = (Ls + 15) / 16 * 16;
   const size_t f32 = (size_t)features_smem_floats(32, L16, S, tail) * sizeof(float);
   const size_t f16 = (size_t)features_smem_floats(16, L16, S, tail) * sizeof(float);
-  if (f32 <= 227 * 1024) {
+  if (f16 > 227 * 1024) {
+    const int H = YROWS + (tail > win ? tail : win);
+    const size_t fs = (size_t)features_slab_smem_floats(L16, S, H) * sizeof(float);
+    if ((err = cudaFuncSetAttribute(features_slab_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fs)) !=
+        cudaSuccess)
+      return err;
+    features_slab_kernel<<<dim3((Kp + FRUN - 1) / FRUN, (C + 15) / 16), FTHREADS, fs, stream>>>(
+        u, L, Sc, apow, hpk, cpow, prefix, starts, F, Kp, Ls, S, C, P, win, tail, R, H);
+  } else if (f32 <= 227 * 1024) {
     if ((err = cudaFuncSetAttribute(features_kernel<32>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f32)) !=
         cudaSuccess)

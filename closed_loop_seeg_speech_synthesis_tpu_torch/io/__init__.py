@@ -1,2 +1,3 @@
-"""IO: the configparser ``.ini`` surface, recording loaders (HDF5/XDF) and
-the headless channel inspection."""
+"""IO: the configparser ``.ini`` surface, recording loaders (HDF5/XDF), the
+session and decoding-run trial accessors and the headless channel
+inspection."""

@@ -135,6 +135,19 @@ def fit(X: torch.Tensor, Y, n_classes_max: int = 9) -> LDAParams:
                      valid=torch.as_tensor(valid, device=X.device))
 
 
+def fit_batched(X: torch.Tensor, labels: torch.Tensor, n_classes_max: int = 9):
+    """All bins' LDAs with the labels as slot ids (JAX ``_fit_batched``,
+    ``models/lda.py:124-135``): X (n, d); labels (n_bins, n) integers in
+    [0, n_classes_max) on X's device.  Returns (coef (n_bins, k, d),
+    intercept (n_bins, k), present (n_bins, k) = the slot has a sample).
+    Unlike ``fit`` the slots are not compacted to each bin's sorted labels,
+    so nothing is read back to the host."""
+    onehot = torch.nn.functional.one_hot(labels.long(), n_classes_max).to(X.dtype)  # (B, n, k)
+    counts = torch.sum(onehot, dim=1)
+    coef, intercept = _fit_one_bin(X, onehot, counts)
+    return coef, intercept, counts > 0
+
+
 def decision_scores(params: LDAParams, X: torch.Tensor) -> torch.Tensor:
     """Raw decision-function scores (T, n_bins, n_classes_max), -inf masked."""
     scores = torch.einsum("td,bkd->tbk", X, params.coef) + params.intercept[None]

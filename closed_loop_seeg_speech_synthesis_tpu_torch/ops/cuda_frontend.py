@@ -9,11 +9,12 @@ TPU kernels' sequential grid was split for a GPU.  ``frontend_decode_mels_plain`
 and ``frontend_logpower_plain`` are the same functions in plain torch.
 
 The kernels run their products on the tensor cores in 3xTF32 and walk the
-block-boundary states as a two-level scan over chunks of ``SCAN_CHUNK``
-periods.  Their operands are packed here: the impulse response's hi/lo
-split and the power table A_L^0 .. A_L^R once in ``make_frontend_ops``
-(``FrontendOps.h_tf32``, ``FrontendOps.apow``), the LDA weights' hi/lo split
-in mma fragment order once per call (``pack_lda_weights``).
+block-boundary states as a two-level scan over chunks of up to
+``SCAN_CHUNK`` periods (``scan_chunk``).  Their operands are packed here:
+the impulse response's hi/lo split and the power table A_L^0 .. A_L^R once
+in ``make_frontend_ops`` (``FrontendOps.h_tf32``, ``FrontendOps.apow``),
+the LDA weights' hi/lo split in mma fragment order once per call
+(``pack_lda_weights``).
 
 Per schedule period (the frame grid repeats every P frames spanning exactly
 Ls samples; Ls is the filter's block length) the computation is: the
@@ -26,6 +27,7 @@ sigma-0.5 smoothing as a matrix.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ SCAN_CHUNK = 64     # periods per chunk of the kernels' two-level boundary scan
 LDA_WARPS, LDA_NT = 16, 3                   # csrc/frontend_decode.cu EWARPS, ENT
 LDA_PASS = LDA_WARPS * LDA_NT * 8           # score columns per pass (EPASS)
 LDA_SLAB = 128                              # channels of F staged at a time (ECK)
-MAX_LS = 512                                # longest period the kernels' shared memory takes
+MAX_LS = 2048                               # longest period the kernels take (JAX pipeline.py:215)
 
 
 @dataclasses.dataclass
@@ -83,11 +85,21 @@ def power_table(A_L: torch.Tensor, R: int) -> torch.Tensor:
     return torch.stack(pows)
 
 
+def scan_chunk(ops: FrontendOps, Kp: int) -> int:
+    """Periods per chunk of the kernels' boundary scan over Kp periods:
+    ceil(sqrt(Kp)), which makes the chunk-local and the carry steps about
+    equal, up to the power table's SCAN_CHUNK.  Inputs of more than 3,969
+    periods (16.5 min at 1024 Hz) take SCAN_CHUNK; shorter ones more,
+    shorter chunks, so that a short decode (exp1's 120-period folds) does
+    not walk 64 periods on a few CTAs."""
+    return min(ops.apow.shape[0] - 1, math.isqrt(max(Kp, 1) - 1) + 1)
+
+
 def serial_scan_steps(ops: FrontendOps, Kp: int) -> int:
     """Dependent steps of the kernels' boundary scan over Kp periods: the
-    chunk-local scans (at most R steps, every chunk at once), then the carry
-    over the chunks (one step fewer than there are chunks)."""
-    R = ops.apow.shape[0] - 1
+    chunk-local scans (R = scan_chunk steps, every chunk at once), then the
+    carry over the chunks (one step fewer than there are chunks)."""
+    R = scan_chunk(ops, Kp)
     return min(R, Kp) + -(-Kp // R) - 1
 
 
@@ -220,7 +232,7 @@ def _launch_args(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor, Kp: int)
     need = Kp * Ls
     u = eeg[:need] if T >= need else torch.nn.functional.pad(eeg, (0, 0, 0, need - T))
     u = u.contiguous()
-    R = ops.apow.shape[0] - 1
+    R = scan_chunk(ops, Kp)
     local = torch.empty((Kp, S, C), dtype=torch.float32, device=dev)  # chunk-local states
     ends = torch.empty((-(-Kp // R), S, C), dtype=torch.float32, device=dev)
     carries = torch.empty_like(ends)                                  # states before each chunk

@@ -124,6 +124,26 @@ class Outlet:
             pass
 
 
+def stream_info(name: str, timeout: float = 5.0) -> dict:
+    """The registry entry of stream ``name`` (its name, type, port, channels,
+    srate and fmt), read without connecting: unlike opening an ``Inlet``, it
+    does not subscribe, so nothing is sent to the caller yet (an outlet drops
+    a subscriber that has not read for 1 s, ``native/nsx.cpp`` broadcast).
+    Waits up to ``timeout`` seconds for the stream to appear."""
+    import json
+    import time
+
+    path = Path(os.environ.get("NSX_REGISTRY_DIR", "/tmp/nsx")) / f"{name}.json"
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return json.loads(path.read_text())
+        except (FileNotFoundError, json.JSONDecodeError):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"stream {name!r} not found within {timeout}s") from None
+            time.sleep(0.05)
+
+
 class Inlet:
     def __init__(self, name: str, timeout: float = 5.0):
         self._lib = load_library()

@@ -69,7 +69,8 @@ def _pump_stream(inlet: StreamInlet, rebuf: PacketRebuffer, packet_size: int,
     packets, invoke ``on_packet`` per packet.  The ``max_packets`` cutoff is
     chunk-granular (the whole rebuffered chunk is processed before checking)
     so both dispatch modes decode identical packet sets from the same stream.
-    Returns the packet count."""
+    Returns (packet count, why it stopped: "stopped", "max_packets",
+    "closed" or "idle")."""
     first_ts = None
     idle = 0.0
     n = 0
@@ -80,11 +81,11 @@ def _pump_stream(inlet: StreamInlet, rebuf: PacketRebuffer, packet_size: int,
             # stream producer went away (amplifier restart): stop cleanly
             # with everything decoded so far (lsl_socket.py:44-49 policy)
             logger.warning("stream closed; stopping decode with %d packets", n)
-            break
+            return n, "closed"
         if chunk.shape[0] == 0:
             idle += 0.25
             if max_packets is not None and idle > idle_timeout:
-                break
+                return n, "idle"
             continue
         idle = 0.0
         if first_ts is None and ts:
@@ -95,8 +96,8 @@ def _pump_stream(inlet: StreamInlet, rebuf: PacketRebuffer, packet_size: int,
             on_packet(packet)
             n += 1
         if max_packets is not None and n >= max_packets:
-            break
-    return n
+            return n, "max_packets"
+    return n, "stopped"
 
 
 class OnlineDecoder:
@@ -247,12 +248,22 @@ class OnlineDecoder:
                    backend=None, idle_timeout: float = 30.0):
         """Pull from a live stream until stopped (decode.py:99-149).
 
-        ``stream``: a StreamInlet or a stream name to resolve."""
+        ``stream``: a StreamInlet or a stream name to resolve.  The step is
+        warmed up before a named stream is subscribed to.  With
+        ``max_packets``, a stream that closes or stays idle before that many
+        packets arrived raises RuntimeError: a sender that cut the stream
+        short, or dropped this subscriber for reading too slowly, is never
+        returned as a complete decode."""
+        if not self._warm:
+            self.warmup()
         inlet = StreamInlet(stream, backend=backend) if isinstance(stream, str) else stream
         rebuf = PacketRebuffer(self.cfg.packet_size, inlet.channels)
-        self.warmup()
-        _pump_stream(inlet, rebuf, self.cfg.packet_size, self.process_packet,
-                     stop_event, max_packets, store_first_timestamp_to, idle_timeout)
+        n, why = _pump_stream(inlet, rebuf, self.cfg.packet_size, self.process_packet,
+                              stop_event, max_packets, store_first_timestamp_to, idle_timeout)
+        if max_packets is not None and why in ("closed", "idle"):
+            raise RuntimeError(f"stream {getattr(inlet, 'name', stream)!r} ended after {n} of "
+                               f"{max_packets} packets ({why}): the sender stopped or dropped "
+                               "this decoder")
         return self.results()
 
     def results(self):

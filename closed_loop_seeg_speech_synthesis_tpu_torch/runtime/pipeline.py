@@ -227,14 +227,49 @@ def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg, rand_init=Non
     ((N-1)*160,)) as tensors on the params' device.  The reference's
     file-replay decode (decode.py:71-96).
     """
+    mel_frames = _mel_frames(params, cfg, eeg)
+    if rand_init is None:
+        rand_init = gl.default_rand_init(mel_frames.shape[0] - 1, 0, seed, cfg.dtype,
+                                         params.device)
+    return mel_frames, _vocode(params, cfg, mel_frames, rand_init)
+
+
+def _vocode(params: DecoderParams, cfg: DecoderConfig, mel_frames: torch.Tensor,
+            rand_init) -> torch.Tensor:
+    """``offline_decode``'s back half: mel frames (N, n_mel) and inits
+    (N-1, 480) -> int16 audio ((N-1)*160,), through K2 (or K4) in float32
+    on CUDA."""
+    dev, dt = params.device, cfg.dtype
+    rand_init = torch.as_tensor(rand_init).to(device=dev, dtype=dt)
+    on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
+
+    use_k2 = cfg.use_cuda_gl and on_cuda_f32
+    if use_k2 and cfg.use_cuda_gl_tail:
+        # K2: GL iterations + overlap-add + low-pass + int16
+        return gl_audio(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
+                        float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug)
+    if use_k2:
+        # K4: GL iterations only; the tail below is plain
+        re = gl_blocks(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
+                       cfg.gl_iterations, cfg.phase_bug)
+    else:
+        re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
+                                    cfg.gl_iterations, cfg.phase_bug)
+    raw = gl.overlap_add_stream(re, params.gl_ops)
+    lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
+                            raw.new_zeros((params.lowpass_op_batch.dim, 1)))
+    return gl.to_int16(lp[:, 0], cfg.gl_norm)
+
+
+def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg) -> torch.Tensor:
+    """``offline_decode``'s front half: raw eeg (T, n_channels) -> the
+    dequantized, smoothed logMel frames (N, n_mel), through K1 (or K3) in
+    float32 on CUDA.  exp1's chance runs stop here."""
     dev, dt = params.device, cfg.dtype
     x = torch.as_tensor(eeg).to(device=dev, dtype=dt)
     T = x.shape[0]
     ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr, T + cfg.prefill)
     n_frames = len(ends)
-    if rand_init is None:
-        rand_init = gl.default_rand_init(n_frames - 1, 0, seed, dt, dev)
-    rand_init = torch.as_tensor(rand_init).to(device=dev, dtype=dt)
     pw = framing.periodic_window_matrix(ends, cfg.win)
     on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
 
@@ -264,24 +299,7 @@ def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg, rand_init=Non
             F = framing.windowed_logpower(s_cat, torch.as_tensor(ends, device=dev), cfg.win)
         stacked = framing.stack_context(F, cfg.model_order, cfg.step_size, zero_pad=True)
         mel_frames = _frames_to_mel(params, stacked)
-
-    use_k2 = cfg.use_cuda_gl and on_cuda_f32
-    if use_k2 and cfg.use_cuda_gl_tail:
-        # K2: GL iterations + overlap-add + low-pass + int16
-        audio = gl_audio(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
-                         float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug)
-        return mel_frames, audio
-    if use_k2:
-        # K4: GL iterations only; the tail below is plain
-        re = gl_blocks(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
-                       cfg.gl_iterations, cfg.phase_bug)
-    else:
-        re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
-                                    cfg.gl_iterations, cfg.phase_bug)
-    raw = gl.overlap_add_stream(re, params.gl_ops)
-    lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
-                            raw.new_zeros((params.lowpass_op_batch.dim, 1)))
-    return mel_frames, gl.to_int16(lp[:, 0], cfg.gl_norm)
+    return mel_frames
 
 
 # ---------------------------------------------------------------------------

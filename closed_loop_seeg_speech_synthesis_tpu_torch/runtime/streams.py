@@ -112,6 +112,23 @@ class StreamInlet:
             return 0.0  # loopback shares the monotonic clock anyway
 
 
+def stream_info(name, timeout=10.0, backend=None):
+    """(channels, nominal_srate) of a stream, resolved without subscribing
+    to it: a decoder reads these, builds its parameters, then opens the
+    ``StreamInlet``, so that a sender faster than real time does not fill a
+    subscriber that is not reading yet (NSX drops such a subscriber after
+    1 s; an LSL inlet buffers)."""
+    if backend_name(backend) == "lsl":
+        streams = _pylsl().resolve_byprop("name", name, timeout=timeout)
+        if not streams:
+            raise TimeoutError(f"LSL stream {name!r} not found")
+        return streams[0].channel_count(), streams[0].nominal_srate()
+    from . import nsx
+
+    info = nsx.stream_info(name, timeout)
+    return int(info["channels"]), float(info["srate"])
+
+
 def local_clock() -> float:
     if _pylsl():
         return _pylsl().local_clock()

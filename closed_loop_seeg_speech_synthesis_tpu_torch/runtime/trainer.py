@@ -72,17 +72,17 @@ def offline_features(eeg: torch.Tensor, sr: float, window_length: float = 0.05,
 
 @dataclasses.dataclass
 class TrainResult:
-    x_train: np.ndarray          # (n, 150) selected features actually fitted
+    x_train: np.ndarray          # (n, nb_feats) selected features actually fitted
     y_train: np.ndarray          # (n, n_mel) quantized labels
     medians: np.ndarray          # (n_mel, n_intervals)
     borders: np.ndarray
     lda: lda_mod.LDAParams       # tensors on the training device, in its dtype
-    select: np.ndarray           # (150,) feature indices
+    select: np.ndarray           # (nb_feats,) feature indices
     missing: dict                # bin -> missing interval indices (train.py:86-91)
 
 
-class _StageClock:
-    """Milliseconds per training stage into ``out`` (nothing when ``out`` is
+class StageClock:
+    """Milliseconds per stage, summed into ``out`` (nothing when ``out`` is
     None): CUDA events around device stages on a CUDA device, the host clock
     otherwise and around host stages.  Each timed stage starts and ends with
     a synchronize."""
@@ -107,18 +107,20 @@ class _StageClock:
         if events:
             end.record()
             end.synchronize()
-            self.out[name] = start.elapsed_time(end)
+            ms = start.elapsed_time(end)
         else:
-            self.out[name] = (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+        self.out[name] = self.out.get(name, 0.0) + ms
 
 
 def train(eeg, audio: np.ndarray, eeg_sr: float, audio_sr: float,
-          bad_channels, line_noise: int = 50, dtype=None, device=None,
+          bad_channels, nb_feats: int = N_FEATS, line_noise: int = 50, dtype=None, device=None,
           timings: dict | None = None) -> TrainResult:
     """Full training (reference train.py:132-168).
 
     eeg: (T, C_all) raw array or tensor; audio: (T_a,) in [-1, 1] float;
-    bad_channels: indices to exclude.  ``device`` defaults to the card
+    bad_channels: indices to exclude; ``nb_feats`` features are selected
+    (exp1 passes fewer for small sessions).  ``device`` defaults to the card
     whatever eeg's device (pass ``"cpu"`` to train on the CPU), ``dtype`` to
     float64 on the CPU and float32 on CUDA.
     Audio is decimated by 3 to 16 kHz exactly as the reference does
@@ -131,7 +133,7 @@ def train(eeg, audio: np.ndarray, eeg_sr: float, audio_sr: float,
     device = resolve_device(device)
     eeg = torch.as_tensor(eeg)
     dtype = dtype or default_compute_dtype(device)
-    clock = _StageClock(timings, device)
+    clock = StageClock(timings, device)
     bad_channels = np.asarray(bad_channels, int)
     if len(bad_channels) > 0:
         mask = np.ones(eeg.shape[1], bool)
@@ -164,7 +166,7 @@ def train(eeg, audio: np.ndarray, eeg_sr: float, audio_sr: float,
     x_train, y_spec, q_spec = x_train[:n], y_spec[:n], q_spec[:n]
 
     with clock("selection"):
-        select = selection.select_features(x_train, y_spec, N_FEATS)
+        select = selection.select_features(x_train, y_spec, nb_feats)
     with clock("lda_fit"):
         x_sel = x_train[:, torch.as_tensor(select, device=device)]
         lda_params = lda_mod.fit(x_sel, q_spec, N_INTERVALS)

@@ -45,8 +45,10 @@ def rs():
 # (the last one ragged)
 FRONTEND_SHAPES = [(16, 4), (16, 70), (128, 70), (256, 20), (400, 4)]
 # 1152 and 1920 Hz have periods of 288 and 96 samples, not whole 64-row
-# slabs of u (launch 1) nor, at 1920 Hz, whole 16-row m-tiles of y (launch 3)
-FRONTEND_RATES = [1024.0, 2048.0, 1152.0, 1920.0]
+# slabs of u (launch 1) nor, at 1920 Hz, whole 16-row m-tiles of y (launch 3);
+# 4096 and 8192 Hz periods of 1,024 and 2,048 samples, which launch 1 and 3
+# stream in slabs (Pmat through L1, y in slabs of 256 rows and a ring)
+FRONTEND_RATES = [1024.0, 2048.0, 1152.0, 1920.0, 4096.0, 8192.0]
 
 
 @pytest.mark.cuda
@@ -389,3 +391,47 @@ def test_training_on_the_card_tracks_the_cpu_path(rs, cuda_device):
     for name in ("medians", "borders"):
         err = np.abs(getattr(f32, name) - getattr(host, name)).max()
         assert err < 5e-3, (name, err)
+
+
+@pytest.mark.cuda
+def test_exp1_fold_through_the_kernels_tracks_the_plain_path(cuda_device):
+    """One exp1 fold (a 10-word word-locked session at 32 ch, fold 1 held out)
+    retrained and decoded by eval.exp1_batched.FoldRunner in float32 on the
+    card: K1 and K2 launch once each, and the spectrogram stays within the
+    f32 label-flip budget (< 2%) of the same fold through the plain float32
+    path (use_cuda_frontend=False, use_cuda_gl=False: the same LDA, no
+    kernel launched), the audio's per-hop energy correlated > 0.9."""
+    import configparser
+    import dataclasses
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1, exp1_batched
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import session
+
+    eeg, audio, words, _ = session.make_synthetic_session(10, 1024, 48000, 32, seed=1)
+    rng = np.random.RandomState(0)
+    sess = session.Session.from_arrays(eeg, 1024, audio, 48000, words, downsample_audio=False,
+                                       rng=rng)
+    config = configparser.ConfigParser()
+    config["Experiment1"] = {"griffin_lim_norm": "10"}
+    e = exp1.Experiment1(config, None, None, rng=rng, device=cuda_device, session=sess,
+                         bad_channels=[])
+    k, x_train, y_train, x_test, *_ = e._construct_datasets_for_run(10)[0]
+    fr = exp1_batched.FoldRunner(len(x_train), len(x_test), 32, 1024, 10.0, device=cuda_device)
+    q, medians, y_mean = exp1_batched.fold_targets(y_train)
+    fold = (fr.put(x_train), fr.put(x_test), fr.put(q, torch.int64), fr.put(y_mean),
+            fr.put(medians))
+    params = fr.fit(fold[0], *fold[2:])
+    before = (cuda_frontend.frontend_decode_mels.launches, cuda_gl.gl_audio.launches)
+    spec_k, audio_k = pipeline.offline_decode(params, fr.cfg, fold[1], seed=k)
+    torch.cuda.synchronize()
+    assert (cuda_frontend.frontend_decode_mels.launches, cuda_gl.gl_audio.launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = dataclasses.replace(fr.cfg, use_cuda_frontend=False, use_cuda_gl=False)
+    spec_p, audio_p = pipeline.offline_decode(params, plain, fold[1], seed=k)
+    assert (cuda_frontend.frontend_decode_mels.launches, cuda_gl.gl_audio.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert spec_k.shape == spec_p.shape == (fr.n_frames, 40) and audio_k.shape == audio_p.shape
+    flips = 1.0 - torch.isclose(spec_k, spec_p, rtol=1e-4, atol=1e-5).double().mean().item()
+    assert flips < 0.02, flips
+    hop = lambda a: a.double().reshape(-1, 160).pow(2).mean(1).sqrt()
+    assert torch.corrcoef(torch.stack([hop(audio_k), hop(audio_p)]))[0, 1].item() > 0.9

@@ -15,7 +15,11 @@ import pytest
 import torch
 
 from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as t_decode
+from closed_loop_seeg_speech_synthesis_tpu_torch.cli import evaluate as t_eval_cli
 from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as t_train_cli
+from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1 as t_exp1
+from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1_batched as t_batched
+from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as t_session
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import streams as t_streams
@@ -56,15 +60,16 @@ def _decoder_stand_in(seen):
 def _case(name, monkeypatch, tmp_path, seen):
     """(call(cpu: bool), the error a default call raises) of one entry point;
     the stand-in appends the device the call reached its computation with."""
-    if name in ("decode CLI", "train CLI"):
-        cli = t_decode if name == "decode CLI" else t_train_cli
+    if name in ("decode CLI", "train CLI", "evaluate CLI"):
+        cli = {"decode CLI": t_decode, "train CLI": t_train_cli, "evaluate CLI": t_eval_cli}[name]
 
         def load_config(path):
             seen.append(torch.device("cpu"))  # past the device check: --device cpu
             raise _Reached
         monkeypatch.setattr(cli.config_mod, "load_config", load_config)
         cfg = tmp_path / "experiment.ini"
-        return (lambda cpu: cli.main([str(cfg)] + (["--device", "cpu"] if cpu else []))), SystemExit
+        step = ["exp1"] if cli is t_eval_cli else []
+        return (lambda cpu: cli.main([str(cfg)] + step + (["--device", "cpu"] if cpu else []))), SystemExit
     if name == "perform_offline_decoding":
         monkeypatch.setattr(t_decode, "_build_decoder", _decoder_stand_in(seen))
         eeg = np.zeros((2048, 4))
@@ -72,25 +77,47 @@ def _case(name, monkeypatch, tmp_path, seen):
             _loaded(4), eeg, 1024, 10.0, **({"device": "cpu"} if cpu else {}))), RuntimeError
     if name == "perform_online_decoding":
         monkeypatch.setattr(t_decode, "_build_decoder", _decoder_stand_in(seen))
+        monkeypatch.setattr(t_streams, "stream_info", lambda *a, **k: (4, 1024.0))
         monkeypatch.setattr(t_streams, "StreamInlet", _Inlet)
         config = configparser.ConfigParser()
         config["Decoding"] = {"stream_name": "x"}
         return (lambda cpu: t_decode.perform_online_decoding(
             config, _loaded(4), 10, str(tmp_path), max_packets=1,
             **({"device": "cpu"} if cpu else {}))), RuntimeError
-    assert name == "trainer.train"
+    if name == "Experiment1":
+        def runner(*args, device=None, **kwargs):
+            seen.append(torch.device(device))
+            raise _Reached
+        monkeypatch.setattr(t_batched, "FoldRunner", runner)
+        eeg, audio, words, _ = t_session.make_synthetic_session(2, 1024, 48000, 4)
+        config = configparser.ConfigParser()
+        config["Experiment1"] = {"griffin_lim_norm": "10"}
+
+        def call(cpu):
+            session = t_session.Session.from_arrays(eeg, 1024, audio, 48000, words,
+                                                    downsample_audio=False)
+            e = t_exp1.Experiment1(config, None, str(tmp_path), session=session, bad_channels=[],
+                                   **({"device": "cpu"} if cpu else {}))
+            e.proposed_method(nb_folds=2)
+        return call, RuntimeError
+    assert name in ("trainer.train", "train_decode_fold")
 
     def features(eeg, *args, **kwargs):
         seen.append(eeg.device)
         raise _Reached
     monkeypatch.setattr(t_trainer, "offline_features", features)
     eeg, audio = np.zeros((2048, 4)), np.zeros(96000)
+    if name == "train_decode_fold":
+        return (lambda cpu: t_exp1.train_decode_fold(
+            1, eeg, audio, eeg, None, 1024, 48000, [], 10,
+            **({"device": "cpu"} if cpu else {}))), RuntimeError
     return (lambda cpu: t_trainer.train(eeg, audio, 1024, 48000, [],
                                         **({"device": "cpu"} if cpu else {}))), RuntimeError
 
 
-@pytest.mark.parametrize("name", ["decode CLI", "train CLI", "perform_offline_decoding",
-                                  "perform_online_decoding", "trainer.train"])
+@pytest.mark.parametrize("name", ["decode CLI", "train CLI", "evaluate CLI",
+                                  "perform_offline_decoding", "perform_online_decoding",
+                                  "trainer.train", "train_decode_fold", "Experiment1"])
 def test_entry_point_needs_the_card_unless_asked_for_the_cpu(no_gpu, monkeypatch, tmp_path,
                                                              capsys, name):
     seen = []

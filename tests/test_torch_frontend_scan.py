@@ -1,6 +1,8 @@
 """Kernels K1 and K3 (csrc/frontend_decode.cu): their host packing and their
-two-level boundary scan, on the CPU at 512, 1024 and 2048 Hz, and at 1152
-and 1920 Hz, whose periods (288 and 96 samples) are not whole 64-row slabs.
+two-level boundary scan, on the CPU at 512, 1024 and 2048 Hz, at 1152
+and 1920 Hz, whose periods (288 and 96 samples) are not whole 64-row slabs,
+and at 4096 and 8192 Hz, whose periods (1,024 and 2,048 samples) the
+features launch walks in slabs of y through a ring of y^2 rows.
 
 The kernels build the Toeplitz product's A operand from h = Tmat[:, 0],
 read the constants as TF32 hi/lo splits, and walk the block-boundary states
@@ -16,6 +18,7 @@ the plain versions on the card in tests/test_torch_cuda.py.
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +31,7 @@ from closed_loop_seeg_speech_synthesis_tpu.ops import iir as j_iir
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, cuda_frontend, iir, tf32
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params, pipeline
 
-SRS = [512.0, 1024.0, 1152.0, 1920.0, 2048.0]
+SRS = [512.0, 1024.0, 1152.0, 1920.0, 2048.0, 4096.0, 8192.0]
 HPAD = 16  # zeros before h[0] in the kernel's shared memory
 LANE = torch.arange(32)
 G, Q = LANE // 4, LANE % 4  # mma fragment coordinates of a lane
@@ -183,14 +186,22 @@ def _scan_inputs(sr, dtype, K=150, C=5):
     return ops, x, q, s0
 
 
+def _chunk(ops, K, chunk):
+    """The chunk length of the test: the table's longest, or the one the
+    kernels take for K periods (13 for the 150 here)."""
+    return cuda_frontend.SCAN_CHUNK if chunk == "longest" else cuda_frontend.scan_chunk(ops, K)
+
+
+@pytest.mark.parametrize("chunk", ["longest", "chosen"])
 @pytest.mark.parametrize("sr", SRS)
-def test_two_level_scan_equals_sequential_f64(sr):
+def test_two_level_scan_equals_sequential_f64(sr, chunk):
     """float64: the two-level scan equals the sequential walk
     (iir._boundary_states) and the JAX package's associative scan to 1e-10
-    of the states' scale."""
+    of the states' scale, with chunks of SCAN_CHUNK periods and of the
+    length the kernels choose for this input."""
     ops, _, q, s0 = _scan_inputs(sr, torch.float64)
     A = ops.A_L.double()
-    R = cuda_frontend.SCAN_CHUNK
+    R = _chunk(ops, q.shape[0], chunk)
     two = _two_level(A, cuda_frontend.power_table(A, R), q, s0, R)
     seq, _ = iir._boundary_states(A, q, s0)
     jax_seq, _ = j_iir._boundary_states(jnp.asarray(A.numpy()), jnp.asarray(q.numpy()),
@@ -200,14 +211,16 @@ def test_two_level_scan_equals_sequential_f64(sr):
     assert float((two - torch.as_tensor(np.array(jax_seq))).abs().max()) <= 1e-10 * scale
 
 
+@pytest.mark.parametrize("chunk", ["longest", "chosen"])
 @pytest.mark.parametrize("sr", SRS)
-def test_two_level_scan_f32_within_k3_reach(sr):
+def test_two_level_scan_f32_within_k3_reach(sr, chunk):
     """float32 with the kernels' float32 power table: the block outputs'
     state part Cpow s_k stays as close to float64 as the sequential f32 walk
     (p99.9 within 2x), and the log-power features computed from its states
-    stay within K3's gate (1e-4) of the plain version's."""
+    stay within K3's gate (1e-4) of the plain version's; with chunks of
+    SCAN_CHUNK periods and of the length the kernels choose."""
     ops, x, q, s0 = _scan_inputs(sr, torch.float32)
-    R = cuda_frontend.SCAN_CHUNK
+    R = _chunk(ops, q.shape[0], chunk)
     two = _two_level(ops.A_L, ops.apow, q, s0, R)
     seq, _ = iir._boundary_states(ops.A_L, q, s0)
     _, _, q64, s064 = _scan_inputs(sr, torch.float64)
@@ -228,12 +241,96 @@ def test_two_level_scan_f32_within_k3_reach(sr):
     assert float((features(two) - features(seq)).abs().max()) < 1e-4
 
 
+def _slab_rows():
+    """features_slab_kernel's rows of y a slab (YROWS in the CUDA source)."""
+    src = (_build.CSRC / "frontend_decode.cu").read_text()
+    return int(re.search(r"constexpr int YROWS = (\d+);", src).group(1))
+
+
+def _slab_logpower(ops, x, s0, n_frames, run=16):
+    """Log-power rows as features_slab_kernel orders its work, in float64:
+    runs of ``run`` periods; per period y_k in slabs of SLAB_ROWS rows
+    written to a ring of SLAB_ROWS + max(tail, win) rows (H, as the launch
+    sizes it; NaN until written) at row
+    ((k - k0 + 1) Ls + r) % H; after each slab the windows whose last row it
+    wrote, read back from the ring; the run's first period writes only the
+    rows the windows reach (the prefix at k0 = 0).  Returns the rows and how
+    often each was written."""
+    Ls, P, win, tail, R = ops.Ls, ops.P, ops.win, ops.tail, _slab_rows()
+    H = R + max(tail, win)
+    Kp, C = -(-n_frames // P), x.shape[1]
+    u = torch.nn.functional.pad(x, (0, 0, 0, Kp * Ls - x.shape[0])).reshape(Kp, Ls, C)
+    A, Pm = ops.A_L.double(), ops.Pmat.double()
+    s_before, _ = iir._boundary_states(A, torch.einsum("sl,klc->ksc", Pm, u), s0)
+    y = (torch.einsum("ls,ksc->klc", ops.Cpow.double(), s_before)
+         + torch.einsum("tj,kjc->ktc", ops.Tmat.double(), u))
+    starts = ops.starts.tolist()
+    F = torch.full((Kp * P, C), float("nan"), dtype=torch.float64)
+    written = torch.zeros(Kp * P, dtype=torch.int64)
+    for k0 in range(0, Kp, run):
+        ring = torch.full((H, C), float("nan"), dtype=torch.float64)
+        if k0 == 0:
+            rows = torch.arange(Ls - tail, Ls)
+            ring[rows % H] = (ops.prefix.double()[rows] ** 2)[:, None].expand(-1, C)
+        for k in range(max(k0 - 1, 0), min(Kp, k0 + run)):
+            pre = k < k0
+            ylo, base = (Ls - tail if pre else 0), (k - k0 + 1) * Ls
+            for m0 in range(ylo // R * R, Ls, R):
+                rows = torch.arange(max(m0, ylo), min(m0 + R, Ls))
+                ring[(base + rows) % H] = y[k, rows] ** 2
+                if pre:
+                    continue
+                hi = Ls + min(m0 + R, Ls)
+                for fi, st in enumerate(starts):
+                    e = st + win
+                    if e > hi or (m0 > 0 and e <= Ls + m0):
+                        continue
+                    idx = ((k - k0) * Ls + st + torch.arange(win)) % H
+                    F[k * P + fi] = torch.log(ring[idx].sum(0) + 0.01)
+                    written[k * P + fi] += 1
+    return F[:n_frames], written[:n_frames]
+
+
+@pytest.mark.parametrize("sr", SRS)
+def test_slab_walk_matches_plain_f64(sr):
+    """features_slab_kernel's order of work (slabs of y, the ring of
+    YROWS + max(tail, win) rows, each window summed after the slab with
+    its last row, the recomputed tail of y_{k0-1} at each run's start) gives
+    the plain version's features in float64 to 1e-12, each window once: no
+    window reads a row the ring has not been given or has already dropped.
+    40 periods are two runs of 16 and a ragged one; the kernel takes this
+    path above 512 samples (4096 and 8192 Hz), the walk holds at every rate."""
+    dec = _decoder(sr, torch.float64)
+    ops = dec.frontend_ops
+    rng = np.random.RandomState(int(sr) + 1)
+    x = torch.as_tensor(rng.randn(40 * ops.Ls - 77, 3))
+    nf = len(pipeline.framing.streaming_frame_ends(50, 10, sr, x.shape[0] + len(dec.zf_prefix)))
+    s0 = pipeline._initial_state(dec, x)
+    F, written = _slab_logpower(ops, x, s0, nf)
+    ref = cuda_frontend.frontend_logpower_plain(ops, x, s0, nf)
+    assert torch.equal(written, torch.ones_like(written))
+    assert float((F - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def test_long_periods_take_the_slab_launches():
+    """The periods the single-slab launches hold in shared memory end at 512
+    samples (2048 Hz); 4096 and 8192 Hz (1,024 and 2,048) take the streamed
+    launches, up to the JAX package's longest period, 2,048 (MAX_LS)."""
+    assert _ops(2048.0).Ls == 512 < _ops(4096.0).Ls == 1024 < _ops(8192.0).Ls == 2048
+    assert cuda_frontend.MAX_LS == 2048 and _slab_rows() == 256
+
+
 def test_serial_scan_steps():
     """The kernels' scan takes R chunk-local steps and ceil(Kp / R) - 1 carry
-    steps, at most Kp / R + R: 176 at 30 min / 1024 Hz (Kp = 7,200)."""
+    steps, at most Kp / R + R: 176 at 30 min / 1024 Hz (Kp = 7,200, R =
+    SCAN_CHUNK); R = ceil(sqrt(Kp)) below 3,970 periods (exp1's 30 s fold:
+    120 periods, chunks of 11, 21 steps instead of 64)."""
     ops = _ops(1024.0)
     R = cuda_frontend.SCAN_CHUNK
     assert cuda_frontend.serial_scan_steps(ops, 7200) == R + 113 - 1 == 176 <= 7200 / R + R
+    chosen = {1: 1, 2: 2, 16: 4, 17: 5, 120: 11, 3969: 63, 3970: 64, 7200: 64}
+    assert {Kp: cuda_frontend.scan_chunk(ops, Kp) for Kp in chosen} == chosen
+    assert cuda_frontend.serial_scan_steps(ops, 120) == 11 + 11 - 1
     for Kp in (1, 17, R, R + 1, 4 * R - 3, 7200, 14400):
         steps = cuda_frontend.serial_scan_steps(ops, Kp)
         assert steps <= Kp and steps <= Kp / R + R

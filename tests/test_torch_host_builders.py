@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from closed_loop_seeg_speech_synthesis_tpu.eval import metrics as j_metrics
 from closed_loop_seeg_speech_synthesis_tpu.models import lda as j_lda
 from closed_loop_seeg_speech_synthesis_tpu.ops import filter_design as j_fd
 from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
@@ -18,6 +19,7 @@ from closed_loop_seeg_speech_synthesis_tpu.ops import stft as j_stft
 from closed_loop_seeg_speech_synthesis_tpu.ops.pallas_frontend import epilogue_constants as j_epi
 from closed_loop_seeg_speech_synthesis_tpu.runtime import pipeline as j_pipe
 
+from closed_loop_seeg_speech_synthesis_tpu_torch.eval import metrics as t_metrics
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as t_fd
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import framing as t_fr
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
@@ -176,3 +178,39 @@ def test_training_spectrogram_constants_equal():
         assert ours.dtype == theirs.dtype == np.float64 and ours.shape == theirs.shape
         assert (np.abs(ours - theirs) <= 2 * np.spacing(np.abs(theirs))).all()
     _eq(t_m, np.asarray(jnp.linspace(-9.5, 9.5, 9)))
+
+
+def _eq_nan(a, b):
+    """_eq with NaN equal to NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape, a.dtype, b.dtype)
+    assert np.array_equal(a, b, equal_nan=True)
+
+
+def test_eval_metrics_equal(rng):
+    """eval/metrics: the per-bin Pearson r (NaN for a column that is exactly
+    constant in either input, even where rounding leaves its centred
+    denominator nonzero), the mean/std summaries, KFold's contiguous splits
+    with the first n % k folds one longer, the distribution over 5 blocks
+    and the Mann-Whitney U test, element for element."""
+    a, b = rng.randn(203, 6), rng.randn(203, 6)
+    a[:, 1] = 0.3                   # constant: nonzero centred sum of squares after rounding
+    b[:, 4] = b[0, 4]
+    b[:, 2] = a[:, 2] * 2.0 + 1.0   # r = 1 up to rounding
+    r_t, r_j = t_metrics.pearson_per_bin(a, b), j_metrics.pearson_per_bin(a, b)
+    _eq_nan(r_t, r_j)
+    assert np.isnan(r_t[[1, 4]]).all() and np.isfinite(r_t[[0, 2, 3, 5]]).all()
+    for means in (False, True):
+        for x, y in zip(t_metrics.pearson_correlation(a, b, means),
+                        j_metrics.pearson_correlation(a, b, means)):
+            _eq_nan(np.asarray(x), np.asarray(y))
+    for n, k in ((100, 10), (23, 5), (4, 10)):
+        for (tr_t, te_t), (tr_j, te_j) in zip(t_metrics.kfold_indices(n, k),
+                                              j_metrics.kfold_indices(n, k), strict=True):
+            _eq_nan(tr_t, tr_j)
+            _eq_nan(te_t, te_j)
+    for x, y in zip(t_metrics.extract_corrs_for_distribution(a, b, 5),
+                    j_metrics.extract_corrs_for_distribution(a, b, 5)):
+        _eq_nan(x, y)
+    u_t, u_j = t_metrics.mann_whitney_u(a[:, 0], b[:, 0]), j_metrics.mann_whitney_u(a[:, 0], b[:, 0])
+    assert (u_t.statistic, u_t.pvalue) == (u_j.statistic, u_j.pvalue)

@@ -305,3 +305,95 @@ def test_jax_streamer_feeds_port_decoder_over_nsx(rng, tmp_path, monkeypatch):
     assert np.abs(audio_on.astype(int) - np.asarray(audio_ref).astype(int)).max() <= 1
     assert (run_dir / "first_timestamp.npy").exists()
     assert "start;" in (run_dir / "markers.csv").read_text()
+
+
+def test_asap_streamer_feeds_online_decode_every_packet(rng, tmp_path, monkeypatch):
+    """``dev_streamer --asap`` -> ``perform_online_decoding`` over NSX on the
+    CPU.  The decoder reads the stream's rate and channel count without
+    subscribing, builds and warms up (slowed here by 1.5 s, longer than the
+    1 s an NSX outlet waits on a subscriber that does not read, as building
+    the kernels on the card can take), and only then subscribes; so every
+    packet the unpaced sender sends is received, and decoded as a direct
+    OnlineDecoder run of the same packets decodes it."""
+    import time
+
+    monkeypatch.setenv("NSX_REGISTRY_DIR", str(tmp_path / "nsx"))
+    (tmp_path / "nsx").mkdir()
+    sr, C, n_packets = 1024, 4, 96
+    arrs = _arrays(rng, C, n_feats=12)
+    streamed = (rng.randn(n_packets * 32, C) * 10.0).astype(np.float32)
+    events = []
+    build, inlet, warmup = t_decode._build_decoder, t_streams.StreamInlet, t_online.OnlineDecoder.warmup
+
+    def slow_build(*args, **kwargs):
+        time.sleep(1.5)
+        events.append("built")
+        return build(*args, **kwargs)
+
+    def recorded_inlet(name, *args, **kwargs):
+        events.append(f"subscribed {name}")
+        return inlet(name, *args, **kwargs)
+
+    def recorded_warmup(self):
+        warmup(self)
+        events.append("warm")
+
+    monkeypatch.setattr(t_decode, "_build_decoder", slow_build)
+    monkeypatch.setattr(t_streams, "StreamInlet", recorded_inlet)
+    monkeypatch.setattr(t_online.OnlineDecoder, "warmup", recorded_warmup)
+    config = configparser.ConfigParser()
+    config["Decoding"] = {"stream_name": "asap_sEEG", "marker_stream_name": "asap_Mk",
+                          "griffin_lim_norm": "10"}
+    results, errors = {}, []
+
+    def decode():
+        try:
+            results["out"] = t_decode.perform_online_decoding(
+                config, t_params.from_arrays(**arrs), 10, str(tmp_path), max_packets=n_packets,
+                backend="nsx", device="cpu")
+        except Exception as e:  # surfaced by the assertion below
+            errors.append(e)
+
+    t = threading.Thread(target=decode)
+    t.start()
+    t_streamer.stream_eeg(streamed, sr, "asap_sEEG", asap=True, backend="nsx",
+                          wait_for_consumers=60.0)
+    t.join(timeout=240)
+    assert not t.is_alive() and not errors, errors
+    assert events[:3] == ["built", "warm", "subscribed asap_sEEG"], events
+    spec_on, audio_on, received, sfreq = results["out"]
+    assert sfreq == sr
+    np.testing.assert_array_equal(received, streamed)
+    cfg, dec = _port_decoder(arrs, float(sr), 32, C)
+    direct = t_online.OnlineDecoder(cfg, dec)
+    for i in range(n_packets):
+        direct.process_packet(streamed[32 * i : 32 * (i + 1)])
+    spec_d, audio_d, _ = direct.results()
+    np.testing.assert_array_equal(spec_on, spec_d)
+    np.testing.assert_array_equal(audio_on, audio_d)
+
+
+class _CutStream:
+    """An inlet whose sender stops after ``n_chunks`` chunks of 64 samples."""
+
+    name, channels = "cut", 4
+
+    def __init__(self, rng, n_chunks):
+        self.chunks = [rng.randn(64, self.channels).astype(np.float32) for _ in range(n_chunks)]
+
+    def pull_chunk(self, max_samples=1024, timeout=1.0):
+        if not self.chunks:
+            raise ConnectionError("stream closed")
+        return self.chunks.pop(0), 1.0
+
+
+def test_run_stream_raises_on_a_stream_cut_short(rng):
+    """A stream that closes before ``max_packets`` arrived is an error, never
+    a short success; without ``max_packets`` (a live run stopped by the
+    operator or the amplifier) the same stream ends cleanly with what came."""
+    arrs = _arrays(rng, 4, n_feats=12)
+    cfg, dec = _port_decoder(arrs, 1024.0, 32, 4)
+    with pytest.raises(RuntimeError, match="'cut' ended after 6 of 10 packets"):
+        t_online.OnlineDecoder(cfg, dec).run_stream(_CutStream(rng, 3), max_packets=10)
+    _, _, received = t_online.OnlineDecoder(cfg, dec).run_stream(_CutStream(rng, 3))
+    assert received.shape == (6 * 32, 4)

@@ -44,10 +44,12 @@ def _jax_rand_init(n_samples, sr):
     return np.asarray(j_gl.default_rand_init(jax.random.PRNGKey(0), n - 1, 0, jnp.float64))
 
 
-@pytest.mark.parametrize("sr", [1024.0, 2048.0])
+@pytest.mark.parametrize("sr", [1024.0, 2048.0, 4096.0])
 def test_offline_decoding_matches_jax(rng, sr):
     """perform_offline_decoding in both packages: bad channels excluded, the
-    same LDA / medians / select (converted by from_arrays)."""
+    same LDA / medians / select (converted by from_arrays).  4096 Hz has a
+    period of 1,024 samples, over the 512 up to which the front-end kernels
+    keep one slab."""
     C_total, bad = 10, [2, 7]
     arrs = _session_arrays(rng, C_total, bad)
     eeg = rng.randn(int(sr * 3), C_total) * 10.0

@@ -29,7 +29,6 @@ from closed_loop_seeg_speech_synthesis_tpu.models import selection as j_sel
 from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
 from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
 from closed_loop_seeg_speech_synthesis_tpu.ops import quantization as j_q
-from closed_loop_seeg_speech_synthesis_tpu.ops.spectrogram import compute_spectrogram as j_spec
 from closed_loop_seeg_speech_synthesis_tpu.runtime import params as j_params
 from closed_loop_seeg_speech_synthesis_tpu.runtime import trainer as j_trainer
 
@@ -98,21 +97,60 @@ def _assert_lda_close(t_params_, j_params_):
                                rtol=COEF_RTOL, atol=COEF_ATOL)
 
 
+_SPECTROGRAMS = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import torch
+from closed_loop_seeg_speech_synthesis_tpu.ops.spectrogram import compute_spectrogram as j_spec
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops.spectrogram import compute_spectrogram as t_spec
+d, wl = sys.argv[1], float(sys.argv[2])
+audio = np.load(d + "/audio.npy")
+np.save(d + "/jax.npy", np.asarray(j_spec(jnp.asarray(audio), 16000, wl, 0.01)))
+np.save(d + "/torch.npy", t_spec(torch.as_tensor(audio), 16000, wl, 0.01).numpy())
+print(torch.get_num_threads())
+"""
+
+
 @pytest.mark.parametrize("window_length", [0.016, 0.05])
-def test_compute_spectrogram_matches_jax(rng, window_length):
+def test_compute_spectrogram_matches_jax(rng, tmp_path, window_length):
     """16 kHz audio with a silent stretch (the 1e-7 fuzz before the log).
 
     rtol 1e-10 and atol 1e-12 on the log-mel values: some lie near 0 (the
     smallest ~4e-5 at the 16 ms window), where the ~1e-15 absolute
     difference between two matmul orders is a relative 3e-12 or more, so
     rtol alone would hold such entries to below f64 resolution.  The largest
-    difference seen is 5.8e-15."""
+    difference seen is 5.8e-15; a bound on any summation order's rounding
+    stays within 0.3 of the tolerance.
+
+    Both packages run in a fresh interpreter: in a test worker that had run
+    other files first, the 16 ms case once came out up to 3.07e-11 apart on
+    178 entries, which no summation order explains, and never did alone.
+    A fresh process holds the comparison to the two functions and nothing
+    left behind by other tests."""
+    import subprocess
+    import sys
+
     audio = rng.randn(16000 * 2) * 0.1
     audio[4000:9000] = 0.0
-    s_j = np.asarray(j_spec(jnp.asarray(audio), 16000, window_length, 0.01))
-    s_t = t_spec(_t(audio), 16000, window_length, 0.01).numpy()
-    assert s_t.shape == s_j.shape and s_t.dtype == np.float64
-    np.testing.assert_allclose(s_t, s_j, rtol=1e-10, atol=1e-12)
+    np.save(tmp_path / "audio.npy", audio)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _SPECTROGRAMS, str(tmp_path), str(window_length)],
+                          cwd=repo, env=dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu"),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    s_j, s_t = np.load(tmp_path / "jax.npy"), np.load(tmp_path / "torch.npy")
+    assert s_t.shape == s_j.shape and s_t.dtype == s_j.dtype == np.float64
+    # what a failure needs to be told apart from rounding: which frames, how
+    # far off the entries the tolerance does not single out, torch's threads
+    d = np.abs(s_t - s_j)
+    state = (f"frames off: {sorted(set(np.nonzero(d > 1e-12 + 1e-10 * np.abs(s_j))[0].tolist()))}; "
+             f"max |diff| where |s| > 1: {d[np.abs(s_j) > 1].max():.3e}; torch threads "
+             f"{proc.stdout.strip()}")
+    np.testing.assert_allclose(s_t, s_j, rtol=1e-10, atol=1e-12, err_msg=state)
 
 
 @pytest.mark.parametrize("sr,seconds,C", [(1024, 30, 40), (2048, 5, 8)])
