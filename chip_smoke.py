@@ -85,6 +85,28 @@ on one NVIDIA GPU.  Run from the repository root:
    has a ragged last chunk) under step 3's gates and timed there; the
    kernels line records the launches counted in one fold, in the proposed
    method and per chance fold.
+12. Runs experiments 2-4 on the card at ``benchmarks/eval_full.py``'s
+   operating point: a 100-word 64-ch session (``make_synthetic_session``,
+   seed 0) trains its model in f32; the whisper and imagine runs are the
+   session's sEEG decoded through ``perform_offline_decoding`` (K1 and K2
+   once each) and go into ``DecodingRun.from_arrays``; for each run
+   ``eval.exp2.Experiment2`` (``RandomState(1)``, 120 s of ``RandomState(3)``
+   other-task noise) scores the matched trials and ``EXP2_RUNS`` chance
+   segments of 2 s (``chance_level_batched``: K1 once a segment, no K2; the
+   protocol's 1,000: ``exp2_protocol_torch.py``); then ``Experiment3`` on both
+   runs and ``Experiment4`` on the model.  Gates: matched median r > 3 x
+   max(chance median, 0.01) per run; speech inside the trials > 0 and >
+   outside; finite activations, max |a| > 0; the sequential twin
+   ``chance_level`` (K1 and K2 a segment) equal to the batched chance level
+   on ``EXP2_SEQ`` segments; one segment in f32 through K1 against the
+   float64 path inside the label-flip budget and 0.02 of its r; K1 at a
+   segment's shapes (200 frames) and K2 on its 199 blocks, the cluster
+   regime, against their plain versions under step 3's gates (K2 through
+   ``k2_agreement``).  Prints exp2's time by stage (the segments' staging,
+   K1 decodes, spectrograms, DTW on the host, correlations), exp3's and
+   exp4's, and K1's and K2's CUDA-event times and bounds at a segment's
+   shapes; skips the figure drawings, on a line that says so, where
+   matplotlib is not installed.
 
 Any failure exits nonzero.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -97,6 +119,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -109,6 +132,20 @@ LONG_RATES, LONG_S = (4096, 8192), 60  # periods over 512 samples: K1/K3 stream 
 EXP1_WORDS, EXP1_RUNS, EXP1_FOLDS = 100, 20, 10  # benchmarks/exp1_protocol.py's session; chance runs
 EXP1_R_MIN, EXP1_R_DIFF = 0.9, 0.02  # proposed mean r (TPU record 0.935); f32 vs f64 fold
 TPU_EXP1_R, TPU_CHANCE_MAX = 0.935, 0.4609  # benchmarks/recorded/exp1_protocol_128ch.json
+# exp2-exp4: benchmarks/eval_full.py's operating point (:78, :113-114, :176):
+# 100 words at 64 ch, 120 s of RandomState(3) other-task noise, chance draws
+# from RandomState(1), 20 chance segments a run (the protocol's 1,000:
+# exp2_protocol_torch.py); the sequential twin against the batched chance
+# level on EXP2_SEQ segments
+EXP2_WORDS, EXP2_C, EXP2_OTHER_S, EXP2_RUNS, EXP2_SEQ = 100, 64, 120, 20, 4
+EXP2_R_DIFF, SEGMENT_REPS = 0.02, 200  # f32 vs f64 segment score; K1/K2 launches timed at a segment
+EXP2_RUNS_DECODED = ("whisper", "imagine")
+VAD = {"vad_energy_threshold": "0.5", "vad_energy_mean_scale": "1", "vad_frames_context": "5",
+       "vad_proportion_threshold": "0.6"}  # benchmarks/eval_full.py's Experiment3 section
+# the TPU record on this operating point (BENCHMARKS.md:350-363): matched-trial
+# median r, chance median r; speech seconds inside / outside the trials
+TPU_EXP2 = {"whisper": (0.101, 0.011), "imagine": (0.100, 0.011)}
+TPU_EXP3 = (196.3, 5.6)
 ONLINE_S, LOOP_S, PACKET = 60, 20, 32
 N_FEATS, GL_NORM = 150, 10.0
 AGREE_RTOL, AGREE_ATOL, AGREE_MIN = 1e-5, 1e-6, 0.999   # tests/test_pallas_kernels.py:125-126
@@ -619,6 +656,234 @@ def exp1_phase(torch, dev, card, zero_counts, read_counts, runs=EXP1_RUNS):
     check(flips < FLIP_MAX and abs(r32 - r64) <= EXP1_R_DIFF,
           f"fold {k}: f32 within the label-flip budget and {EXP1_R_DIFF} r of float64")
     out["figures"].update(fold_f32_vs_f64_flips=flips, fold_r_f32=r32, fold_r_f64=r64)
+    return out
+
+
+def exp2_phase(torch, dev, card, zero_counts, read_counts, runs=EXP2_RUNS):
+    """Step 12 of the module docstring, with ``runs`` chance segments a
+    decoding run (exp2_protocol_torch.py runs the protocol's 1,000).
+    Returns the launches counted (the runs' decodes, each run's batched
+    chance level, the sequential twin), K1's and K2's figures at a chance
+    segment's shapes, and the figures printed."""
+    import time
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp2, exp3, exp4, figures
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as session_mod
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline, trainer
+
+    out = {"figures": {}}
+    fig = out["figures"]
+    t_phase = t0 = time.perf_counter()
+    eeg, audio, words, _ = session_mod.make_synthetic_session(EXP2_WORDS, SR, AUDIO_SR, EXP2_C,
+                                                              seed=0)
+    other = np.random.RandomState(3).randn(EXP2_OTHER_S * SR, EXP2_C).astype(np.float32)
+    say(f"  session: {len(words)} words, {eeg.shape[0]} samples x {EXP2_C} ch @ {SR} Hz, "
+        f"{len(audio)} audio samples @ {AUDIO_SR} Hz; other-task sEEG {other.shape[0]} samples; "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    res = trainer.train(eeg, audio, SR, AUDIO_SR, [], device=dev)
+    fig["train_s"] = time.perf_counter() - t0
+    model = {"lda": res.lda, "medians": res.medians, "select": res.select,
+             "bad_channels": np.zeros(0, int)}
+    say(f"  model (trainer.train, f32 on the card): {fig['train_s']:.2f} s, "
+        f"{len(res.select)} features")
+
+    # the whisper and imagine runs: the session's sEEG decoded through K1 + K2
+    dec_runs = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    for i, run in enumerate(EXP2_RUNS_DECODED):
+        _, wav, _, _ = cli.perform_offline_decoding(model, eeg, SR, GL_NORM, device=dev, seed=i)
+        dec_runs[run] = session_mod.DecodingRun.from_arrays(
+            wav.cpu().numpy(), 16000, eeg, SR, 3.0 * np.arange(len(words)), words, run_dir=run)
+    fig["run_decodes_s"] = time.perf_counter() - t0
+    out["decode_launches"] = launches = read_counts()
+    say(f"  decoding runs {', '.join(EXP2_RUNS_DECODED)} ({eeg.shape[0] / SR:.0f} s each, "
+        f"perform_offline_decoding): {fig['run_decodes_s']:.2f} s; launches {launches}")
+    check(launches["frontend_decode_mels"] == 2 and launches["gl_audio"] == 2,
+          "K1 and K2 launched once per decoding run")
+
+    config = configparser.ConfigParser()
+    config["Experiment2"] = {"griffin_lim_norm": str(int(GL_NORM))}
+    config["Experiment3"] = {"decoding_runs": ",".join(EXP2_RUNS_DECODED), **VAD}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    os.makedirs(os.path.join(tmp, "exp2"))
+    out["chance_launches"] = {}
+    for run in EXP2_RUNS_DECODED:
+        rng = np.random.RandomState(1)
+        t0 = time.perf_counter()
+        sess = session_mod.Session.from_arrays(eeg, SR, audio, AUDIO_SR, words, rng=rng)
+        e = exp2.Experiment2(config, None, run, [], os.path.join(tmp, "exp2"), rng=rng,
+                             device=dev, session=sess, dec_run=dec_runs[run],
+                             other_tasks_eeg=other, model=model)
+        setup_s = time.perf_counter() - t0
+        timings = {}
+        t0 = time.perf_counter()
+        pm = np.asarray(e.matching_trials(timings=timings))
+        pm_s = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        chance = e.chance_level_batched(runs=runs, timings=timings)
+        chance_s = time.perf_counter() - t0
+        out["chance_launches"][run] = counts = read_counts()
+        check(counts["frontend_decode_mels"] == runs and counts["gl_audio"] == 0,
+              f"{run}: K1 launched once per chance segment ({runs}), K2 not at all")
+        np.save(os.path.join(tmp, "exp2", f"exp2_{run}_chance.npy"), chance[~np.isnan(chance)])
+        np.save(os.path.join(tmp, "exp2", f"exp2_{run}_pm.npy"), pm)
+        finite = chance[np.isfinite(chance)]
+        pm_med, ch_med = float(np.median(pm)), float(np.median(finite))
+        say(f"  exp2 {run}: matched median r {pm_med:.4f} over {len(pm)} words, chance median r "
+            f"{ch_med:.4f} over {len(finite)} of {runs} finite segments (TPU record "
+            f"{TPU_EXP2[run][0]} vs {TPU_EXP2[run][1]}; the port's inits are SplitMix64, so its "
+            f"audio differs)")
+        say(f"  exp2 {run} time: session (decimate + dither) {setup_s * 1e3:.1f} ms, matching "
+            f"trials {pm_s * 1e3:.1f} ms, chance level {chance_s * 1e3:.1f} ms; by stage (ms, "
+            f"summed over both): " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
+            + f"; per chance segment: K1 decode {timings['decode'] / runs:.3f} ms, DTW "
+            f"{timings['dtw'] / (runs + len(pm)):.1f} ms a pair [{card}]")
+        check(pm_med > 3 * max(ch_med, 0.01),
+              f"{run}: matched median r > 3 x max(chance median, 0.01) (benchmarks/eval_full.py:183)")
+        fig[run] = {"matched_median_r": pm_med, "chance_median_r": ch_med,
+                    "chance_finite": int(len(finite)), "matched_words": int(len(pm)),
+                    "setup_s": setup_s, "matching_s": pm_s, "chance_s": chance_s,
+                    "stage_ms": timings}
+
+    # the sequential twin (offline_decode per segment: K1 and K2) against
+    # the batched chance level on the same segments
+    twins = []
+    for method in ("chance_level", "chance_level_batched"):
+        e = exp2.Experiment2(config, None, "whisper", [], tmp, rng=np.random.RandomState(5),
+                             device=dev, session=sess, dec_run=dec_runs["whisper"],
+                             other_tasks_eeg=other, model=model)
+        zero_counts()
+        twins.append(getattr(e, method)(runs=EXP2_SEQ))
+        if method == "chance_level":
+            out["sequential_launches"] = read_counts()
+    say(f"  sequential twin on {EXP2_SEQ} segments: launches {out['sequential_launches']}; scores "
+        f"{np.round(twins[0], 6).tolist()} vs batched {np.round(twins[1], 6).tolist()}")
+    check(out["sequential_launches"]["frontend_decode_mels"] == EXP2_SEQ
+          and out["sequential_launches"]["gl_audio"] == EXP2_SEQ,
+          "sequential twin: K1 and K2 launched once per segment")
+    check(np.array_equal(twins[0], twins[1], equal_nan=True),
+          "chance_level (K1 + K2 a segment) equals chance_level_batched (K1 a segment)")
+
+    # one segment in f32 through K1 against the float64 path on the card
+    mask, cfg32, dec32 = e._decoder()
+    e64 = exp2.Experiment2(config, None, "whisper", [], tmp, device=dev, dtype=torch.float64,
+                           session=sess, dec_run=dec_runs["whisper"], other_tasks_eeg=other,
+                           model=model)
+    _, cfg64, dec64 = e64._decoder()
+    T = 2 * SR
+    pick = np.random.RandomState(7)
+    for _ in range(20):  # the first segment whose score is finite in float64
+        c = pick.randint(0, len(other) - T)
+        seg = other[c : c + T][:, mask]
+        s32, s64 = pipeline._mel_frames(dec32, cfg32, seg), pipeline._mel_frames(dec64, cfg64, seg)
+        r32 = e._scorer(trainer.StageClock(None, dev))(0, s32.cpu().numpy())
+        r64 = e64._scorer(trainer.StageClock(None, dev))(0, s64.cpu().numpy())
+        if np.isfinite(r64):
+            break
+    _, flips, _ = mel_agreement(torch, s32.double(), s64)
+    say(f"  one chance segment (cut {c}), f32 through K1 vs float64 plain: label flips {flips:.6f}, "
+        f"DTW r {r32:.4f} vs {r64:.4f}")
+    check(flips < FLIP_MAX and abs(r32 - r64) <= EXP2_R_DIFF,
+          f"segment: f32 within the label-flip budget and {EXP2_R_DIFF} r of float64")
+    fig.update(segment_f32_vs_f64_flips=flips, segment_r_f32=float(r32), segment_r_f64=float(r64))
+
+    # K1 at a segment's shapes, the plan built once (the batched path), and
+    # K2 on its frames: B = nf - 1 blocks, the cluster regime
+    x = torch.as_tensor(seg, dtype=torch.float32, device=dev).contiguous()
+    plan = pipeline.mel_plan(dec32, cfg32, T)
+    *consts, packed = plan.k1
+    k1_args = (dec32.frontend_ops, x, pipeline._initial_state(dec32, x).contiguous(), *consts,
+               plan.n_frames, cfg32.model_order, cfg32.step_size)
+    mel_k = cuda_frontend.frontend_decode_mels(*k1_args, packed=packed)
+    torch.cuda.synchronize()
+    agree, flips_k, k1_err = mel_agreement(torch, mel_k, cuda_frontend.frontend_decode_mels_plain(*k1_args))
+    say(f"  K1 at a segment's shapes ({T} samples x {EXP2_C} ch, {plan.n_frames} frames, "
+        f"{-(-plan.n_frames // dec32.frontend_ops.P)} periods): agreement {agree:.6f}, flip rate "
+        f"{flips_k:.6f}, max abs err {k1_err:.3e}")
+    check(mel_k.shape == (plan.n_frames, 40) and bool(torch.isfinite(mel_k).all()),
+          "K1 at a segment: shape, finite")
+    check(agree >= AGREE_MIN and flips_k < FLIP_MAX, "K1 at a segment: agreement and label flips")
+    B = plan.n_frames - 1
+    check(cuda_gl.regime(B) == "cluster", f"K2 at a segment's B = {B} takes the cluster regime")
+    rand = gl.default_rand_init(B, 0, 0, torch.float32, dev)
+    k2_args = (mel_k.contiguous(), rand, dec32.gl_audio_ops, GL_NORM, 8, True)
+    k2_err = k2_agreement(cuda_gl, mel_k.contiguous(), rand, dec32.gl_audio_ops,
+                          "at a chance segment's shapes (cluster regime)")
+    per = lambda fn, reps: cuda_ms(torch, lambda: [fn() for _ in range(reps)]) / reps
+    out["k1"] = {"max_abs_err": k1_err,
+                 "ms": per(lambda: cuda_frontend.frontend_decode_mels(*k1_args, packed=packed),
+                           SEGMENT_REPS),
+                 "ms_packing_per_call": per(lambda: cuda_frontend.frontend_decode_mels(*k1_args),
+                                            SEGMENT_REPS),
+                 "plain_ms": per(lambda: cuda_frontend.frontend_decode_mels_plain(*k1_args), 20),
+                 "bound": frontend_bound(dec32.frontend_ops, T, EXP2_C, plan.n_frames, consts[0])}
+    out["k2"] = {"max_abs_err": k2_err, "regime": cuda_gl.regime(B),
+                 "ms": per(lambda: cuda_gl.gl_audio(*k2_args), SEGMENT_REPS),
+                 "plain_ms": per(lambda: cuda_gl.gl_audio_plain(*k2_args), 20),
+                 "bound": gl_bound(cuda_gl, B, 40, 8, True, dec32.gl_audio_ops, tail=True)}
+    for name, k in (("K1", out["k1"]), ("K2", out["k2"])):
+        say(f"  {name} at a segment's shapes: kernel {k['ms']:.4f} ms a launch (over "
+            f"{SEGMENT_REPS}), plain {k['plain_ms']:.4f} ms, bound {k['bound'][0]:.5f} ms "
+            f"({k['bound'][1]}) [{card}]")
+    say(f"  K1 at a segment with its LDA fragments packed per call (the sequential path): "
+        f"{out['k1']['ms_packing_per_call']:.4f} ms a launch [{card}]")
+    profile(torch, lambda: [cuda_frontend.frontend_decode_mels(*k1_args, packed=packed)
+                            for _ in range(50)], 50, "K1 call at a segment", top=4)
+    profile(torch, lambda: [cuda_gl.gl_audio(*k2_args) for _ in range(50)], 50,
+            "K2 call at a segment", top=3)
+    # a training word's spectrogram (exp2's spectrogram stage): the device's
+    # share, and the host's constants (DFT and mel matrices) built per call
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import mel, stft
+
+    word = sess.audio[: 2 * sess.audio_sr]
+    profile(torch, lambda: [e._spectrogram(word, sess.audio_sr) for _ in range(10)], 10,
+            "spectrogram", top=4)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        stft.rdft_matrices(256)
+        mel.mel_matrices(129, 40, 16000)
+    say(f"  spectrogram constants (rdft_matrices(256) + mel_matrices) on the host: "
+        f"{(time.perf_counter() - t0) * 1e2:.3f} ms a call [{card}]")
+
+    # exp3 on both runs, exp4 on the model
+    t0 = time.perf_counter()
+    res3 = exp3.run_experiment3(config, None, os.path.join(tmp, "exp3"), dec_runs=dec_runs,
+                                rng=np.random.RandomState(0))
+    fig["exp3_s"] = time.perf_counter() - t0
+    for run, (inside, outside) in res3.items():
+        say(f"  exp3 {run}: speech {inside:.2f} s inside the trials, {outside:.2f} s outside "
+            f"(TPU record {TPU_EXP3[0]} / {TPU_EXP3[1]})")
+        check(inside > 0 and inside > outside, f"exp3 {run}: speech inside the trials > 0 and > outside")
+        fig[f"exp3_{run}"] = [float(inside), float(outside)]
+    names = [f"LA{i + 1}" for i in range(EXP2_C)]
+    t0 = time.perf_counter()
+    e4 = exp4.Experiment4(None, names, model=model, training_features=res.x_train)
+    matrix = e4.compute_activations()
+    fig["exp4_s"] = time.perf_counter() - t0
+    say(f"  exp3 {fig['exp3_s'] * 1e3:.1f} ms for both runs (VAD on the host); exp4 (Haufe "
+        f"transform, float64 numpy on the host) {fig['exp4_s'] * 1e3:.1f} ms; activations "
+        f"{matrix.shape}, max |a| {np.abs(matrix).max():.4e} [{card}]")
+    check(np.isfinite(matrix).all() and np.abs(matrix).max() > 0, "exp4 activations finite, max |a| > 0")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        say("  figures: matplotlib is not installed, the drawings (exp4's maps, figure_4) skipped")
+    else:
+        e4.plot(matrix, os.path.join(tmp, "activations.png"))
+        e4.plot_activation_map(matrix, os.path.join(tmp, "activation_map.png"))
+        figures.figure_4(tmp, tmp, os.path.join(tmp, "figure_4.png"))
+        check(all(os.path.getsize(os.path.join(tmp, f)) > 0
+                  for f in ("activations.png", "activation_map.png", "figure_4.png")),
+              "exp4's maps and figure_4 drawn")
+    shutil.rmtree(tmp)
+    fig["phase_s"] = time.perf_counter() - t_phase
+    say(f"  exp2-exp4 phase: {fig['phase_s']:.1f} s in all [{card}]")
     return out
 
 
@@ -1207,6 +1472,29 @@ def main():
 
     exp1_errs = {"frontend_decode_mels": k1_fold_err, "gl_audio": k2_fold_err}
 
+    # ---- exp2-exp4 ------------------------------------------------------------
+    say(f"== exp2-exp4 on the card: {EXP2_WORDS} words, {EXP2_C} ch, {SR} Hz, runs "
+        f"{' and '.join(EXP2_RUNS_DECODED)}, {EXP2_RUNS} chance segments a run, f32")
+    e2 = exp2_phase(torch, dev, card, zero_counts, read_counts)
+
+    def exp2_extra(name):
+        # launches as counted: K1 once per chance segment of each run's
+        # batched chance level, K2 once per segment of the sequential twin;
+        # both once per decoding run; the figures at a segment's shapes
+        k = e2["k1" if name == "frontend_decode_mels" else "k2"]
+        extra = {"exp2_launches_run_decodes": e2["decode_launches"][name],
+                 "exp2_launches_chance": sum(c[name] for c in e2["chance_launches"].values()),
+                 "exp2_launches_per_chance_segment":
+                     sum(c[name] for c in e2["chance_launches"].values())
+                     / (EXP2_RUNS * len(EXP2_RUNS_DECODED)),
+                 "exp2_launches_sequential_per_segment": e2["sequential_launches"][name] / EXP2_SEQ,
+                 "exp2_max_abs_err": k["max_abs_err"], "exp2_ms": k["ms"],
+                 "exp2_plain_ms": k["plain_ms"], "exp2_bound_ms": k["bound"][0],
+                 "exp2_bound_by": k["bound"][1]}
+        if name == "gl_audio":
+            extra["exp2_regime"] = k["regime"]
+        return extra
+
     def exp1_extra(name):
         # launches as counted: in one f32 fold, in the proposed method, and
         # in the chance level over its runs and folds
@@ -1231,9 +1519,10 @@ def main():
             launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "3xtf32",
             serial_scan_steps=scan_steps, reference_matmul_ms=k1_mm_ms, float64_p999=k1_f64,
             float64_flips=k1_flips, long_period=long_times["frontend_decode_mels"],
-            **exp1_extra("frontend_decode_mels")),
+            **exp1_extra("frontend_decode_mels"), **exp2_extra("frontend_decode_mels")),
         row("gl_audio", "gl_audio.cu", "pallas_gl.py:153", launches["gl_audio"], k2_err, k2_ms,
-            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl), **exp1_extra("gl_audio")),
+            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl), **exp1_extra("gl_audio"),
+            **exp2_extra("gl_audio")),
         row("frontend_logpower", "frontend_decode.cu", "pallas_frontend.py:94",
             split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "3xtf32",
             serial_scan_steps=scan_steps, reference_matmul_ms=k3_mm_ms, float64_p999=k3_f64,

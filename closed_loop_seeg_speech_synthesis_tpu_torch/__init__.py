@@ -9,9 +9,10 @@ whose headers name their JAX-package counterparts, because importing any
 
 Ported so far: training (``runtime.trainer.train`` and ``cli.train``), the
 offline replay decode (``runtime.pipeline.offline_decode`` and the offline
-mode of ``cli.decode``), the online closed loop (``runtime.online`` and
-the online mode of ``cli.decode``) and evaluation's experiment 1
-(``eval.exp1`` and ``cli.evaluate exp1``), with hand-written CUDA kernels for
+mode of ``cli.decode``, with its exact-host vocoder and ``--profile``), the
+online closed loop (``runtime.online`` and the online mode of
+``cli.decode``) and the evaluation (``eval.exp1`` - ``eval.exp4``,
+``eval.figures`` and every step of ``cli.evaluate``), with hand-written CUDA kernels for
 sm_90a: ``ops.cuda_frontend`` (raw sEEG -> log-power features or logMel
 frames) and ``ops.cuda_gl`` (logMel frames -> Griffin-Lim blocks or int16
 audio).

@@ -4,8 +4,8 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/cli/decode.py``:
 
     python -m closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode config.ini \\
         [--seeg_file replay.hdf] [--run ...] [--session ...] [--gl_norm ...] \\
-        [--device cuda|cpu] [--rand_init inits.npy] \\
-        [--backend lsl|nsx] [--max_packets N] [--dispatch-chunk K]
+        [--device cuda|cpu] [--rand_init inits.npy] [--vocoder device|exact-host] \\
+        [--profile DIR] [--backend lsl|nsx] [--max_packets N] [--dispatch-chunk K]
 
 Offline mode (``--seeg_file`` or Development->seeg_file): decodes a recorded
 sEEG file (datasets ``sEEG``, ``sEEG_sr``).  Online mode (no seeg_file):
@@ -17,15 +17,21 @@ spectrogram.npy, sEEG.hdf, decode.ini, decode.log, decoding.png when
 matplotlib is installed, and online first_timestamp.npy and markers.csv.
 
 ``--device`` defaults to cuda and fails where there is no GPU; nothing
-falls back to the CPU, which runs only with ``--device cpu``.  Not ported,
-and rejected with an error: ``--persistent``, ``--profile`` and
-``--vocoder exact-host``.  h5py is imported where files are read or
-written; matplotlib where the plot is drawn.
+falls back to the CPU, which runs only with ``--device cpu``.
+``--vocoder exact-host`` (offline mode) re-synthesizes the audio of the
+decoded spectrogram with the numpy ``ops/host_vocoder`` (the reference node's
+emission grid), its phase inits from ``--rand_init`` or the block-indexed
+inits of seed 0, where the JAX CLI draws threefry values.  ``--profile DIR``
+records the decode with ``torch.profiler`` (CPU activity, and CUDA activity
+on the card) and writes a Chrome trace, ``DIR/trace.json``.  Not ported, and
+rejected with an error: ``--persistent``.  h5py is imported where files are
+read or written; matplotlib where the plot is drawn.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import threading
@@ -82,9 +88,17 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
     to the card whatever the input's device (pass ``"cpu"`` to decode on the
     CPU); ``dtype`` to float64 on the CPU and float32 on CUDA.  ``options``
     are further DecoderConfig fields.  Returns (spectrogram, audio) tensors
-    plus the input and its rate."""
-    if vocoder != "device":
-        raise NotImplementedError(f"vocoder={vocoder!r} is not ported yet; use 'device'")
+    plus the input and its rate.
+
+    ``vocoder="exact-host"`` runs the front end on ``device`` and
+    re-synthesizes the audio on the host with
+    ``ops.host_vocoder.decode_audio_exact`` (byte-equal to the JAX package's
+    given the same inits): its inits are ``rand_init`` or the block-indexed
+    inits of ``seed`` in float64 (not the JAX CLI's threefry draws); the
+    audio comes back as a CPU int16 tensor.  The spectrogram is the same
+    either way."""
+    if vocoder not in ("device", "exact-host"):
+        raise ValueError(f"vocoder must be 'device' or 'exact-host'; got {vocoder!r}")
     device = pipeline.resolve_device(device)
     eeg_t = torch.as_tensor(eeg)
     dtype = dtype or pipeline.default_compute_dtype(device)
@@ -92,7 +106,18 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
     mask[np.asarray(loaded["bad_channels"], int)] = False
     used = eeg_t if mask.all() else eeg_t[:, torch.as_tensor(mask, device=eeg_t.device)]
     cfg, dec = _build_decoder(loaded, sfreq, eeg_t.shape[1], gl_norm, dtype, device, **options)
-    spec, audio = pipeline.offline_decode(dec, cfg, used, rand_init=rand_init, seed=seed)
+    if vocoder == "device":
+        spec, audio = pipeline.offline_decode(dec, cfg, used, rand_init=rand_init, seed=seed)
+    else:
+        from ..ops import griffinlim as gl
+        from ..ops.host_vocoder import decode_audio_exact
+
+        spec = pipeline._mel_frames(dec, cfg, used)
+        spec_np = spec.cpu().numpy().astype(np.float64)
+        rows = (np.asarray(rand_init, np.float64) if rand_init is not None else
+                gl.default_rand_init(spec_np.shape[0] - 1, 0, seed, torch.float64).numpy())
+        audio = torch.from_numpy(decode_audio_exact(spec_np, rows, norm_factor=float(gl_norm)))
+        logger.info("Exact-host vocoder: %d samples (reference-exact emission grid)", len(audio))
     logger.info("Decoding completed.")
     return spec, audio, eeg, sfreq
 
@@ -207,17 +232,19 @@ def main(argv=None):
     parser.add_argument("--dispatch-chunk", type=int, default=1, metavar="K",
                         help="online: decode K buffered packets per call; (K-1) packet "
                              "periods more playout latency")
-    parser.add_argument("--profile", default=None, help="not ported")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="record the decode with torch.profiler into DIR/trace.json "
+                             "(a Chrome trace, viewable with perfetto)")
     parser.add_argument("--persistent", action="store_true", help="not ported")
     parser.add_argument("--vocoder", choices=["device", "exact-host"], default="device",
-                        help="'exact-host' is not ported")
+                        help="offline: 'device' (Griffin-Lim on --device, kernel K2 on the "
+                             "card) or 'exact-host' (numpy vocoder byte-reproducing the "
+                             "reference GriffinLim node incl. its FP-jittered emission grid)")
     args = parser.parse_args(argv)
-    if args.profile is not None:
-        parser.error("--profile is not ported")
     if args.persistent:
         parser.error("--persistent (one device dispatch per session) is not ported")
-    if args.vocoder != "device":
-        parser.error("--vocoder exact-host is not ported")
+    if args.profile and os.path.exists(args.profile) and not os.path.isdir(args.profile):
+        parser.error(f"--profile {args.profile}: not a directory")
     if args.dispatch_chunk < 1:
         parser.error("--dispatch-chunk must be >= 1")
     device = torch.device(args.device)
@@ -235,6 +262,9 @@ def main(argv=None):
         ("General", "session"): args.session,
         ("Development", "seeg_file"): args.seeg_file,
     })
+    offline = in_offline_mode(config)
+    if args.vocoder != "device" and not offline:
+        parser.error("--vocoder exact-host re-synthesizes an offline decode; pass --seeg_file")
 
     session_dir = config_mod.session_dir(config)
     if not os.path.isdir(session_dir):
@@ -249,21 +279,48 @@ def main(argv=None):
     gl_norm = config.getint("Decoding", "griffin_lim_norm")
     rand_init = np.load(args.rand_init) if args.rand_init else None
 
-    if in_offline_mode(config):
-        import h5py
+    with _profiled(args.profile, device):
+        if offline:
+            import h5py
 
-        with h5py.File(config["Development"]["seeg_file"], "r") as hf:
-            eeg = hf["sEEG"][:]
-            sfreq = int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
-        spectrogram, audio, received, sfreq = perform_offline_decoding(
-            loaded, eeg, sfreq, gl_norm, dtype=dtype, device=device, rand_init=rand_init)
-    else:
-        spectrogram, audio, received, sfreq = perform_online_decoding(
-            config, loaded, gl_norm, run_dir, backend=args.backend,
-            max_packets=args.max_packets, dtype=dtype, device=device,
-            chunk_steps=args.dispatch_chunk, rand_init=rand_init)
+            with h5py.File(config["Development"]["seeg_file"], "r") as hf:
+                eeg = hf["sEEG"][:]
+                sfreq = int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
+            spectrogram, audio, received, sfreq = perform_offline_decoding(
+                loaded, eeg, sfreq, gl_norm, dtype=dtype, device=device, rand_init=rand_init,
+                vocoder=args.vocoder)
+        else:
+            spectrogram, audio, received, sfreq = perform_online_decoding(
+                config, loaded, gl_norm, run_dir, backend=args.backend,
+                max_packets=args.max_packets, dtype=dtype, device=device,
+                chunk_steps=args.dispatch_chunk, rand_init=rand_init)
     store_decoding_to_file(run_dir, config, spectrogram, audio, received, sfreq)
     return run_dir
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """Record the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity when ``device`` is a CUDA device) and write its Chrome trace to
+    ``trace_dir/trace.json``; nothing when ``trace_dir`` is None (the
+    counterpart of the JAX CLI's ``jax.profiler.trace``)."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    logger.info("Profiling decode into %s", trace_dir)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("Profile trace written to %s", path)
 
 
 if __name__ == "__main__":

@@ -1,3 +1,4 @@
-"""Evaluation: the quality metrics and experiment 1 (10-fold retrain+decode
-against a randomized chance level).  Experiments 2-4 and the figures are not
-ported yet."""
+"""Evaluation: the quality metrics, DTW and the energy VAD, experiments 1-4
+(10-fold retrain+decode against a randomized chance level; DTW correlations
+of decoding runs against chance; voiced speech inside and outside trials;
+LDA activation maps) and the paper figures."""

@@ -7,8 +7,9 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/io/session.py``.
 directory's ``speech1.hdf`` or, where h5py is not installed, from arrays
 (``Session.from_arrays``).  ``DecodingRun``: the artifacts a decode run
 stores (audio.wav, sEEG.hdf, markers.csv, first_timestamp.npy), trial starts
-recovered from marker wall-clock minus the stream's first timestamp.  h5py
-is imported where a file is read.  ``make_synthetic_session`` is the numpy
+recovered from marker wall-clock minus the stream's first timestamp; or the
+same given as arrays (``DecodingRun.from_arrays``).  h5py is imported where
+a file is read.  ``make_synthetic_session`` is the numpy
 half of ``examples/demo.py``'s session maker.
 """
 
@@ -91,14 +92,15 @@ class Session(_TrialMixin):
 
 
 class DecodingRun(_TrialMixin):
-    """Artifacts of one decode run (data_loader.py:253-325)."""
+    """Artifacts of one decode run (data_loader.py:253-325), read from the
+    run directory or, where h5py is not installed, given as arrays
+    (``DecodingRun.from_arrays``)."""
 
     def __init__(self, run_dir):
         import h5py
         from scipy.io import wavfile
 
-        self.run_dir = run_dir
-        self.audio_sr, self.audio = wavfile.read(os.path.join(run_dir, "audio.wav"))
+        audio_sr, audio = wavfile.read(os.path.join(run_dir, "audio.wav"))
         first_timestamp = np.load(os.path.join(run_dir, "first_timestamp.npy"))
 
         starts, words = [], []
@@ -111,13 +113,31 @@ class DecodingRun(_TrialMixin):
                 if label.startswith("start;"):
                     starts.append(round(float(mono) - float(first_timestamp), 2))
                     words.append(label[6:])
-        self.trial_starts_in_sec = np.asarray(starts)
-        self.words = words
-        self.word_starts_indices_audio = (self.trial_starts_in_sec * self.audio_sr).astype(int)
 
         with h5py.File(os.path.join(run_dir, "sEEG.hdf"), "r") as f:
-            self.eeg = f["sEEG"][...]
-            self.eeg_sr = int(np.asarray(f["sEEG_sr"]).reshape(-1)[0])
+            eeg = f["sEEG"][...]
+            eeg_sr = int(np.asarray(f["sEEG_sr"]).reshape(-1)[0])
+        self._setup(run_dir, audio, audio_sr, eeg, eeg_sr, starts, words)
+
+    @classmethod
+    def from_arrays(cls, audio, audio_sr, eeg, eeg_sr, trial_starts_in_sec, words,
+                    run_dir=None) -> "DecodingRun":
+        """The run of a decode given as arrays: its int16 audio at
+        ``audio_sr``, the sEEG it decoded (T, C) at ``eeg_sr``, the trials'
+        starts in seconds from the stream's first sample and their words.
+        ``run_dir`` names the run (exp2's output files take its base name)."""
+        self = cls.__new__(cls)
+        self._setup(run_dir, np.asarray(audio), int(audio_sr), np.asarray(eeg), int(eeg_sr),
+                    trial_starts_in_sec, words)
+        return self
+
+    def _setup(self, run_dir, audio, audio_sr, eeg, eeg_sr, trial_starts_in_sec, words):
+        self.run_dir = run_dir
+        self.audio_sr, self.audio = audio_sr, audio
+        self.eeg, self.eeg_sr = eeg, eeg_sr
+        self.trial_starts_in_sec = np.asarray(trial_starts_in_sec, np.float64)
+        self.words = list(words)
+        self.word_starts_indices_audio = (self.trial_starts_in_sec * self.audio_sr).astype(int)
         self.word_starts_indices_eeg = (self.trial_starts_in_sec * self.eeg_sr).astype(int)
 
 

@@ -14,7 +14,7 @@ block-boundary states as a two-level scan over chunks of up to
 the impulse response's hi/lo split and the power table A_L^0 .. A_L^R once
 in ``make_frontend_ops`` (``FrontendOps.h_tf32``, ``FrontendOps.apow``),
 the LDA weights' hi/lo split in mma fragment order once per call
-(``pack_lda_weights``).
+(``pack_lda_weights``) unless the caller passes it built.
 
 Per schedule period (the frame grid repeats every P frames spanning exactly
 Ls samples; Ls is the filter's block length) the computation is: the
@@ -292,10 +292,12 @@ frontend_logpower.launches = 0
 def frontend_decode_mels(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
                          W5: torch.Tensor, bm: torch.Tensor, med_slot: torch.Tensor,
                          smoothM: torch.Tensor, n_frames: int, model_order: int = 4,
-                         step_size: int = 5) -> torch.Tensor:
+                         step_size: int = 5, packed: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel K1: raw eeg (T, C) + initial filter state s0 (S, C) -> logMel
     frames (n_frames, B).  A CPU tensor runs the plain version; a CUDA tensor
-    launches ``csrc/frontend_decode.cu`` (float32) or raises."""
+    launches ``csrc/frontend_decode.cu`` (float32) or raises.  ``packed``:
+    ``pack_lda_weights(W5, C, model_order + 1)`` built once by a caller that
+    decodes many inputs with one model (else packed here, per call)."""
     if eeg.device.type == "cpu":
         return frontend_decode_mels_plain(ops, eeg, s0, W5, bm, med_slot, smoothM,
                                           n_frames, model_order, step_size)
@@ -318,7 +320,10 @@ def frontend_decode_mels(ops: FrontendOps, eeg: torch.Tensor, s0: torch.Tensor,
         return eeg.new_empty((0, B))
     ptrs, scratch, sizes, _ = _launch_args(ops, eeg, s0, Kp)
     mel = torch.empty((Kp * ops.P, B), dtype=torch.float32, device=dev)
-    wpk = pack_lda_weights(W5, C, M)
+    wpk = pack_lda_weights(W5, C, M) if packed is None else packed
+    if wpk.device != dev or wpk.dtype != torch.float32 or not wpk.is_contiguous():
+        raise ValueError("frontend_decode_mels: packed must be the contiguous float32 "
+                         f"pack_lda_weights of W5 on {dev}")
     fn = _build.bind(_build.load("frontend_decode"), "frontend_decode_mels", 17, 11)
     err = fn(*(a.data_ptr() for a in ptrs + (wpk, bm, med_slot, smoothM) + scratch + (mel,)),
              *sizes, B, M, step_size, torch.cuda.current_stream(dev).cuda_stream)

@@ -1,7 +1,7 @@
 """Host-side IIR filter design (numpy/scipy, runs once at setup time).
 
 Numpy copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/filter_design.py``
-(``high_gamma_bank``, ``gl_output_lowpass_sos`` and their helpers); the
+(``high_gamma_bank``, ``gl_output_lowpass_sos``, ``sosfilt_zi`` and their helpers); the
 arrays are bit-identical (tests/test_torch_host_builders.py).
 
 The reference designs its filters through ``mne.filter.create_filter`` with
@@ -29,6 +29,15 @@ def butter_bandstop_sos(sr: float, lo: float, hi: float, order: int = DEFAULT_II
     nyq = sr / 2.0
     lo, hi = min(lo, hi), max(lo, hi)
     return _sig.iirfilter(order, [lo / nyq, hi / nyq], btype="bandstop", ftype="butter", output="sos")
+
+
+def sosfilt_zi(sos: np.ndarray) -> np.ndarray:
+    """Steady-state step-response initial conditions, shape (n_sections, 2).
+
+    Matches ``scipy.signal.sosfilt_zi`` which the reference uses to warm-start
+    its streaming filters (``livenodes/FrameBuffer.py:87``).
+    """
+    return _sig.sosfilt_zi(sos)
 
 
 def high_gamma_bank(sr: float, line_noise: int = 50, order: int = DEFAULT_IIR_ORDER):

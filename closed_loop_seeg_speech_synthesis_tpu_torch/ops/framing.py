@@ -131,10 +131,16 @@ def offline_window_len(win_s: float, sr: float, starts: np.ndarray | None = None
 # ---------------------------------------------------------------------------
 
 
+def sliding_sumsq(x: torch.Tensor, win: int) -> torch.Tensor:
+    """Sliding window sum of squares along axis 0.  x: (T, C) -> (T-win+1, C);
+    out[t] = sum(x[t:t+win]**2)."""
+    return (x * x).unfold(0, win, 1).sum(-1)
+
+
 def windowed_logpower(x: torch.Tensor, ends: torch.Tensor, win: int) -> torch.Tensor:
     """log(sum(x[e-win:e]**2, axis=0) + 0.01) for each frame end e.
     x: (T, C); ends: (N,) integer frame ends (exclusive) -> (N, C)."""
-    sums = (x * x).unfold(0, win, 1).sum(-1)  # (T-win+1, C); row s covers [s, s+win)
+    sums = sliding_sumsq(x, win)  # (T-win+1, C); row s covers [s, s+win)
     return torch.log(sums[ends.long() - win] + 0.01)
 
 

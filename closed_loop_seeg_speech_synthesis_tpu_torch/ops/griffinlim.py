@@ -1,7 +1,8 @@
-"""Streaming Griffin-Lim vocoder, batched over blocks (torch).
+"""Streaming Griffin-Lim vocoder, batched over blocks, and the offline
+evaluation vocoder (torch).
 
-Port of the streaming half of ``closed_loop_seeg_speech_synthesis_tpu/ops/griffinlim.py``
-(reference ``livenodes/GriffinLim.py:64-174``): per 10 ms logMel frame, an
+Port of ``closed_loop_seeg_speech_synthesis_tpu/ops/griffinlim.py``.  The
+streaming half (reference ``livenodes/GriffinLim.py:64-174``): per 10 ms logMel frame, an
 8-iteration Griffin-Lim on a 480-sample block built from the last two mel
 frames (two 256-point Blackman frames, hop 160), then overlap-add with
 window-sum normalization, 160 samples per frame.  The reference's phase term
@@ -15,6 +16,9 @@ agree; but it uses a counter-based SplitMix64 hash, not JAX's threefry, so
 the same seed gives other waveforms than the JAX package.  Every entry point
 also takes ``rand_init`` as an array; the parity tests pass in the inits JAX
 drew.
+
+``offline_griffin_lim`` is the batch vocoder of the reference's offline
+evaluation (local/offline.py:131-192), with its quirks.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from . import mel as mel_ops
-from .stft import RDFT, blackman, make_rdft
+from .stft import RDFT, blackman, hann_periodic, make_rdft
 
 FFT_SIZE = 256
 HOP = 160
@@ -152,3 +157,56 @@ def default_rand_init(num_blocks: int, first_block_index: int = 0, seed: int = 0
     ``default_rand_init(k, i)`` equals ``default_rand_init(i + k)[i:]``."""
     ids = torch.arange(first_block_index, first_block_index + num_blocks, device=device)
     return block_rand(ids, seed, dtype)
+
+
+def offline_griffin_lim(spectrogram, rand_init=None, win_length: float = 0.05,
+                        hop_size: float = 0.01, num_iterations: int = 8,
+                        sample_rate: int = 16000, dtype=torch.float32, device=None) -> np.ndarray:
+    """Batch Griffin-Lim over a full logMel spectrogram (N, n_mel); returns
+    int16 audio (numpy).  ``rand_init``: the working buffer's initial values
+    (2 * N * (win // 2 + 1),), drawn with ``np.random.rand`` as the
+    reference draws them when None.
+
+    Faithful to the reference quirks: ``lenWaveFile = frames * bins``; the
+    working buffer is twice that and its random tail beyond the ISTFT output
+    persists across iterations; ISTFT is unnormalized; final scaling to full
+    int16 range by the max absolute value.
+    """
+    spectrogram = np.asarray(spectrogram)
+    win = int(win_length * sample_rate)
+    hop = int(win / (win_length / hop_size))
+    n_bins = win // 2 + 1
+    _, Minv = mel_ops.mel_matrices(n_bins, spectrogram.shape[1], sample_rate)
+    to = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    spec = mel_ops.from_log_mels(to(spectrogram), to(Minv))
+
+    n_spec = spec.shape[0]
+    total = 2 * n_spec * spec.shape[1]
+    if rand_init is None:
+        rand_init = np.random.rand(total)
+    wav = to(rand_init).clone()
+
+    rdft = make_rdft(win, dtype, device)
+    w = to(hann_periodic(win))
+    frame_idx = torch.as_tensor(np.arange(n_spec)[:, None] * hop + np.arange(win)[None, :],
+                                device=device)
+    re_len = n_spec * hop
+    # ISTFT only adds frames whose window fits strictly before re_len - win
+    # (``range(0, len(x) - fftsize, hop)``, offline.py:158): trailing spec
+    # rows are silently unused, a reference quirk kept here
+    n_add = len(range(0, re_len - win, hop))
+    add_idx = frame_idx[:n_add].reshape(-1)
+    for _ in range(num_iterations):
+        frames = wav[frame_idx] * w                     # (n_spec, win)
+        xr, xi = rdft.rfft(frames)
+        r = torch.sqrt(xr * xr + xi * xi)
+        safe = r > 0
+        inv = torch.where(safe, 1.0 / torch.where(safe, r, torch.ones_like(r)),
+                          torch.zeros_like(r))
+        zr = spec * torch.where(safe, xr * inv, torch.ones_like(xr))
+        zi = spec * (xi * inv)
+        t = rdft.irfft(zr, zi) * w                      # (n_spec, win)
+        re = wav.new_zeros(re_len).index_add_(0, add_idx, t[:n_add].reshape(-1))
+        wav[:re_len] = re
+    rec = wav[:re_len].cpu().numpy()
+    return np.int16(rec / np.max(np.abs(rec)) * 32767)

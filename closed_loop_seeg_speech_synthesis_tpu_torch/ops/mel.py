@@ -2,9 +2,10 @@
 
 Copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/mel.py``:
 ``mel_matrices`` (float64 numpy, bit-identical), ``to_log_mels`` (the 1e-7
-fuzz before the log, MelFilterBank.py:64-83) and ``from_log_mels`` (torch),
-both with the NaN/Inf scrub of MelFilterBank.py:82-83.  The "inverse" is the
-column-normalized transpose, not a pseudo-inverse (MelFilterBank.py:38-39).
+fuzz before the log, MelFilterBank.py:64-83), ``from_log_mels`` and
+``from_mels`` (torch), each with the NaN/Inf scrub of MelFilterBank.py:82-83.
+The "inverse" is the column-normalized transpose, not a pseudo-inverse
+(MelFilterBank.py:38-39).
 """
 
 from __future__ import annotations
@@ -73,3 +74,8 @@ def to_log_mels(spec_mag: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 def from_log_mels(log_mels: torch.Tensor, Minv: torch.Tensor) -> torch.Tensor:
     """logMels (..., n_mel) -> linear magnitude estimate (..., spec_size)."""
     return _scrub(torch.exp(log_mels) @ Minv)
+
+
+def from_mels(mels: torch.Tensor, Minv: torch.Tensor) -> torch.Tensor:
+    """Linear mels (..., n_mel) -> linear magnitude estimate (..., spec_size)."""
+    return _scrub(mels @ Minv)

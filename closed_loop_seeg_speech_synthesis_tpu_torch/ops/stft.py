@@ -1,7 +1,7 @@
 """Small real DFT as matmuls (the vocoder's 256-point frames).
 
 Copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/stft.py`` (``blackman``,
-``hann_sym``, ``make_rdft``, ``RDFT.rfft``/``irfft``, ``frame_signal``): the
+``hann_sym``, ``hann_periodic``, ``make_rdft``, ``RDFT.rfft``/``irfft``, ``frame_signal``): the
 matrices are built in float64 numpy exactly as there, then cast; the windows
 are the same scipy calls, byte-matched (docs/NUMERICS.md: a 1-ulp window
 change decoheres whole Griffin-Lim blocks).
@@ -71,6 +71,12 @@ def blackman(n: int) -> np.ndarray:
 def hann_sym(n: int) -> np.ndarray:
     """scipy.signal.windows.hann(n) — offline compute_spectrogram window."""
     return _win.hann(n, sym=True).astype(np.float64)
+
+
+def hann_periodic(n: int) -> np.ndarray:
+    """scipy.hanning(n+1)[:-1] — offline griffin_lim's 'better reconstruction
+    trick' window (local/offline.py:148)."""
+    return _win.hann(n + 1, sym=True)[:-1].astype(np.float64)
 
 
 def frame_signal(x: torch.Tensor, frame_len: int, hop: int, num_frames: int) -> torch.Tensor:

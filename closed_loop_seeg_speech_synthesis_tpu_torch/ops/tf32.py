@@ -34,7 +34,7 @@ def pack_b_fragments(m: torch.Tensor, cols: np.ndarray) -> torch.Tensor:
     k-step s and n-tile t holds (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n])
     with k = 8 s + l % 4 and n = cols[..., t] + l // 4.  One gather on the
     device; the index is built once per shape (the LDA weights are packed
-    at every K1 call)."""
+    at every K1 call that is not given them prebuilt)."""
     cols = np.ascontiguousarray(cols, np.int64)
     K, N = m.shape
     index = _fragment_index(K, N, cols.tobytes(), cols.shape, m.device)

@@ -3,7 +3,8 @@
 Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/pipeline.py``:
 ``DecoderConfig``, ``DecoderParams``, ``build_decoder_params``,
 ``_exact_smooth_fields``, ``_streaming_filter_chain``, ``_frames_to_mel``,
-``offline_decode``, ``OnlineCarry``, ``init_online_carry``,
+``offline_decode`` (what its front half builds per input length can be
+built once: ``MelPlan``), ``OnlineCarry``, ``init_online_carry``,
 ``make_online_step`` and ``make_online_multi_step``.
 
 * ``offline_decode`` decodes a recorded session as one batch.  The
@@ -40,7 +41,7 @@ from ..ops import filter_design as fd
 from ..ops import framing, iir, smoothing
 from ..ops import griffinlim as gl
 from ..ops.cuda_frontend import (FrontendOps, epilogue_constants, frontend_decode_mels,
-                                 frontend_logpower, make_frontend_ops)
+                                 frontend_logpower, make_frontend_ops, pack_lda_weights)
 from ..ops.cuda_gl import GLAudioOps, gl_audio, gl_blocks, gl_blocks_plain, make_gl_audio_ops
 
 
@@ -261,45 +262,81 @@ def _vocode(params: DecoderParams, cfg: DecoderConfig, mel_frames: torch.Tensor,
     return gl.to_int16(lp[:, 0], cfg.gl_norm)
 
 
-def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg) -> torch.Tensor:
-    """``offline_decode``'s front half: raw eeg (T, n_channels) -> the
-    dequantized, smoothed logMel frames (N, n_mel), through K1 (or K3) in
-    float32 on CUDA.  exp1's chance runs stop here."""
+@dataclasses.dataclass
+class MelPlan:
+    """What ``_mel_frames`` needs besides the sEEG that depends only on the
+    model and the input length: the frame grid, its periodic window plan,
+    and for K1 the epilogue's constants and its packed 3xTF32 LDA
+    fragments.  A caller that decodes many inputs of one length with one
+    model (exp2's chance segments) builds it once (``mel_plan``), as the JAX
+    package's batched chance level builds ``ends_d`` / ``window_S`` once."""
+
+    n_samples: int                  # T, the input length it was built for
+    n_frames: int
+    ends: np.ndarray                # (n_frames,) frame ends
+    window: Optional[tuple]         # plain path on a periodic grid: (S (P, 2 Ls), Ls, P, origin)
+    k1: Optional[tuple] = None      # (W5, bm, med_slot, smoothM, packed W5) where K1 runs
+    k3: bool = False                # K3 runs (K1 without its epilogue)
+
+
+def mel_plan(params: DecoderParams, cfg: DecoderConfig, n_samples: int) -> MelPlan:
+    """The ``MelPlan`` of ``n_samples``-sample inputs decoded with ``params``."""
     dev, dt = params.device, cfg.dtype
-    x = torch.as_tensor(eeg).to(device=dev, dtype=dt)
-    T = x.shape[0]
-    ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr, T + cfg.prefill)
-    n_frames = len(ends)
+    ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr,
+                                        n_samples + cfg.prefill)
     pw = framing.periodic_window_matrix(ends, cfg.win)
     on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
-
     use_k1 = (cfg.use_cuda_frontend and on_cuda_f32 and params.frontend_ops is not None
               and pw is not None)
+    plan = MelPlan(n_samples=n_samples, n_frames=len(ends), ends=ends, window=None)
     if use_k1 and cfg.use_cuda_epilogue:
-        # K1: eeg -> mel frames (filter chain, log-power, context stack, LDA,
-        # dequantization, smoothing)
         consts = epilogue_constants(params.lda_coef_full, params.lda.intercept,
                                     params.lda.valid, params.lda.classes, params.medians,
                                     params.gauss_kernel, cfg.n_channels, cfg.model_order)
-        mel_frames = frontend_decode_mels(params.frontend_ops, x.contiguous(),
-                                          _initial_state(params, x).contiguous(), *consts,
-                                          n_frames, cfg.model_order, cfg.step_size)
+        plan.k1 = consts + (pack_lda_weights(consts[0], cfg.n_channels, cfg.model_order + 1),)
+    elif use_k1:
+        plan.k3 = True
+    elif pw is not None:
+        S, Ls, P, origin = pw
+        plan.window = (torch.as_tensor(S, dtype=dt, device=dev), Ls, P, origin)
+    return plan
+
+
+def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg,
+                plan: Optional[MelPlan] = None) -> torch.Tensor:
+    """``offline_decode``'s front half: raw eeg (T, n_channels) -> the
+    dequantized, smoothed logMel frames (N, n_mel), through K1 (or K3) in
+    float32 on CUDA.  exp1's chance runs and exp2's chance segments stop
+    here.  ``plan``: ``mel_plan(params, cfg, T)``, built here when None."""
+    dev, dt = params.device, cfg.dtype
+    x = torch.as_tensor(eeg).to(device=dev, dtype=dt)
+    T = x.shape[0]
+    if plan is None:
+        plan = mel_plan(params, cfg, T)
+    elif plan.n_samples != T:
+        raise ValueError(f"mel plan built for {plan.n_samples} samples, input has {T}")
+    n_frames = plan.n_frames
+
+    if plan.k1 is not None:
+        # K1: eeg -> mel frames (filter chain, log-power, context stack, LDA,
+        # dequantization, smoothing)
+        *consts, packed = plan.k1
+        return frontend_decode_mels(params.frontend_ops, x.contiguous(),
+                                    _initial_state(params, x).contiguous(), *consts,
+                                    n_frames, cfg.model_order, cfg.step_size, packed=packed)
+    if plan.k3:
+        # K3: eeg -> log-power features (filter chain, log-power)
+        F = frontend_logpower(params.frontend_ops, x.contiguous(),
+                              _initial_state(params, x).contiguous(), n_frames)
+    elif plan.window is not None:
+        s_cat, _ = _streaming_filter_chain(params, cfg, x)
+        S, Ls, P, origin = plan.window
+        F = framing.windowed_logpower_periodic(s_cat, S, Ls, n_frames, origin)
     else:
-        if use_k1:
-            # K3: eeg -> log-power features (filter chain, log-power)
-            F = frontend_logpower(params.frontend_ops, x.contiguous(),
-                                  _initial_state(params, x).contiguous(), n_frames)
-        elif pw is not None:
-            s_cat, _ = _streaming_filter_chain(params, cfg, x)
-            S, Ls, P, origin = pw
-            F = framing.windowed_logpower_periodic(s_cat, torch.as_tensor(S, dtype=dt, device=dev),
-                                                   Ls, n_frames, origin)
-        else:
-            s_cat, _ = _streaming_filter_chain(params, cfg, x)
-            F = framing.windowed_logpower(s_cat, torch.as_tensor(ends, device=dev), cfg.win)
-        stacked = framing.stack_context(F, cfg.model_order, cfg.step_size, zero_pad=True)
-        mel_frames = _frames_to_mel(params, stacked)
-    return mel_frames
+        s_cat, _ = _streaming_filter_chain(params, cfg, x)
+        F = framing.windowed_logpower(s_cat, torch.as_tensor(plan.ends, device=dev), cfg.win)
+    stacked = framing.stack_context(F, cfg.model_order, cfg.step_size, zero_pad=True)
+    return _frames_to_mel(params, stacked)
 
 
 # ---------------------------------------------------------------------------

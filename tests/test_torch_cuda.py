@@ -435,3 +435,42 @@ def test_exp1_fold_through_the_kernels_tracks_the_plain_path(cuda_device):
     assert flips < 0.02, flips
     hop = lambda a: a.double().reshape(-1, 160).pow(2).mean(1).sqrt()
     assert torch.corrcoef(torch.stack([hop(audio_k), hop(audio_p)]))[0, 1].item() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,phase_bug", [(0, True), (8, False)])
+def test_exp2_chance_segment_kernels_match_plain(rs, cuda_device, iterations, phase_bug):
+    """One exp2 chance segment (2 s of 64-channel sEEG at 1024 Hz, 200
+    frames): K1 with the plan built once (``pipeline.mel_plan``, the
+    batched chance level's path) gives K1 without it bit for bit and the
+    plain f32 version on >= 99.9% of entries within rtol 1e-5 / atol 1e-6;
+    K2 on its frames runs B = 199 blocks in the cluster regime, within
+    1 LSB of its plain version without iterations and on >= 99.9% of
+    samples with the converging estimator."""
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, 64)
+    x = torch.as_tensor(rs.randn(2048, 64), dtype=torch.float32, device=cuda_device)
+    plan = pipeline.mel_plan(dec, cfg, x.shape[0])
+    before = cuda_frontend.frontend_decode_mels.launches
+    mel = pipeline._mel_frames(dec, cfg, x, plan)
+    torch.cuda.synchronize()
+    assert cuda_frontend.frontend_decode_mels.launches == before + 1 and mel.shape == (200, 40)
+    assert torch.equal(pipeline._mel_frames(dec, cfg, x), mel)
+    *consts, _ = plan.k1
+    mel_p = cuda_frontend.frontend_decode_mels_plain(
+        dec.frontend_ops, x, pipeline._initial_state(dec, x).contiguous(), *consts, 200)
+    off = int((~torch.isclose(mel, mel_p, rtol=1e-5, atol=1e-6)).sum())
+    assert off < 0.001 * mel.numel(), off
+
+    B = mel.shape[0] - 1
+    assert cuda_gl.regime(B) == "cluster"
+    rand = gl.default_rand_init(B, 0, 0, torch.float32, cuda_device)
+    rand[0, 0] = 0.0  # see test_gl_audio_kernel_matches_plain
+    before = cuda_gl.gl_audio.launches
+    a_k = cuda_gl.gl_audio(mel.contiguous(), rand, dec.gl_audio_ops, 10.0, iterations, phase_bug)
+    torch.cuda.synchronize()
+    assert cuda_gl.gl_audio.launches == before + 1
+    a_p = cuda_gl.gl_audio_plain(mel.contiguous(), rand, dec.gl_audio_ops, 10.0, iterations,
+                                 phase_bug)
+    assert a_k.shape == a_p.shape == (B * 160,)
+    off = int(((a_k.long() - a_p.long()).abs() > 1).sum())
+    assert off <= (0 if iterations == 0 else 0.001 * B * 160), off

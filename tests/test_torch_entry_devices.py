@@ -19,6 +19,7 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.cli import evaluate as t_eval_c
 from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as t_train_cli
 from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1 as t_exp1
 from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1_batched as t_batched
+from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp2 as t_exp2
 from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as t_session
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
@@ -57,18 +58,25 @@ def _decoder_stand_in(seen):
     return build
 
 
+def _decoder_stand_in_params(seen):
+    def build(cfg, lda, medians, select, device=None, **kwargs):
+        seen.append(torch.device(device))
+        raise _Reached
+    return build
+
+
 def _case(name, monkeypatch, tmp_path, seen):
     """(call(cpu: bool), the error a default call raises) of one entry point;
     the stand-in appends the device the call reached its computation with."""
-    if name in ("decode CLI", "train CLI", "evaluate CLI"):
-        cli = {"decode CLI": t_decode, "train CLI": t_train_cli, "evaluate CLI": t_eval_cli}[name]
+    if name in ("decode CLI", "train CLI", "evaluate CLI", "evaluate CLI exp2"):
+        cli = {"decode CLI": t_decode, "train CLI": t_train_cli}.get(name, t_eval_cli)
 
         def load_config(path):
             seen.append(torch.device("cpu"))  # past the device check: --device cpu
             raise _Reached
         monkeypatch.setattr(cli.config_mod, "load_config", load_config)
         cfg = tmp_path / "experiment.ini"
-        step = ["exp1"] if cli is t_eval_cli else []
+        step = {"evaluate CLI": ["exp1"], "evaluate CLI exp2": ["exp2"]}.get(name, [])
         return (lambda cpu: cli.main([str(cfg)] + step + (["--device", "cpu"] if cpu else []))), SystemExit
     if name == "perform_offline_decoding":
         monkeypatch.setattr(t_decode, "_build_decoder", _decoder_stand_in(seen))
@@ -100,6 +108,21 @@ def _case(name, monkeypatch, tmp_path, seen):
                                    **({"device": "cpu"} if cpu else {}))
             e.proposed_method(nb_folds=2)
         return call, RuntimeError
+    if name == "Experiment2":
+        monkeypatch.setattr(t_pipe, "build_decoder_params", _decoder_stand_in_params(seen))
+        eeg, audio, words, _ = t_session.make_synthetic_session(2, 1024, 48000, 4)
+        config = configparser.ConfigParser()
+        config["Experiment2"] = {"griffin_lim_norm": "10"}
+
+        def call(cpu):
+            session = t_session.Session.from_arrays(eeg, 1024, audio, 48000, words)
+            run = t_session.DecodingRun.from_arrays(np.zeros(16000 * 6, np.int16), 16000, eeg,
+                                                    1024, [0.0, 3.0], words)
+            e = t_exp2.Experiment2(config, None, "whisper", [], str(tmp_path), session=session,
+                                   dec_run=run, other_tasks_eeg=eeg, model=_loaded(4),
+                                   **({"device": "cpu"} if cpu else {}))
+            e.chance_level_batched(runs=1)
+        return call, RuntimeError
     assert name in ("trainer.train", "train_decode_fold")
 
     def features(eeg, *args, **kwargs):
@@ -117,7 +140,8 @@ def _case(name, monkeypatch, tmp_path, seen):
 
 @pytest.mark.parametrize("name", ["decode CLI", "train CLI", "evaluate CLI",
                                   "perform_offline_decoding", "perform_online_decoding",
-                                  "trainer.train", "train_decode_fold", "Experiment1"])
+                                  "trainer.train", "train_decode_fold", "Experiment1",
+                                  "evaluate CLI exp2", "Experiment2"])
 def test_entry_point_needs_the_card_unless_asked_for_the_cpu(no_gpu, monkeypatch, tmp_path,
                                                              capsys, name):
     seen = []

@@ -306,7 +306,8 @@ def test_evaluate_cli_exp1_on_the_cpu(tmp_path, capsys):
     """cli.evaluate exp1 --device cpu on a 10-word session (exp1 takes 10
     folds) with one chance run: pm_reco.npy, orig.npy, the words' wavs and
     the chance run's spectrogram written, the proposed method above chance;
-    the steps not ported yet are rejected with a usage error naming them."""
+    a step the CLI does not have is rejected with a usage error naming the
+    steps (every other step: tests/test_torch_eval.py)."""
     import h5py
 
     eeg, audio, _, markers = t_session.make_synthetic_session(10, EEG_SR, AUDIO_SR, C, seed=8)
@@ -328,8 +329,8 @@ def test_evaluate_cli_exp1_on_the_cpu(tmp_path, capsys):
     assert (out / "rc_reco_i=001.npy").exists() and len(os.listdir(out / "reco_wavs")) == 10
     assert pm_mean.shape == rc_mean.shape == (40,)
     assert np.nanmean(pm_mean) > np.nanmean(rc_mean)
-    for step in ("exp2", "exp3", "exp4", "figure3", "figure4", "extract_trials"):
-        with pytest.raises(SystemExit) as exc:
-            t_eval_cli.main([str(path), step, "--device", "cpu"])
-        assert exc.value.code == 2
-        assert f"step {step} is not ported yet" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        t_eval_cli.main([str(path), "exp5", "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "invalid choice: 'exp5'" in err and all(step in err for step in t_eval_cli.STEPS)

@@ -214,3 +214,34 @@ def test_eval_metrics_equal(rng):
         _eq_nan(x, y)
     u_t, u_j = t_metrics.mann_whitney_u(a[:, 0], b[:, 0]), j_metrics.mann_whitney_u(a[:, 0], b[:, 0])
     assert (u_t.statistic, u_t.pvalue) == (u_j.statistic, u_j.pvalue)
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_host_helpers_equal(sr):
+    """hann_periodic (the offline vocoder's window) and sosfilt_zi of every
+    section list of the filter chain and of the output low-pass."""
+    for n in (256, 800, 801):
+        _eq(t_stft.hann_periodic(n), j_stft.hann_periodic(n))
+    for t_sos, j_sos in zip(t_fd.high_gamma_bank(sr) + [t_fd.gl_output_lowpass_sos()],
+                            j_fd.high_gamma_bank(sr) + [j_fd.gl_output_lowpass_sos()]):
+        _eq(t_fd.sosfilt_zi(t_sos), j_fd.sosfilt_zi(j_sos))
+
+
+def test_dtw_and_vad_equal(rng):
+    """eval/dtw and eval/vad: the cost, the path and the warped reference;
+    the VAD's MFCCs, mask and the .lab lines, element for element."""
+    from closed_loop_seeg_speech_synthesis_tpu.eval import dtw as j_dtw
+    from closed_loop_seeg_speech_synthesis_tpu.eval import vad as j_vad
+    from closed_loop_seeg_speech_synthesis_tpu_torch.eval import dtw as t_dtw
+    from closed_loop_seeg_speech_synthesis_tpu_torch.eval import vad as t_vad
+
+    q, r = rng.randn(23, 40), rng.randn(31, 40)
+    (dt, pt), (dj, pj) = t_dtw.dtw_path(q, r), j_dtw.dtw_path(q, r)
+    assert dt == dj and pt == pj
+    _eq(t_dtw.get_warping_path(*zip(*pt)), j_dtw.get_warping_path(*zip(*pj)))
+    _eq(t_dtw.dtw_warping(q, r), j_dtw.dtw_warping(q, r))
+    wav = rng.randn(16000) * 50
+    wav[4000:9000] += rng.randn(5000) * 6000
+    t, j = t_vad.EnergyBasedVad(0.5), j_vad.EnergyBasedVad(0.5)
+    _eq(t.from_wav(wav), j.from_wav(wav))
+    _eq(t.mfccs, j.mfccs)

@@ -129,12 +129,15 @@ def _cli_config(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--persistent"], ["--vocoder", "exact-host"],
-                                  ["--profile", "prof"], ["--dispatch-chunk", "0"]])
+                                  ["--profile", "{config}"], ["--dispatch-chunk", "0"]])
 def test_decode_cli_rejects_unported_modes(tmp_path, argv):
-    """--persistent, --profile and the exact-host vocoder are not ported, and
-    a dispatch chunk must hold a packet: the CLI says so and stops."""
+    """--persistent is not ported, the exact-host vocoder re-synthesizes an
+    offline decode only (this config decodes a live stream), --profile
+    takes a directory (here an existing file), and a dispatch chunk must
+    hold a packet: the CLI says so and stops."""
+    config = str(_cli_config(tmp_path))
     with pytest.raises(SystemExit) as exc:
-        t_decode.main([str(_cli_config(tmp_path)), "--device", "cpu", *argv])
+        t_decode.main([config, "--device", "cpu", *(a.format(config=config) for a in argv)])
     assert exc.value.code == 2
 
 
@@ -170,9 +173,10 @@ def test_split_offline_decode_equals_fused_on_cpu(rng, sr):
 
 
 def test_port_imports_no_jax():
-    """The port, its CLIs, its online runtime, its trainer and its loaders
-    import neither jax nor the JAX package (nor pylsl, h5py, sklearn or
-    matplotlib at import time)."""
+    """The port, its CLIs, its online runtime, its trainer, its loaders, its
+    evaluation (exp1-exp4, DTW, VAD, figures), its utilities and its host
+    vocoder import neither jax nor the JAX package (nor pylsl, h5py,
+    sklearn or matplotlib at import time)."""
     code = ("import sys; import closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.dev_streamer, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.train, "
@@ -183,7 +187,17 @@ def test_port_imports_no_jax():
             "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.online, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.nsx, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend, "
-            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl; "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.host_vocoder, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.cli.evaluate, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.exp1, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.exp2, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.exp3, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.exp4, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.figures, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.dtw, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.eval.vad, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.utils; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.split('.')[0] in ('closed_loop_seeg_speech_synthesis_tpu', 'pylsl', 'h5py', "
             "'matplotlib', 'sklearn')]; "
