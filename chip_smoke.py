@@ -108,6 +108,29 @@ on one NVIDIA GPU.  Run from the repository root:
    shapes; skips the figure drawings, on a line that says so, where
    matplotlib is not installed.
 
+13. Runs the parallel phase (``parallel.distributed``) on the one card at
+   full width (128 ch, 1024 Hz, 40 bins, 9 classes, 150 features, f32) on
+   the training step's word-locked session, with two gloo ranks spawned by
+   the dryruns (the inputs written once, each rank maps its sessions):
+   first, in this process, K1 and K2 on one 5-min session (1,200 periods,
+   a ragged scan chunk of 35) and K3 on its 64-channel block against their
+   plain versions, under step 3's gates and ``k2_agreement``; then the
+   data-parallel replay of 4 sessions of 5 min, 2 a rank (each rank's K1
+   and K2 launches equal its sessions; the gathered shards against the
+   parent's ``offline_decode`` of the same sessions and inits, the spectra
+   inside the f32 budget, the audio within 1 LSB); the channel-sharded
+   decode of one 5-min session, 64 channels a rank (K3 once a rank, K2 once
+   a rank, both ranks' outputs identical; against the unsharded split
+   decode, the spectra inside the f32 budget and the audio within 1 LSB,
+   which also holds each rank's Griffin-Lim inits); one model fitted from 4
+   sessions of 7.5 min (30 min pooled, 16 kHz audio) split over the ranks
+   (the replicas identical; against the parent's single-process step on
+   the pooled batch: the select equal, medians within 1e-5, coefficients
+   within rtol 1e-3, atol 1e-4); one ``distributed_replay`` on an NCCL world
+   of 1 in this process (an NCCL all-reduce, the decode equal to the
+   parent's).  Prints each run's time by stage (spawn + init, compute,
+   collectives) and each rank's launches.
+
 Any failure exits nonzero.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits 1 and prints no result.
@@ -159,6 +182,10 @@ QUANT_MAX = 5e-3  # log-mel; a quarter of docs/NUMERICS.md:155's max 2e-2 for f3
 # cores, TF32 tensor cores (3xTF32 takes three passes), HBM3
 FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
 K4_ONLINE_LAUNCHES, PR3_K4_B4_MS = 1000, 0.656  # PR 3's K4 at B = 4 (PERF.md)
+# the parallel phase: gloo ranks on the one card, sessions of the replay
+# and of the training (4 x 7.5 min = the 30-min training session)
+PAR_RANKS, PAR_SESSIONS, PAR_REPLAY_S, PAR_TRAIN_S = 2, 4, 300, 450
+PAR_MEDIANS_ATOL, PAR_COEF_RTOL, PAR_COEF_ATOL = 1e-5, 1e-3, 1e-4  # tests/test_distributed.py:73-77
 REGIME_BLOCKS = 2048
 PROFILE_PACKETS = 200
 
@@ -336,6 +363,37 @@ def launch_counters(torch):
         return {name: fn.launches for name, fn in counters.items()}
 
     return zero_counts, read_counts
+
+
+def k1_inputs(d, c, x):
+    """K1's arguments for decoder params ``d``, config ``c`` and sEEG x (T, C)."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, framing
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline
+
+    s0 = pipeline._initial_state(d, x).contiguous()
+    consts = cuda_frontend.epilogue_constants(d.lda_coef_full, d.lda.intercept, d.lda.valid,
+                                              d.lda.classes, d.medians, d.gauss_kernel,
+                                              c.n_channels, c.model_order)
+    nf = len(framing.streaming_frame_ends(c.frame_len_ms, c.frame_shift_ms, c.sr,
+                                          x.shape[0] + c.prefill))
+    return (d.frontend_ops, x, s0, *consts, nf, c.model_order, c.step_size)
+
+
+def k3_agreement(torch, args, label):
+    """K3 against its plain version on the same inputs (ops, x, s0,
+    n_frames): shape, finite, within K3_ATOL on WITHIN_MIN of the features.
+    Returns the max |diff|."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend
+
+    F_k = cuda_frontend.frontend_logpower(*args)
+    F_p = cuda_frontend.frontend_logpower_plain(*args)
+    err = (F_k - F_p).abs()
+    within = (err <= K3_ATOL).double().mean().item()
+    say(f"  {label}: {within:.6f} of features within {K3_ATOL}, max abs err {err.max().item():.3e}")
+    check(F_k.shape == F_p.shape == (args[3], args[1].shape[1])
+          and bool(torch.isfinite(F_k).all()), f"K3 {label} shape, finite")
+    check(within >= WITHIN_MIN, f"K3 {label} within atol {K3_ATOL} on >= 99.9%")
+    return err.max().item()
 
 
 def k2_agreement(cuda_gl, lm, rand, ops, label):
@@ -887,6 +945,174 @@ def exp2_phase(torch, dev, card, zero_counts, read_counts, runs=EXP2_RUNS):
     return out
 
 
+def parallel_phase(torch, dev, card, eeg, audio, arrs, zero_counts, read_counts):
+    """Step 13 of the module docstring.  ``eeg`` (T, C) on the card and
+    ``audio`` (48 kHz, host) are the training step's session, ``arrs`` the
+    random model of the replay.  Returns each kernel's launches in the
+    phase (all ranks and the NCCL run together) and the max |diff| of K1,
+    K2 and K3 against their plain versions at the phase's shapes."""
+    import time
+
+    import scipy.signal
+    import torch.distributed as tdist
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.parallel import distributed as dist
+    from closed_loop_seeg_speech_synthesis_tpu_torch.parallel import sharded
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params, pipeline
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    C = eeg.shape[1]
+    T_r = PAR_REPLAY_S * SR
+    cfg = pipeline.DecoderConfig(sr=float(SR), n_channels=C, dtype=torch.float32)
+    loaded = params.from_arrays(**arrs, dtype=torch.float32, device=dev)
+    dec = pipeline.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"],
+                                        device=dev)
+    sessions = eeg[: PAR_SESSIONS * T_r].reshape(PAR_SESSIONS, T_r, C)
+    nf = pipeline.mel_plan(dec, cfg, T_r).n_frames
+    rand = torch.stack([gl.default_rand_init(nf - 1, 0, i, torch.float32, dev)
+                        for i in range(PAR_SESSIONS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refs = [pipeline.offline_decode(dec, cfg, sessions[i], rand[i]) for i in range(PAR_SESSIONS)]
+    torch.cuda.synchronize()
+    say(f"  one process, the {PAR_SESSIONS} sessions' offline_decode (params built): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+
+    # the kernels against their plain versions at the shapes the ranks give
+    # them: a 5-min session (K1, K2), its block of C / PAR_RANKS channels (K3)
+    k1_args = k1_inputs(dec, cfg, sessions[0])
+    mel_k = cuda_frontend.frontend_decode_mels(*k1_args)
+    agree, flips, k1_err = mel_agreement(torch, mel_k,
+                                         cuda_frontend.frontend_decode_mels_plain(*k1_args))
+    kp = -(-k1_args[-3] // dec.frontend_ops.P)
+    say(f"  K1 at a {PAR_REPLAY_S} s session ({kp} periods, scan chunk "
+        f"{cuda_frontend.scan_chunk(dec.frontend_ops, kp)}): agreement {agree:.6f}, flip rate "
+        f"{flips:.6f}, max abs err {k1_err:.3e}")
+    check(mel_k.shape == (nf, 40) and bool(torch.isfinite(mel_k).all())
+          and agree >= AGREE_MIN and flips < FLIP_MAX,
+          f"K1 at a {PAR_REPLAY_S} s session: shape, finite, agreement and label flips")
+    k2_err = k2_agreement(cuda_gl, mel_k.contiguous(), rand[0], dec.gl_audio_ops,
+                          f"at a {PAR_REPLAY_S} s session")
+    block = sessions[0][:, : C // PAR_RANKS].contiguous()
+    k3_err = k3_agreement(torch, (dec.frontend_ops, block,
+                                  pipeline._initial_state(dec, block).contiguous(), nf),
+                          f"a {C // PAR_RANKS}-channel block of a {PAR_REPLAY_S} s session")
+    errs = {"frontend_decode_mels": k1_err, "gl_audio": k2_err, "frontend_logpower": k3_err}
+    del mel_k, block
+    model = {k: arrs[k] for k in dist.LDA_ARRAYS}
+    total = dict.fromkeys(read_counts(), 0)
+
+    def run(label, dryrun, **kwargs):
+        t0 = time.perf_counter()
+        out, _ = dryrun(PAR_RANKS, backend="gloo", device="cuda", workdir=tmp, timeout=300,
+                        **kwargs)
+        wall = time.perf_counter() - t0
+        say(f"  {label}: {wall:.2f} s in all; spawn + init {max(r['ready_s'] for r in out):.2f} s, "
+            f"compute {max(r['compute_ms'] - r['collectives_ms'] for r in out):.1f} ms, "
+            f"collectives {max(r['collectives_ms'] for r in out):.1f} ms (the slowest rank's) "
+            f"[{card}]")
+        for r in out:
+            say(f"    rank {r['rank']}: mesh {r['mesh']}, sessions {r['sessions']}, "
+                f"launches {r['launches']}")
+            for k, n in r["launches"].items():
+                total[k] += n
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        say(f"  data-parallel replay: {PAR_SESSIONS} sessions of {PAR_REPLAY_S} s, {C} ch, "
+            f"{PAR_RANKS} gloo ranks on one card")
+        inputs = dist.write_inputs(os.path.join(tmp, "replay"), eeg=sessions.cpu().numpy(),
+                                   rand=rand.cpu().numpy(), sr=float(SR), **model)
+        shards = run("replay", dist.dryrun_dcn, inputs=inputs)
+        local = PAR_SESSIONS // PAR_RANKS
+        check(all(r["launches"]["frontend_decode_mels"] == r["launches"]["gl_audio"] == local
+                  for r in shards), f"each rank launched K1 and K2 once per session ({local})")
+        spec_p = torch.as_tensor(np.concatenate([r["spec"] for r in shards]))
+        audio_p = torch.as_tensor(np.concatenate([r["audio"] for r in shards]))
+        spec_r = torch.stack([s for s, _ in refs]).cpu()
+        audio_r = torch.stack([a for _, a in refs]).cpu()
+        _, flips, err = mel_agreement(torch, spec_p.double(), spec_r.double())
+        lsb = int((audio_p.long() - audio_r.long()).abs().max())
+        say(f"  gathered shards vs this process's offline_decode: max |diff| spec {err:.3e}, audio "
+            f"{lsb} LSB, label flips {flips:.6f}, bit-identical "
+            f"{torch.equal(spec_p, spec_r) and torch.equal(audio_p, audio_r)}")
+        check(spec_p.shape == spec_r.shape and audio_p.shape == audio_r.shape
+              and flips < FLIP_MAX and lsb <= 1,
+              "data-parallel replay: spectra inside the f32 budget of one process, audio within "
+              "1 LSB")
+
+        say(f"  channel-sharded decode: one {PAR_REPLAY_S} s session, {C // PAR_RANKS} ch a rank")
+        inputs = dist.write_inputs(os.path.join(tmp, "sharded"), eeg=sessions[:1].cpu().numpy(),
+                                   rand=rand[:1].cpu().numpy(), sr=float(SR), **model)
+        shards = run("channel-sharded decode", dist.dryrun_dcn, model_axis=PAR_RANKS,
+                     inputs=inputs)
+        check(all(r["launches"]["frontend_logpower"] == 1 and r["launches"]["gl_audio"] == 1
+                  and r["launches"]["frontend_decode_mels"] == 0 for r in shards),
+              "each rank launched K3 once and K2 once, K1 not")
+        check(all(np.array_equal(r[k], shards[0][k]) for r in shards for k in ("spec", "audio")),
+              "the ranks' outputs identical")
+        spec_u, audio_u = pipeline.offline_decode(
+            dec, dataclasses.replace(cfg, use_cuda_epilogue=False), sessions[0], rand[0])
+        spec_s = torch.as_tensor(shards[0]["spec"][0])
+        audio_s = torch.as_tensor(shards[0]["audio"][0])
+        _, flips, err = mel_agreement(torch, spec_s.double(), spec_u.cpu().double())
+        lsb = int((audio_s.long() - audio_u.cpu().long()).abs().max())
+        say(f"  vs the unsharded split decode: max |diff| spec {err:.3e}, label flips {flips:.6f}, "
+            f"audio {lsb} LSB")
+        check(spec_s.shape == spec_u.shape and audio_s.shape == audio_u.shape
+              and flips < FLIP_MAX and lsb <= 1,
+              "channel-sharded decode: spectra inside the f32 budget of the unsharded split "
+              "decode, audio within 1 LSB")
+
+        T_t, Ta = PAR_TRAIN_S * SR, PAR_TRAIN_S * 16000
+        say(f"  distributed training: {PAR_SESSIONS} sessions of {PAR_TRAIN_S} s, {C} ch, 16 kHz "
+            f"audio, {PAR_RANKS} gloo ranks")
+        audio16 = scipy.signal.decimate(audio[: PAR_SESSIONS * PAR_TRAIN_S * AUDIO_SR], 3)
+        train_eeg = eeg[: PAR_SESSIONS * T_t].reshape(PAR_SESSIONS, T_t, C)
+        train_audio = audio16[: PAR_SESSIONS * Ta].reshape(PAR_SESSIONS, Ta).astype(np.float32)
+        inputs = dist.write_inputs(os.path.join(tmp, "train"), eeg=train_eeg.cpu().numpy(),
+                                   audio=train_audio)
+        reps = run("training", dist.dryrun_dcn_train, inputs=inputs,
+                   config={"nb_feats": N_FEATS, "iir_block": 128})
+        check(all(np.array_equal(r[k], reps[0][k]) for r in reps
+                  for k in ("coef", "intercept", "classes", "valid", "select", "medians")),
+              "the ranks' replicas identical")
+        t0 = time.perf_counter()
+        p1, s1, m1 = dist.distributed_train(
+            None, sharded.ShardedTrainConfig(dtype=torch.float32, nb_feats=N_FEATS, iir_block=128),
+            train_eeg, train_audio, device=dev)
+        say(f"  one process on the pooled batch: {time.perf_counter() - t0:.2f} s; select equal "
+            f"{np.array_equal(s1, reps[0]['select'])}, max |diff| medians "
+            f"{np.abs(m1 - reps[0]['medians']).max():.3e}, coef "
+            f"{np.abs(p1.coef.numpy() - reps[0]['coef']).max():.3e}")
+        check(np.array_equal(s1, reps[0]["select"])
+              and np.allclose(m1, reps[0]["medians"], rtol=0, atol=PAR_MEDIANS_ATOL)
+              and np.allclose(p1.coef.numpy(), reps[0]["coef"], rtol=PAR_COEF_RTOL,
+                              atol=PAR_COEF_ATOL),
+              "distributed model equals the single-process step on the pooled batch")
+
+        say("  NCCL, a world of 1 (this process): distributed_replay of session 0")
+        dist.initialize("file://" + os.path.join(tmp, "nccl-rendezvous"), 1, 0, backend="nccl")
+        try:
+            x = torch.ones(4, device=dev)
+            tdist.all_reduce(x)
+            zero_counts()
+            spec_n, audio_n = dist.distributed_replay(dist.global_mesh(1), cfg, dec, sessions[:1],
+                                                      rand[:1])
+            for k, n in read_counts().items():
+                total[k] += n
+        finally:
+            tdist.destroy_process_group()
+        check(bool((x.cpu() == 1).all()) and np.array_equal(spec_n[0], refs[0][0].cpu().numpy())
+              and np.array_equal(audio_n[0], refs[0][1].cpu().numpy()),
+              "NCCL all-reduce of one rank, and its replay equal to this process's decode")
+    say(f"  parallel phase: {time.perf_counter() - t_phase:.1f} s in all, launches {total} [{card}]")
+    return total, errs
+
+
 def main():
     import torch
 
@@ -928,15 +1154,6 @@ def main():
 
     # ---- K1: kernel vs plain at the main path's shapes --------------------
     say("== K1 frontend_decode_mels vs plain")
-
-    def k1_inputs(d, c, x):
-        s0 = pipeline._initial_state(d, x).contiguous()
-        consts = cuda_frontend.epilogue_constants(d.lda_coef_full, d.lda.intercept, d.lda.valid,
-                                                  d.lda.classes, d.medians, d.gauss_kernel,
-                                                  c.n_channels, c.model_order)
-        nf = len(framing.streaming_frame_ends(c.frame_len_ms, c.frame_shift_ms, c.sr,
-                                              x.shape[0] + c.prefill))
-        return (d.frontend_ops, x, s0, *consts, nf, c.model_order, c.step_size)
 
     k1_args = k1_inputs(dec, cfg, eeg)
     mel_k = cuda_frontend.frontend_decode_mels(*k1_args)
@@ -1033,23 +1250,12 @@ def main():
     # ---- K3: kernel vs plain at the split path's shapes -------------------
     say("== K3 frontend_logpower vs plain")
 
-    def k3_check(args, label):
-        F_k = cuda_frontend.frontend_logpower(*args)
-        F_p = cuda_frontend.frontend_logpower_plain(*args)
-        err = (F_k - F_p).abs()
-        within = (err <= K3_ATOL).double().mean().item()
-        say(f"  {label}: {within:.6f} of features within {K3_ATOL}, max abs err {err.max().item():.3e}")
-        check(F_k.shape == F_p.shape == (args[3], args[1].shape[1])
-              and bool(torch.isfinite(F_k).all()), f"K3 {label} shape, finite")
-        check(within >= WITHIN_MIN, f"K3 {label} within atol {K3_ATOL} on >= 99.9%")
-        return err.max().item()
-
     k3_args = k1_args[:3] + (n_frames,)
-    k3_err = k3_check(k3_args, f"1024 Hz, {MINUTES} min")
-    k3_check(k1_args2[:3] + (k1_args2[7],), f"2048 Hz, {MINUTES_2048} min")
+    k3_err = k3_agreement(torch, k3_args, f"1024 Hz, {MINUTES} min")
+    k3_agreement(torch, k1_args2[:3] + (k1_args2[7],), f"2048 Hz, {MINUTES_2048} min")
     for sr_l, args_l in long_args.items():
         a3 = args_l[:3] + (args_l[7],)
-        k3_check(a3, f"{sr_l} Hz, {LONG_S} s")
+        k3_agreement(torch, a3, f"{sr_l} Hz, {LONG_S} s")
         long_times["frontend_logpower"][sr_l] = t_l = timed(
             cuda_frontend.frontend_logpower, cuda_frontend.frontend_logpower_plain, a3,
             frontend_bound(args_l[0], args_l[1].shape[0], C, args_l[7]))
@@ -1477,6 +1683,11 @@ def main():
         f"{' and '.join(EXP2_RUNS_DECODED)}, {EXP2_RUNS} chance segments a run, f32")
     e2 = exp2_phase(torch, dev, card, zero_counts, read_counts)
 
+    # ---- the parallel phase -----------------------------------------------------
+    say(f"== parallel: parallel.distributed, {PAR_RANKS} ranks on one card, {C} ch, {SR} Hz, f32")
+    par, par_errs = parallel_phase(torch, dev, card, train_eeg, train_audio, arrs, zero_counts,
+                                   read_counts)
+
     def exp2_extra(name):
         # launches as counted: K1 once per chance segment of each run's
         # batched chance level, K2 once per segment of the sequential twin;
@@ -1519,18 +1730,23 @@ def main():
             launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "3xtf32",
             serial_scan_steps=scan_steps, reference_matmul_ms=k1_mm_ms, float64_p999=k1_f64,
             float64_flips=k1_flips, long_period=long_times["frontend_decode_mels"],
+            parallel_launches=par["frontend_decode_mels"], parallel_max_abs_err=par_errs["frontend_decode_mels"],
             **exp1_extra("frontend_decode_mels"), **exp2_extra("frontend_decode_mels")),
         row("gl_audio", "gl_audio.cu", "pallas_gl.py:153", launches["gl_audio"], k2_err, k2_ms,
-            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl), **exp1_extra("gl_audio"),
+            k2_plain_ms, k2_bound, cuda_gl.regime(B_gl), reference_matmul_ms=mm_ms,
+            parallel_launches=par["gl_audio"], parallel_max_abs_err=par_errs["gl_audio"], **exp1_extra("gl_audio"),
             **exp2_extra("gl_audio")),
         row("frontend_logpower", "frontend_decode.cu", "pallas_frontend.py:94",
             split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "3xtf32",
             serial_scan_steps=scan_steps, reference_matmul_ms=k3_mm_ms, float64_p999=k3_f64,
-            long_period=long_times["frontend_logpower"]),
+            long_period=long_times["frontend_logpower"],
+            parallel_launches=par["frontend_logpower"], parallel_max_abs_err=par_errs["frontend_logpower"]),
         row("gl_blocks", "gl_audio.cu", "pallas_gl.py:141",
             split_launches["gl_blocks"] + on_launches["gl_blocks"], k4_err, k4_ms, k4_plain_ms,
-            k4_bound, cuda_gl.regime(B_gl), online_launches=on_launches["gl_blocks"],
-            online_ms=k4_b4_ms, online_bound_ms=k4_b4_bound[0], online_regime=cuda_gl.regime(4)),
+            k4_bound, cuda_gl.regime(B_gl), reference_matmul_ms=mm_ms,
+            online_launches=on_launches["gl_blocks"], online_ms=k4_b4_ms,
+            online_bound_ms=k4_b4_bound[0], online_regime=cuda_gl.regime(4),
+            parallel_launches=par["gl_blocks"]),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

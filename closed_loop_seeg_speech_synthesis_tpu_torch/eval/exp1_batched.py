@@ -32,7 +32,7 @@ import scipy.signal as _sig
 import torch
 
 from ..models import lda as lda_mod
-from ..models.selection import spearman_vs_target
+from ..models.selection import spearman_vs_target, top_k
 from ..ops import framing, iir, quantization
 from ..ops import griffinlim as gl
 from ..ops.spectrogram import compute_spectrogram
@@ -123,7 +123,7 @@ class FoldRunner:
         X = feats[:n]
         with clock("selection"):
             rhos = spearman_vs_target(X, y_mean[:n])
-            select = torch.topk(rhos.abs(), self.nb_feats).indices.flip(0)  # select[::-1]
+            select = top_k(rhos.abs(), self.nb_feats).flip(0)  # select[::-1]
         with clock("lda_fit"):
             coef, intercept, present = lda_mod.fit_batched(X[:, select], q[:n].T,
                                                            self.nb_intervals)

@@ -58,3 +58,10 @@ def select_features(X: torch.Tensor, Y: torch.Tensor, nb_feats: int = 150) -> np
     target = torch.mean(Y, dim=1)
     cs = spearman_vs_target(X, target).cpu().numpy()
     return np.argsort(np.abs(cs))[max(-nb_feats, -len(cs)):]
+
+
+def top_k(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest values, largest first, in ``jax.lax.top_k``'s
+    order: NaN above every number, ties lowest index first (a stable
+    descending sort; ``torch.topk`` leaves the order of ties unspecified)."""
+    return torch.sort(values, descending=True, stable=True).indices[:k]

@@ -204,7 +204,15 @@ def _streaming_filter_chain(params: DecoderParams, cfg: DecoderConfig, eeg: torc
 def _frames_to_mel(params: DecoderParams, stacked: torch.Tensor) -> torch.Tensor:
     """Stacked features (N, 5C) -> dequantized+smoothed logMel frames (N, n_mel).
     LDASynthesis.py:19-28 and Dequantization.py:15-17."""
-    scores = torch.einsum("td,bkd->tbk", stacked, params.lda_coef_full) + params.lda.intercept[None]
+    return _products_to_mel(params, torch.einsum("td,bkd->tbk", stacked, params.lda_coef_full))
+
+
+def _products_to_mel(params: DecoderParams, products: torch.Tensor) -> torch.Tensor:
+    """``_frames_to_mel`` from the LDA products (N, n_bins, k) on: intercept,
+    first max over the present class slots, dequantization, smoothing.  The
+    channel-sharded decode (``parallel.sharded``) sums its ranks' partial
+    products and enters here."""
+    scores = products + params.lda.intercept[None]
     scores = torch.where(params.lda.valid[None], scores, torch.full_like(scores, -torch.inf))
     slot = torch.argmax(scores, dim=-1)                       # (N, n_mel), first max
     classes = params.lda.classes.long()
@@ -324,19 +332,27 @@ def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg,
         return frontend_decode_mels(params.frontend_ops, x.contiguous(),
                                     _initial_state(params, x).contiguous(), *consts,
                                     n_frames, cfg.model_order, cfg.step_size, packed=packed)
+    stacked = framing.stack_context(_logpower(params, cfg, x, plan), cfg.model_order,
+                                    cfg.step_size, zero_pad=True)
+    return _frames_to_mel(params, stacked)
+
+
+def _logpower(params: DecoderParams, cfg: DecoderConfig, x: torch.Tensor,
+              plan: MelPlan) -> torch.Tensor:
+    """The log-power feature rows (n_frames, C) of x (T, C) on the params'
+    device in cfg's dtype, through K3 where the plan says so.  C may be a
+    block of the decoder's channels: the filter chain and the log-power are
+    channel-local."""
     if plan.k3:
         # K3: eeg -> log-power features (filter chain, log-power)
-        F = frontend_logpower(params.frontend_ops, x.contiguous(),
-                              _initial_state(params, x).contiguous(), n_frames)
-    elif plan.window is not None:
-        s_cat, _ = _streaming_filter_chain(params, cfg, x)
+        return frontend_logpower(params.frontend_ops, x.contiguous(),
+                                 _initial_state(params, x).contiguous(), plan.n_frames)
+    s_cat, _ = _streaming_filter_chain(params, cfg, x)
+    if plan.window is not None:
         S, Ls, P, origin = plan.window
-        F = framing.windowed_logpower_periodic(s_cat, S, Ls, n_frames, origin)
-    else:
-        s_cat, _ = _streaming_filter_chain(params, cfg, x)
-        F = framing.windowed_logpower(s_cat, torch.as_tensor(plan.ends, device=dev), cfg.win)
-    stacked = framing.stack_context(F, cfg.model_order, cfg.step_size, zero_pad=True)
-    return _frames_to_mel(params, stacked)
+        return framing.windowed_logpower_periodic(s_cat, S, Ls, plan.n_frames, origin)
+    return framing.windowed_logpower(s_cat, torch.as_tensor(plan.ends, device=params.device),
+                                     cfg.win)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1 as t_exp1
 from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1_batched as t_batched
 from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp2 as t_exp2
 from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as t_session
+from closed_loop_seeg_speech_synthesis_tpu_torch.parallel import distributed as t_dist
+from closed_loop_seeg_speech_synthesis_tpu_torch.parallel import sharded as t_sharded
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import streams as t_streams
@@ -123,6 +125,26 @@ def _case(name, monkeypatch, tmp_path, seen):
                                    **({"device": "cpu"} if cpu else {}))
             e.chance_level_batched(runs=1)
         return call, RuntimeError
+    if name in ("dryrun_dcn", "dryrun_dcn_train"):
+        def spawn(kind, n_processes, backend, device, *args):
+            seen.append(torch.device(device))
+            raise _Reached
+        monkeypatch.setattr(t_dist, "_spawn", spawn)
+        dryrun = getattr(t_dist, name)
+        return (lambda cpu: dryrun(2, backend="gloo", **({"device": "cpu"} if cpu else {}))), \
+            RuntimeError
+    if name in ("make_sharded_train_step", "distributed_train"):
+        def blocked_iir(ss, block, dtype, device):
+            seen.append(torch.device(device))
+            raise _Reached
+        monkeypatch.setattr(t_sharded.iir, "make_blocked_iir", blocked_iir)
+        cfg = t_sharded.ShardedTrainConfig()
+        if name == "distributed_train":
+            return (lambda cpu: t_dist.distributed_train(
+                None, cfg, np.zeros((1, 2048, 4)), np.zeros((1, 32000)),
+                **({"device": "cpu"} if cpu else {}))), RuntimeError
+        return (lambda cpu: t_sharded.make_sharded_train_step(
+            None, cfg, 2048, 32000, 4, **({"device": "cpu"} if cpu else {}))), RuntimeError
     assert name in ("trainer.train", "train_decode_fold")
 
     def features(eeg, *args, **kwargs):
@@ -141,7 +163,8 @@ def _case(name, monkeypatch, tmp_path, seen):
 @pytest.mark.parametrize("name", ["decode CLI", "train CLI", "evaluate CLI",
                                   "perform_offline_decoding", "perform_online_decoding",
                                   "trainer.train", "train_decode_fold", "Experiment1",
-                                  "evaluate CLI exp2", "Experiment2"])
+                                  "evaluate CLI exp2", "Experiment2", "make_sharded_train_step",
+                                  "distributed_train", "dryrun_dcn", "dryrun_dcn_train"])
 def test_entry_point_needs_the_card_unless_asked_for_the_cpu(no_gpu, monkeypatch, tmp_path,
                                                              capsys, name):
     seen = []

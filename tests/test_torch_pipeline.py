@@ -174,9 +174,10 @@ def test_split_offline_decode_equals_fused_on_cpu(rng, sr):
 
 def test_port_imports_no_jax():
     """The port, its CLIs, its online runtime, its trainer, its loaders, its
-    evaluation (exp1-exp4, DTW, VAD, figures), its utilities and its host
-    vocoder import neither jax nor the JAX package (nor pylsl, h5py,
-    sklearn or matplotlib at import time)."""
+    evaluation (exp1-exp4, DTW, VAD, figures), its utilities, its host
+    vocoder, its parallel modules and its lab tools import neither jax nor
+    the JAX package (nor pylsl, h5py, sklearn, matplotlib or tkinter at
+    import time)."""
     code = ("import sys; import closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.dev_streamer, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.train, "
@@ -197,10 +198,15 @@ def test_port_imports_no_jax():
             "closed_loop_seeg_speech_synthesis_tpu_torch.eval.figures, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.eval.dtw, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.eval.vad, "
-            "closed_loop_seeg_speech_synthesis_tpu_torch.utils; "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.utils, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.parallel.mesh, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.parallel.sharded, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.parallel.distributed, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.cli.receive_markers, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.cli.experiment_gui; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.split('.')[0] in ('closed_loop_seeg_speech_synthesis_tpu', 'pylsl', 'h5py', "
-            "'matplotlib', 'sklearn')]; "
+            "'matplotlib', 'sklearn', 'tkinter', '_tkinter')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
