@@ -5,8 +5,8 @@ on one NVIDIA GPU.  Run from the repository root:
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and the torch/CUDA versions.
-2. Builds both CUDA sources from ``csrc/`` (in parallel, one nvcc each) and
-   prints the build seconds.
+2. Builds the three CUDA sources from ``csrc/`` (in parallel, one nvcc
+   each) and prints the build seconds.
 3. Holds each of the four kernels against its plain torch version on the
    card, at the shapes of its path: K1 (sEEG -> mel frames) and K3 (sEEG ->
    log-power features) on a 30-minute 128-channel 1024 Hz session and on
@@ -55,6 +55,21 @@ on one NVIDIA GPU.  Run from the repository root:
    ``cli.decode.perform_online_decoding`` in a thread; the received sEEG
    equals what was sent and the output equals a direct ``OnlineDecoder``
    run of the same packets.
+8b. Runs the persistent loop (``runtime.online.PersistentOnlineDecoder``,
+   ``csrc/persistent_loop.cu``) on phase 7's decoder and packets: the 1,920
+   packets queued before ``warmup()``, one ``run_until_stopped()``; the
+   session is one graph launch of 1,921 iterations (the STOP included) and
+   its output is bit-identical to phase 7's ``OnlineDecoder``.  A profiled
+   200-packet session counts 1 ``cudaGraphLaunch`` and 201
+   ``gl_cluster_kernel`` runs (K4's wrapper counts only at capture: the
+   kernels line gives K4's persistent launches as iterations times its
+   nodes in the captured step).  A session with the plain Griffin-Lim stays
+   within 1 LSB on >= 99.9% of samples; packets fed 2 ms apart give the
+   latency percentiles beside phase 7's; a 20 s real-time NSX loopback
+   through ``perform_online_decoding(persistent=True)`` receives every
+   packet and equals a direct persistent run; a feeder that raises after 2
+   packets returns its error; a matmul on another stream completes while a
+   loop waits and after it is aborted.
 9. Runs ``cli.decode.main`` end to end on files in a temporary directory
    when h5py is installed.
 10. Trains: a word-locked synthetic session (600 trials of 3 s: a 120 Hz
@@ -147,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 
 import numpy as np
 
@@ -188,6 +204,7 @@ PAR_RANKS, PAR_SESSIONS, PAR_REPLAY_S, PAR_TRAIN_S = 2, 4, 300, 450
 PAR_MEDIANS_ATOL, PAR_COEF_RTOL, PAR_COEF_ATOL = 1e-5, 1e-3, 1e-4  # tests/test_distributed.py:73-77
 REGIME_BLOCKS = 2048
 PROFILE_PACKETS = 200
+PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apart
 
 
 def say(*args):
@@ -1113,6 +1130,230 @@ def parallel_phase(torch, dev, card, eeg, audio, arrs, zero_counts, read_counts)
     return total, errs
 
 
+def persistent_phase(torch, dev, card, cli, online, cuda_gl, cfg_on, dec_on, packets, loaded,
+                     per_packet, reference):
+    """The persistent loop (``runtime.online.PersistentOnlineDecoder``) at
+    phase 7's width and packets: one graph launch a session, K4 in every
+    iteration, outputs bit-identical to phase 7's ``OnlineDecoder``
+    (``reference``: its spectrogram and audio), the plain Griffin-Lim
+    session within 1 LSB, latency beside phase 7's (``per_packet``: its
+    p50/p95/p99/max in ms), a real-time NSX loopback through
+    ``perform_online_decoding(persistent=True)``, a feeder error and an
+    abort that return and leave the card usable.  Returns the figures of
+    the kernels line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import dev_streamer
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_loop
+
+    spec_on, audio_on = reference
+    n_pkts = len(packets)
+
+    def session(d, pkts):
+        for p in pkts:
+            d.feed_packet(p)
+        d.feed_stop()
+        return d.run_until_stopped()
+
+    # one session of all 60 s, queued before warmup
+    pd = online.PersistentOnlineDecoder(cfg_on, dec_on)
+    for p in packets:
+        pd.feed_packet(p)
+    pd.feed_stop()
+    t0 = time.perf_counter()
+    pd.warmup()
+    warm_s = time.perf_counter() - t0
+    check(pd.spec_frames == [] and pd.audio_chunks == [] and pd._queue.qsize() == n_pkts + 1,
+          "warmup emitted nothing and left the queued packets queued")
+    cuda_gl.gl_blocks.launches = 0
+    cuda_loop.sessions = cuda_loop.iterations = 0
+    t0 = time.perf_counter()
+    spec_p, audio_p, recv_p = pd.run_until_stopped()
+    run_s = time.perf_counter() - t0
+    sessions, iterations = cuda_loop.sessions, cuda_loop.iterations
+    k4_nodes = pd._captured.k4_nodes
+    say(f"  warmup (capture, graph, one stop-only session) {warm_s:.2f} s; session of {n_pkts} "
+        f"queued packets {run_s * 1e3:.1f} ms; graph launches {sessions}, loop iterations "
+        f"{iterations}; K4 nodes in this decoder's recorded step {k4_nodes}, so K4 launches "
+        f"{iterations * k4_nodes}; K4 wrapper calls during the session "
+        f"{cuda_gl.gl_blocks.launches} (the wrapper counts at capture only, where it recorded "
+        "the node that runs once an iteration)")
+    check(sessions == 1 and iterations == n_pkts + 1 and k4_nodes >= 1,
+          f"one graph launch ran the session's {n_pkts + 1} iterations (the STOP included), "
+          "K4 recorded in the step")
+    check(np.array_equal(spec_p, spec_on) and np.array_equal(audio_p, audio_on)
+          and np.array_equal(recv_p, packets.reshape(-1, packets.shape[-1])),
+          f"persistent output {spec_p.shape} / {audio_p.shape} bit-identical to OnlineDecoder's")
+
+    # a profiled session of PROFILE_PACKETS packets: one graph launch, K4 in
+    # every iteration
+    pf = online.PersistentOnlineDecoder(cfg_on, dec_on)
+    pf.warmup()
+    for p in packets[:PROFILE_PACKETS]:
+        pf.feed_packet(p)
+    pf.feed_stop()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pf.run_until_stopped()
+        prof_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    graph_launches = sum(e.count for e in events if e.key.startswith("cudaGraphLaunch"))
+    kernel_launches = sum(e.count for e in events
+                          if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    dev_ev = {e.key: (e.count, e.self_device_time_total / 1e3) for e in events
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    k4_runs = sum(c for k, (c, _) in dev_ev.items() if "gl_cluster_kernel" in k)
+    waits = sum(ms for k, (_, ms) in dev_ev.items() if "wait_packet_kernel" in k)
+    step_ms = sum(ms for k, (_, ms) in dev_ev.items() if "wait_packet_kernel" not in k)
+    per_iter = step_ms / (PROFILE_PACKETS + 1)
+    say(f"  profile of a {PROFILE_PACKETS}-packet session: {prof_s * 1e3:.1f} ms; {graph_launches} "
+        f"cudaGraphLaunch, {kernel_launches} kernel launches by the host, gl_cluster_kernel ran "
+        f"{k4_runs} times; device time an iteration without the wait {per_iter * 1e3:.1f} us "
+        f"(the wait kernel's spin {waits:.1f} ms in all) [{card}]")
+    for name, (cnt, ms) in sorted(dev_ev.items(), key=lambda kv: -kv[1][1])[:6]:
+        say(f"    {ms:9.3f} ms  {cnt:6d} runs  {name[:90]}")
+    check(graph_launches == 1 and k4_runs == (PROFILE_PACKETS + 1) * pf._captured.k4_nodes,
+          f"profiler: 1 cudaGraphLaunch and {PROFILE_PACKETS + 1} iterations x "
+          f"{pf._captured.k4_nodes} recorded K4 node(s) = gl_cluster_kernel runs")
+
+    # the same packets with the plain Griffin-Lim in the captured step
+    pg = online.PersistentOnlineDecoder(dataclasses.replace(cfg_on, use_cuda_gl=False), dec_on)
+    spec_g, audio_g, _ = session(pg, packets)
+    d_g = np.abs(audio_p.astype(np.int64) - audio_g.astype(np.int64))
+    within_g = float((d_g <= 1).mean())
+    say(f"  persistent K4 vs plain Griffin-Lim: {within_g:.6f} of samples within 1 LSB, "
+        f"max {int(d_g.max())} LSB")
+    check(np.array_equal(spec_g, spec_p) and audio_g.shape == audio_p.shape
+          and within_g >= WITHIN_MIN and pg._captured.k4_nodes == 0,
+          "persistent audio through K4 within 1 LSB of the plain Griffin-Lim session on >= "
+          "99.9% of samples, same spectrogram, no K4 node in the plain session's step")
+
+    # latency: packets fed PERSISTENT_GAP_S apart, so each finds the loop waiting
+    pl = online.PersistentOnlineDecoder(cfg_on, dec_on)
+    pl.warmup()
+
+    def paced():
+        start = time.perf_counter()
+        for i, p in enumerate(packets):
+            while time.perf_counter() < start + i * PERSISTENT_GAP_S:
+                time.sleep(0.0002)
+            pl.feed_packet(p)
+        pl.feed_stop()
+
+    feeder = threading.Thread(target=paced)
+    feeder.start()
+    spec_l, audio_l, _ = pl.run_until_stopped()
+    feeder.join()
+    lat = pl.tracer.latencies("packet_in", "step_done") * 1e3
+    pct = {q: float(np.percentile(lat, q)) for q in (50, 95, 99)}
+    pct["max"] = float(lat.max())
+    say(f"  latency (packet_in -> outputs on the host), packets {PERSISTENT_GAP_S * 1e3:.0f} ms "
+        f"apart: persistent p50 {pct[50]:.3f} ms, p95 {pct[95]:.3f} ms, p99 {pct[99]:.3f} ms, max "
+        f"{pct['max']:.3f} ms over {len(lat)} packets; per-packet OnlineDecoder (phase 7, this "
+        f"call) p50 {per_packet[0]:.3f}, p95 {per_packet[1]:.3f}, p99 {per_packet[2]:.3f}, max "
+        f"{per_packet[3]:.3f} ms [{card}]")
+    check(len(lat) == n_pkts and np.array_equal(spec_l, spec_on) and np.array_equal(audio_l, audio_on),
+          "paced session: every packet timed, output bit-identical to OnlineDecoder's")
+
+    # the closed loop over NSX through the CLI path, persistent
+    n_loop = LOOP_S * SR // PACKET
+    sent = packets[:n_loop].reshape(-1, packets.shape[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["NSX_REGISTRY_DIR"] = tmp
+        config = configparser.ConfigParser()
+        config["Decoding"] = {"stream_name": "smoke_pers", "griffin_lim_norm": str(int(GL_NORM))}
+        result, error = {}, []
+
+        def decode():
+            try:
+                result["out"] = cli.perform_online_decoding(
+                    config, loaded, GL_NORM, tmp, max_packets=n_loop, backend="nsx", device=dev,
+                    persistent=True)
+            except BaseException as e:  # reported below; the phase fails
+                error.append(e)
+
+        t = threading.Thread(target=decode)
+        t.start()
+        dev_streamer.stream_eeg(sent, SR, "smoke_pers", backend="nsx", wait_for_consumers=60.0)
+        t.join(timeout=300)
+        check(not t.is_alive() and not error, f"persistent decode over NSX finished {error}")
+    spec_n, audio_n, recv_n, sr_n = result["out"]
+    check(sr_n == SR and np.array_equal(recv_n, sent), "persistent loopback: received sEEG equals "
+          "what was sent")
+    direct = session(online.PersistentOnlineDecoder(
+        *cli._build_decoder(loaded, SR, packets.shape[-1], GL_NORM, torch.float32, dev, PACKET)),
+        packets[:n_loop])
+    check(np.array_equal(spec_n, direct[0]) and np.array_equal(audio_n, direct[1]),
+          f"persistent loopback output {spec_n.shape} equals a direct persistent run")
+
+    # release: a feeder error returns; an abort leaves the card usable
+    class Broken:
+        channels, nominal_srate, calls = packets.shape[-1], SR, 0
+
+        def pull_chunk(self, max_samples=64, timeout=0.25):
+            self.calls += 1
+            if self.calls > 2:
+                raise OSError("amplifier link dropped")
+            return packets[self.calls - 1], 1.0
+
+    pe = online.PersistentOnlineDecoder(cfg_on, dec_on)
+    pe.warmup()
+    t0 = time.perf_counter()
+    try:
+        pe.run_stream(Broken(), max_packets=n_pkts)
+        raised = None
+    except OSError as e:
+        raised = e
+    back_s = time.perf_counter() - t0
+    check(raised is not None and back_s < 10 and len(pe.received) == 2,
+          f"a feeder error after 2 packets returned in {back_s:.2f} s with 2 packets received")
+    # nothing may allocate device memory while a loop waits (an allocation
+    # can wait for the device, which waits for the host): the matmul's
+    # cuBLAS workspace on its stream and its output block come first
+    side = torch.cuda.Stream(dev)
+    a = torch.randn(1024, 1024, device=dev)
+    expected = (a.double() @ a.double()).float()
+    with torch.cuda.stream(side):
+        a @ a
+    torch.cuda.synchronize()
+    errors = []
+
+    def waiting():
+        try:
+            pe.run_until_stopped()
+        except RuntimeError as e:
+            errors.append(e)
+
+    runner = threading.Thread(target=waiting)
+    runner.start()
+    time.sleep(0.5)  # the loop spins in wait_packet_kernel
+    ok = []
+    for _ in range(2):
+        with torch.cuda.stream(side):
+            b = a @ a
+            done = torch.cuda.Event()
+            done.record(side)
+        deadline = time.perf_counter() + 10
+        while not done.query() and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        completed = done.query()
+        if runner.is_alive():
+            pe._loop.abort()
+            runner.join(timeout=10)
+        ok.append(completed and torch.allclose(b, expected, rtol=1e-3, atol=1e-2))
+    check(all(ok) and not runner.is_alive() and len(errors) == 1,
+          "a matmul on another stream completed while the loop waited and after its abort; the "
+          "aborted session raised")
+    more = session(pe, packets[:PROFILE_PACKETS])
+    check(len(more[0]) > 0, "the aborted decoder decodes its next session")
+    return {"persistent_sessions": sessions, "persistent_iterations": iterations,
+            "persistent_launches": iterations * k4_nodes, "persistent_profile_k4_runs": k4_runs,
+            "persistent_ms_per_iteration": per_iter, "persistent_latency_ms": pct}
+
+
 def main():
     import torch
 
@@ -1135,9 +1376,10 @@ def main():
         f"{torch.cuda.device_count()} device(s)")
 
     say("== build")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        list(pool.map(_build.load, ("frontend_decode", "gl_audio")))
-    for name in ("frontend_decode", "gl_audio"):
+    sources = ("frontend_decode", "gl_audio", "persistent_loop")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        list(pool.map(_build.load, sources))
+    for name in sources:
         say(f"  {name}: built in {_build.build_info[name]['seconds']:.2f} s "
             f"({_build.build_info[name]['library']})")
 
@@ -1475,6 +1717,7 @@ def main():
     say(f"  per-packet latency (packet_in -> outputs on the host): p50 {p50:.3f} ms, "
         f"p95 {float(np.percentile(lat, 95)):.3f} ms, p99 {p99:.3f} ms, max {float(lat.max()):.3f} ms "
         f"over {len(lat)} packets")
+    per_packet = (p50, float(np.percentile(lat, 95)), p99, float(lat.max()))
     spec_ref, audio_ref = pipeline.offline_decode(dec_on, cfg_on, head_on)
     check(spec_on.shape == tuple(spec_ref.shape) and audio_on.shape == tuple(audio_ref.shape),
           f"online shapes spec {spec_on.shape} audio {audio_on.shape} == offline's")
@@ -1572,6 +1815,12 @@ def main():
     spec_d, audio_d, _ = d_ref.results()
     check(np.array_equal(spec_l, spec_d) and np.array_equal(audio_l, audio_d),
           f"loopback output {spec_l.shape} equals a direct OnlineDecoder run")
+
+    # ---- the persistent loop -------------------------------------------------
+    say(f"== persistent: PersistentOnlineDecoder, one graph launch a session, {C} ch, {SR} Hz, "
+        f"{PACKET}-sample packets, {ONLINE_S} s")
+    pers = persistent_phase(torch, dev, card, cli, online, cuda_gl, cfg_on, dec_on, packets, loaded,
+                            per_packet, (spec_on, audio_on))
 
     # ---- the CLI end to end -----------------------------------------------
     try:
@@ -1742,11 +1991,12 @@ def main():
             long_period=long_times["frontend_logpower"],
             parallel_launches=par["frontend_logpower"], parallel_max_abs_err=par_errs["frontend_logpower"]),
         row("gl_blocks", "gl_audio.cu", "pallas_gl.py:141",
-            split_launches["gl_blocks"] + on_launches["gl_blocks"], k4_err, k4_ms, k4_plain_ms,
+            split_launches["gl_blocks"] + on_launches["gl_blocks"] + pers["persistent_launches"],
+            k4_err, k4_ms, k4_plain_ms,
             k4_bound, cuda_gl.regime(B_gl), reference_matmul_ms=mm_ms,
             online_launches=on_launches["gl_blocks"], online_ms=k4_b4_ms,
             online_bound_ms=k4_b4_bound[0], online_regime=cuda_gl.regime(4),
-            parallel_launches=par["gl_blocks"]),
+            parallel_launches=par["gl_blocks"], **pers),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

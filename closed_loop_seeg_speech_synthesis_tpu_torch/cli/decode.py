@@ -6,6 +6,7 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/cli/decode.py``:
         [--seeg_file replay.hdf] [--run ...] [--session ...] [--gl_norm ...] \\
         [--device cuda|cpu] [--rand_init inits.npy] [--vocoder device|exact-host] \\
         [--profile DIR] [--backend lsl|nsx] [--max_packets N] [--dispatch-chunk K]
+        [--persistent]
 
 Offline mode (``--seeg_file`` or Development->seeg_file): decodes a recorded
 sEEG file (datasets ``sEEG``, ``sEEG_sr``).  Online mode (no seeg_file):
@@ -23,8 +24,11 @@ decoded spectrogram with the numpy ``ops/host_vocoder`` (the reference node's
 emission grid), its phase inits from ``--rand_init`` or the block-indexed
 inits of seed 0, where the JAX CLI draws threefry values.  ``--profile DIR``
 records the decode with ``torch.profiler`` (CPU activity, and CUDA activity
-on the card) and writes a Chrome trace, ``DIR/trace.json``.  Not ported, and
-rejected with an error: ``--persistent``.  h5py is imported where files are
+on the card) and writes a Chrome trace, ``DIR/trace.json``.  ``--persistent``
+(online mode) decodes the session as one device dispatch
+(``runtime.online.PersistentOnlineDecoder``: on the card one launch of a
+CUDA graph whose device-side while loop runs the step once per packet; on
+the CPU the same body as a host loop).  h5py is imported where files are
 read or written; matplotlib where the plot is drawn.
 """
 
@@ -124,13 +128,15 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
 
 def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
                             max_packets=None, backend=None, dtype=None, device=None,
-                            chunk_steps=1, rand_init=None):
+                            chunk_steps=1, rand_init=None, persistent=False):
     """Closed loop against a live stream (reference decode.py:99-149).
 
     ``device`` defaults to the card (pass ``"cpu"`` to decode on the CPU),
     ``dtype`` to float64 on the CPU and float32 on CUDA.  ``chunk_steps=K``
     decodes K buffered packets per call (bit-identical output, (K-1) packet
-    periods more playout latency).
+    periods more playout latency).  ``persistent=True`` decodes the session
+    as one device dispatch (``online.PersistentOnlineDecoder``), where
+    ``chunk_steps`` has no meaning and is ignored with a warning.
     ``rand_init``: a (n_blocks, 480) table of Griffin-Lim inits indexed by
     global block index; by default the block-indexed inits of seed 0.
     Returns (spectrogram, audio, received sEEG, rate) as numpy arrays.
@@ -151,9 +157,16 @@ def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
     logger.info("Using a sampling rate of %s, packet size %d.", sfreq, packet_size)
     cfg, dec = _build_decoder(loaded, sfreq, channels, gl_norm, dtype, device, packet_size)
     sink = make_sink("auto", wav_path=None, sample_rate=cfg.audio_sr)
-    decoder = online.OnlineDecoder(cfg, dec, bad_channels=loaded["bad_channels"], sink=sink,
-                                   chunk_steps=chunk_steps,
-                                   rand_source=0 if rand_init is None else rand_init)
+    rand_source = 0 if rand_init is None else rand_init
+    if persistent:
+        decoder = online.PersistentOnlineDecoder(cfg, dec, bad_channels=loaded["bad_channels"],
+                                                 sink=sink, rand_source=rand_source)
+        if chunk_steps > 1:
+            logger.warning("--dispatch-chunk is a per-packet-mode knob; the "
+                           "persistent loop already amortizes dispatch overhead")
+    else:
+        decoder = online.OnlineDecoder(cfg, dec, bad_channels=loaded["bad_channels"], sink=sink,
+                                       chunk_steps=chunk_steps, rand_source=rand_source)
     decoder.warmup()
     inlet = streams.StreamInlet(stream_name, backend=backend)
 
@@ -235,14 +248,14 @@ def main(argv=None):
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="record the decode with torch.profiler into DIR/trace.json "
                              "(a Chrome trace, viewable with perfetto)")
-    parser.add_argument("--persistent", action="store_true", help="not ported")
+    parser.add_argument("--persistent", action="store_true",
+                        help="online: decode the session as one device dispatch (a CUDA "
+                             "graph's device-side while loop on the card)")
     parser.add_argument("--vocoder", choices=["device", "exact-host"], default="device",
                         help="offline: 'device' (Griffin-Lim on --device, kernel K2 on the "
                              "card) or 'exact-host' (numpy vocoder byte-reproducing the "
                              "reference GriffinLim node incl. its FP-jittered emission grid)")
     args = parser.parse_args(argv)
-    if args.persistent:
-        parser.error("--persistent (one device dispatch per session) is not ported")
     if args.profile and os.path.exists(args.profile) and not os.path.isdir(args.profile):
         parser.error(f"--profile {args.profile}: not a directory")
     if args.dispatch_chunk < 1:
@@ -293,7 +306,7 @@ def main(argv=None):
             spectrogram, audio, received, sfreq = perform_online_decoding(
                 config, loaded, gl_norm, run_dir, backend=args.backend,
                 max_packets=args.max_packets, dtype=dtype, device=device,
-                chunk_steps=args.dispatch_chunk, rand_init=rand_init)
+                chunk_steps=args.dispatch_chunk, rand_init=rand_init, persistent=args.persistent)
     store_decoding_to_file(run_dir, config, spectrogram, audio, received, sfreq)
     return run_dir
 

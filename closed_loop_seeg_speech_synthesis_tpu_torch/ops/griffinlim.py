@@ -67,7 +67,9 @@ def _gl_iteration(wav: torch.Tensor, spec: torch.Tensor, ops: StreamingGLOps,
         ang = torch.atan2(xi, xr)
         # bins 0 and N/2 are exactly real: np.angle gives 0 or +pi there; an
         # atan2 of a -0.0 imag would give -pi and blow exp(angle) up by e^2pi
-        edge = torch.where(xr[..., [0, -1]] < 0, math.pi, 0.0).to(ang.dtype)
+        # (a strided slice, not a list index: a CUDA graph cannot record the
+        # list's copy to the card)
+        edge = torch.where(xr[..., :: xr.shape[-1] - 1] < 0, math.pi, 0.0).to(ang.dtype)
         ang = torch.cat([edge[..., :1], ang[..., 1:-1], edge[..., 1:]], dim=-1)
         zr = spec * torch.exp(ang)
         zi = torch.zeros_like(zr)

@@ -77,7 +77,8 @@ def smooth_by_table(labels: torch.Tensor, pos: torch.Tensor, table: torch.Tensor
     smoothed (..., n_mel) in the table's dtype."""
     w = pos.shape[1]
     lab = labels.long()[..., pos.long()]                    # (..., n_mel, w)
-    weights = torch.as_tensor(n_intervals ** np.arange(w - 1, -1, -1), device=lab.device)
+    # made on the device: a copy from the host could not be recorded in a CUDA graph
+    weights = n_intervals ** torch.arange(w - 1, -1, -1, device=lab.device)
     idx = (lab * weights).sum(-1)                           # mixed-radix index
     bins = torch.arange(table.shape[0], device=lab.device).expand_as(idx)
     return table[bins, idx]

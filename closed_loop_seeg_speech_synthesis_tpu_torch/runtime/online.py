@@ -1,24 +1,29 @@
 """Online closed-loop decoding: the host event loop around the step.
 
 Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/online.py``
-(``PacketRebuffer``, ``_pump_stream``, ``OnlineDecoder``, ``read_markers``).
+(``PacketRebuffer``, ``_pump_stream``, ``OnlineDecoder``,
+``PersistentOnlineDecoder``, ``read_markers``).
 A stream inlet is re-blocked into fixed ``packet_size`` packets; each packet
 is moved to the decoder's device once and decoded by one call of
 ``pipeline.make_online_step``; decoded spectrogram frames and int16 audio
 chunks come back to the host, and the audio goes to the sink through the
 bounded-drop queue.  Per-packet latency is traced for the closed loop's
-p99 < 10 ms budget.  The JAX package's ``PersistentOnlineDecoder`` (one
-device dispatch for the whole session) is not ported.
+p99 < 10 ms budget.  ``PersistentOnlineDecoder`` decodes a whole session
+as one device dispatch: on the card, one launch of a CUDA graph whose
+device-side while loop runs the step once per packet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import queue
 import threading
 
 import numpy as np
 import torch
 
+from ..ops import cuda_loop
 from . import pipeline
 from .audio import BufferSink
 from .streams import StreamInlet
@@ -98,6 +103,16 @@ def _pump_stream(inlet: StreamInlet, rebuf: PacketRebuffer, packet_size: int,
         if max_packets is not None and n >= max_packets:
             return n, "max_packets"
     return n, "stopped"
+
+
+def _check_complete(inlet, stream, n: int, why: str, max_packets) -> None:
+    """With ``max_packets``, a stream that closed or idled before that many
+    packets arrived raises: a sender that cut the stream short, or dropped
+    this subscriber for reading too slowly, is never a complete decode."""
+    if max_packets is not None and why in ("closed", "idle"):
+        raise RuntimeError(f"stream {getattr(inlet, 'name', stream)!r} ended after {n} of "
+                           f"{max_packets} packets ({why}): the sender stopped or dropped "
+                           "this decoder")
 
 
 class OnlineDecoder:
@@ -191,6 +206,11 @@ class OnlineDecoder:
         av = out["audio_valid"].cpu().numpy().reshape(-1)
         audio = audio.reshape(-1, audio.shape[-1])
         self.tracer.mark("step_done")
+        self._emit_rows(spec, sv, audio, av)
+
+    def _emit_rows(self, spec, sv, audio, av):
+        """Append the valid rows of one step's host outputs and write the
+        audio to the sink, after the init-table check."""
         n_blocks = len(self.audio_chunks) + int(av.sum())
         if self.n_rand_rows is not None and n_blocks > self.n_rand_rows:
             raise ValueError(f"the Griffin-Lim init table has {self.n_rand_rows} rows; "
@@ -260,10 +280,7 @@ class OnlineDecoder:
         rebuf = PacketRebuffer(self.cfg.packet_size, inlet.channels)
         n, why = _pump_stream(inlet, rebuf, self.cfg.packet_size, self.process_packet,
                               stop_event, max_packets, store_first_timestamp_to, idle_timeout)
-        if max_packets is not None and why in ("closed", "idle"):
-            raise RuntimeError(f"stream {getattr(inlet, 'name', stream)!r} ended after {n} of "
-                               f"{max_packets} packets ({why}): the sender stopped or dropped "
-                               "this decoder")
+        _check_complete(inlet, stream, n, why, max_packets)
         return self.results()
 
     def results(self):
@@ -278,6 +295,276 @@ class OnlineDecoder:
         logger.info("per-packet latency: p50=%.3fms p95=%.3fms p99=%.3fms",
                     p[50] * 1e3, p[95] * 1e3, p[99] * 1e3)
         return p
+
+
+class PersistentOnlineDecoder(OnlineDecoder):
+    """Whole-session decoding as ONE device dispatch (the JAX package's
+    ``PersistentOnlineDecoder``).
+
+    On the card, warmup records the online step as a CUDA graph
+    (``pipeline.capture_online_step``) and ``ops.cuda_loop.PersistentLoop``
+    puts it inside a device-side while loop: a session is one graph launch
+    that runs the step once per packet until it takes a STOP packet.
+    Packets enter and outputs leave through rings in mapped pinned host
+    memory, so the host touches the loop only at those two edges: a pump
+    thread moves fed packets from the host queue into free ring slots in
+    order (marking ``packet_in``), and ``run_until_stopped`` emits each
+    output as its done word appears (``step_done``, the init-table check,
+    the valid rows, the sink, ``audio_out``).  The step still runs on the
+    STOP packet; the masked commit (``pipeline.commit_carry``) keeps the
+    carry.  Outputs are bit-identical to ``OnlineDecoder``'s: the loop body
+    is the same step function.
+
+    On the CPU the same body runs as a host loop (pull from the queue, step,
+    masked commit, emit): the plain version of the loop.  A CUDA decoder
+    never takes it.
+
+    Feed with ``feed_packet`` / ``feed_stop`` (from another thread, or the
+    whole session beforehand: the queue is unbounded by default) and run
+    with ``run_until_stopped``, or use ``run_stream``.  Sessions resume:
+    each ``run_until_stopped`` continues from the carried state.  Any error
+    in the pump, the emitter or the feeder, and KeyboardInterrupt, sets the
+    loop's abort word; the loop ends at its next wait, its stream is waited
+    for and the error is raised, so no session leaves a kernel spinning.  If
+    packets were then in flight (the carry took a packet whose outputs were
+    not emitted, or a packet written into the ring was never taken), the
+    next session raises until ``reset()``."""
+
+    _STOP = cuda_loop.STOP
+    _DATA = cuda_loop.DATA
+    _POLL_S = 0.05  # how often a waiting host thread looks for errors and stop requests
+
+    def __init__(self, cfg: pipeline.DecoderConfig, dec_params, bad_channels=(),
+                 rand_source=0, sink=None, tracer=None, queue_size: int = 0):
+        super().__init__(cfg, dec_params, bad_channels=bad_channels, rand_source=rand_source,
+                         sink=sink, tracer=tracer)
+        self._queue = queue.Queue(maxsize=queue_size)
+        # serializes warmup and reset; feeders never need it, because the
+        # queue is never swapped (warmup writes its STOP packet straight
+        # into the ring, where the JAX class swaps in a private queue)
+        self._queue_lock = threading.Lock()
+        self._captured = None   # pipeline.CapturedStep, on the card after warmup
+        self._loop = None       # cuda_loop.PersistentLoop around it
+        self._seq = 0           # packets written into the ring, over every session
+        self._stale = False     # a session was aborted with packets in flight
+
+    # -- feeding -----------------------------------------------------------
+    def feed_packet(self, packet: np.ndarray):
+        """Enqueue one fixed-size raw packet (packet_size, all_channels)."""
+        self.received.append(packet)
+        self._queue.put((self._select(packet), self._DATA))
+
+    def feed_stop(self):
+        self._queue.put((np.zeros((self.cfg.packet_size, self.cfg.n_channels), np.float32),
+                         self._STOP))
+
+    def process_packet(self, packet: np.ndarray):
+        raise NotImplementedError(
+            "PersistentOnlineDecoder decodes inside one device dispatch: use "
+            "feed_packet()/feed_stop() + run_until_stopped() (or run_stream).")
+
+    # -- running -----------------------------------------------------------
+    def warmup(self):
+        """Build the loop outside the real-time path and run one stop-only
+        session.  On the card: record the step, build and instantiate the
+        loop's graph, and write a STOP packet straight into the ring (past
+        the queue).  On the CPU: one step on a STOP packet.  Queued packets
+        stay queued, nothing is emitted, and the masked commit leaves the
+        carry as it was.  ``feed_packet`` / ``feed_stop`` may run meanwhile:
+        their packets wait in the queue for the next session."""
+        P, C = self.cfg.packet_size, self.cfg.n_channels
+        stop = np.zeros((P, C), np.float32)
+        with self._queue_lock:
+            if self.device.type == "cpu":
+                new, _ = self.step(self.carry, self._to_device(stop))
+                pipeline.commit_carry(self.carry, new, torch.tensor(False))
+            else:
+                if self._loop is None:
+                    self._captured = pipeline.capture_online_step(self.params, self.cfg,
+                                                                  step=self.step)
+                    self.carry = self._captured.carry
+                    cap = self._captured
+                    self._loop = cuda_loop.PersistentLoop(
+                        cap.graph.raw_cuda_graph(), cap.packet, cap.is_data,
+                        [cap.outputs[k] for k in ("spec", "spec_valid", "audio", "audio_valid")])
+                self._session(lambda loop, halt: self._publish(loop, stop, self._STOP, halt),
+                              emit=False)
+        self._warm = True
+
+    def run_until_stopped(self):
+        """Run one session: decode the queued (and still arriving) packets
+        until a STOP packet; returns ``results()``.  Call ``feed_packet`` /
+        ``feed_stop`` from another thread, or enqueue everything beforehand."""
+        self._check_not_stale()
+        if not self._warm:
+            self.warmup()
+        if self._loop is None:
+            return self._run_host_loop()
+        self._session(self._pump, emit=True)
+        return self.results()
+
+    def _check_not_stale(self):
+        if self._stale:
+            raise RuntimeError("PersistentOnlineDecoder: the last session ended with packets in "
+                               "flight (decoded but not emitted, or received but not decoded); "
+                               "call reset()")
+
+    def _run_host_loop(self):
+        """The loop's plain version, on the CPU: the JAX loop body per packet."""
+        while True:
+            packet, flag = self._queue.get()
+            if flag == self._DATA:
+                self.tracer.mark("packet_in")
+            new, out = self.step(self.carry, self._to_device(packet))
+            pipeline.commit_carry(self.carry, new, torch.tensor(flag == self._DATA))
+            if flag != self._DATA:
+                return self.results()
+            self._stale = True
+            self._emit(out)
+            self._stale = False
+
+    def _session(self, feed, emit: bool):
+        """One graph launch: ``feed(loop, halt)`` runs in a pump thread and
+        writes packets into the ring until it has written a STOP packet;
+        this thread reads each output as it lands (``emit``: hands it to
+        ``_emit_rows``) until the STOP iteration's.  Every way out of here
+        that is not that STOP sets the abort word, waits for the loop's
+        stream and re-raises; if the device had decoded data packets whose
+        outputs were not emitted, or had not taken every packet written into
+        the ring, the decoder is stale until ``reset()``."""
+        loop, halt, errors = self._loop, threading.Event(), []
+
+        def pump():
+            try:
+                feed(loop, halt)
+            except BaseException as e:  # raised in the caller below
+                errors.append(e)
+                loop.abort()
+
+        thread = threading.Thread(target=pump, daemon=True)
+        clean = False
+        try:
+            loop.launch()
+            thread.start()
+            seq = loop.consumed
+            while True:
+                seq += 1
+                while (rc := loop.wait_done(seq, self._POLL_S)) != cuda_loop.DONE:
+                    if errors:
+                        raise errors[0]
+                    if rc == cuda_loop.ABORTED:
+                        raise RuntimeError("persistent loop aborted")
+                slot = loop.slot(seq)
+                if int(loop.flags[slot]) != self._DATA:
+                    loop.release(seq)
+                    break
+                self.tracer.mark("step_done")
+                if emit:
+                    self._emit_rows(*(np.array(o[slot]) for o in loop.outputs))
+                loop.release(seq)
+            clean = True
+        finally:
+            halt.set()
+            if not clean:
+                loop.abort()
+            if thread.is_alive():
+                thread.join()
+            unread = loop.finish(aborted=not clean)
+            self._stale = unread > 0 or self._seq > loop.taken
+            self._seq = loop.taken
+        if errors:
+            raise errors[0]
+
+    def _publish(self, loop, packet, flag, halt) -> bool:
+        """Write the next packet into the ring once its slot is free; False
+        when the session was aborted or halted first."""
+        seq = self._seq + 1
+        while (rc := loop.wait_free(seq, self._POLL_S)) != cuda_loop.DONE:
+            if rc == cuda_loop.ABORTED or halt.is_set():
+                return False
+        if flag == self._DATA:
+            self.tracer.mark("packet_in")
+        loop.publish(seq, packet, flag)
+        self._seq = seq
+        return True
+
+    def _pump(self, loop, halt):
+        """The session's pump thread: queued packets into the ring, in order,
+        up to and including the first STOP packet."""
+        while not halt.is_set():
+            try:
+                packet, flag = self._queue.get(timeout=self._POLL_S)
+            except queue.Empty:
+                continue
+            if not self._publish(loop, packet, flag, halt) or flag != self._DATA:
+                return
+
+    def reset(self):
+        """Reset the streaming state for a new session: the static carry is
+        rewritten in place (the loop's graph holds its addresses), queued
+        packets are dropped, the outputs cleared and a stale carry (after an
+        aborted session) is usable again."""
+        with self._queue_lock:
+            while True:
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    break
+        fresh = pipeline.init_online_carry(self.params, self.cfg)
+        for field in dataclasses.fields(pipeline.OnlineCarry):
+            getattr(self.carry, field.name).copy_(getattr(fresh, field.name))
+        self.spec_frames, self.audio_chunks, self.received = [], [], []
+        self._stale = False
+
+    def run_stream(self, stream, stop_event: threading.Event | None = None,
+                   max_packets: int | None = None, store_first_timestamp_to: str | None = None,
+                   backend=None, idle_timeout: float = 30.0):
+        """Pull from a live stream until stopped: the persistent twin of
+        ``OnlineDecoder.run_stream``.  The loop is warmed up before a named
+        stream is subscribed to; a feeder thread re-blocks inlet chunks into
+        packets and feeds them, and always feeds STOP when it ends, so a
+        feeder crash releases the loop and is raised here.  With
+        ``max_packets``, a stream that closes or idles short raises."""
+        self._check_not_stale()
+        if not self._warm:
+            self.warmup()
+        inlet = StreamInlet(stream, backend=backend) if isinstance(stream, str) else stream
+        rebuf = PacketRebuffer(self.cfg.packet_size, inlet.channels)
+        done = threading.Event()
+        stopped = _AnySet(stop_event, done)
+        feeder_error = []
+
+        def feeder():
+            try:
+                n, why = _pump_stream(inlet, rebuf, self.cfg.packet_size, self.feed_packet,
+                                      stopped, max_packets, store_first_timestamp_to,
+                                      idle_timeout)
+                _check_complete(inlet, stream, n, why, max_packets)
+            except BaseException as e:  # raised in the caller after join
+                feeder_error.append(e)
+            finally:
+                self.feed_stop()
+
+        t = threading.Thread(target=feeder, daemon=True)
+        t.start()
+        try:
+            out = self.run_until_stopped()
+        finally:
+            done.set()
+            t.join()
+        if feeder_error:
+            raise feeder_error[0]
+        return out
+
+
+class _AnySet:
+    """An event view that is set when any of its events is (None: never)."""
+
+    def __init__(self, *events):
+        self.events = [e for e in events if e is not None]
+
+    def is_set(self) -> bool:
+        return any(e.is_set() for e in self.events)
 
 
 def read_markers(run_dir: str, stream_name: str = "SingleWordsMarkerStream",

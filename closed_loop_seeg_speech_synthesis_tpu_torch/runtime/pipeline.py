@@ -5,7 +5,9 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/pipeline.py``:
 ``_exact_smooth_fields``, ``_streaming_filter_chain``, ``_frames_to_mel``,
 ``offline_decode`` (what its front half builds per input length can be
 built once: ``MelPlan``), ``OnlineCarry``, ``init_online_carry``,
-``make_online_step`` and ``make_online_multi_step``.
+``make_online_step`` and ``make_online_multi_step``; and, for the
+persistent loop, ``commit_carry`` and ``capture_online_step`` (the step
+recorded as a CUDA graph).
 
 * ``offline_decode`` decodes a recorded session as one batch.  The
   reference's streaming output is chunk-size invariant (filters carry state,
@@ -536,3 +538,67 @@ def make_online_multi_step(params: DecoderParams, cfg: DecoderConfig, rand_sourc
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return multi
+
+
+# ---------------------------------------------------------------------------
+# The persistent loop's step: the online step recorded as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def commit_carry(carry: OnlineCarry, new: OnlineCarry, is_data: torch.Tensor) -> None:
+    """Write ``new`` into ``carry``'s own tensors where the 0-d bool
+    ``is_data`` is true and keep them where it is false: the persistent
+    loop's masked commit (the JAX loop body's ``where(is_data, new_carry,
+    carry)``, runtime/online.py:365-367), in place, so that a captured graph
+    keeps reading and writing the same addresses."""
+    for field in dataclasses.fields(OnlineCarry):
+        old = getattr(carry, field.name)
+        old.copy_(torch.where(is_data, getattr(new, field.name), old))
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """The online step recorded once, with the static buffers it reads and
+    writes.  ``graph`` is the ``torch.cuda.CUDAGraph`` (``keep_graph=True``):
+    its ``raw_cuda_graph()`` is what the persistent loop runs, and it holds
+    the private memory pool of every tensor made inside the recording, so it
+    must live as long as the loop."""
+
+    graph: Any
+    packet: torch.Tensor    # (packet_size, n_channels) in cfg.dtype
+    is_data: torch.Tensor   # int32: 1 for a data packet, 0 for STOP
+    carry: OnlineCarry      # the streaming state, committed in place
+    outputs: dict           # 'spec', 'spec_valid', 'audio', 'audio_valid'
+    k4_nodes: int           # K4 launches recorded (gl_blocks wrapper calls in the recording)
+
+
+def capture_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0,
+                        step=None) -> CapturedStep:
+    """Record ``step(carry, packet)``, the masked commit of its new carry into
+    the static carry and the copies of its outputs into static buffers as
+    one CUDA graph, after two warm-up runs on a side stream (which load every
+    kernel and cuBLAS's workspace before the recording).  ``step`` reuses the
+    caller's ``make_online_step``; its arithmetic is not touched."""
+    dev = params.device
+    if dev.type != "cuda":
+        raise ValueError(f"capture_online_step records a CUDA graph; the params lie on {dev}")
+    step = step or make_online_step(params, cfg, rand_source)
+    packet = torch.zeros((cfg.packet_size, cfg.n_channels), dtype=cfg.dtype, device=dev)
+    is_data = torch.zeros((), dtype=torch.int32, device=dev)
+    carry = init_online_carry(params, cfg)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _, out = step(carry, packet)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    outputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in out.items()}
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    k4 = gl_blocks.launches
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        new, out = step(carry, packet)
+        commit_carry(carry, new, is_data != 0)
+        for k, v in out.items():
+            outputs[k].copy_(v)
+    return CapturedStep(graph=graph, packet=packet, is_data=is_data, carry=carry, outputs=outputs,
+                        k4_nodes=gl_blocks.launches - k4)

@@ -474,3 +474,159 @@ def test_exp2_chance_segment_kernels_match_plain(rs, cuda_device, iterations, ph
     assert a_k.shape == a_p.shape == (B * 160,)
     off = int(((a_k.long() - a_p.long()).abs() > 1).sum())
     assert off <= (0 if iterations == 0 else 0.001 * B * 160), off
+
+
+def _persistent_session(dec, packets, timeout=120.0):
+    """One session of the persistent loop over ``packets``; a watchdog sets
+    the loop's abort word after ``timeout`` s, so a fault fails the test
+    instead of leaving it waiting."""
+    import threading
+
+    for p in packets:
+        dec.feed_packet(p)
+    dec.feed_stop()
+    timer = threading.Timer(timeout, lambda: dec._loop.abort())
+    timer.start()
+    try:
+        return dec.run_until_stopped()
+    finally:
+        timer.cancel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,dtype,use_cuda_gl", [(16, torch.float32, True),
+                                                 (128, torch.float32, True),
+                                                 (16, torch.float32, False),
+                                                 (16, torch.float64, True)])
+def test_persistent_loop_bit_identical_to_online_decoder(rs, cuda_device, C, dtype, use_cuda_gl):
+    """200 packets through OnlineDecoder and through the persistent loop:
+    every output bit-equal; the session is one graph launch of 201
+    iterations (the STOP included).  In float32 K4 sits in the captured
+    step; the plain Griffin-Lim and the float64 step (the plain path, with
+    the exact smoothing table) are recorded as well."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_loop
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C, dtype, use_cuda_gl=use_cuda_gl)
+    k4_step = use_cuda_gl and dtype == torch.float32
+    packets = [rs.randn(32, C).astype(np.float32) * 10 for _ in range(200)]
+    ref = online.OnlineDecoder(cfg, dec)
+    for p in packets:
+        ref.process_packet(p)
+    pers = online.PersistentOnlineDecoder(cfg, dec)
+    pers.warmup()
+    # K4's node in the recorded step, launched once in each iteration
+    assert pers._captured.k4_nodes == (1 if k4_step else 0)
+    sessions, iterations = cuda_loop.sessions, cuda_loop.iterations
+    out = _persistent_session(pers, packets)
+    assert cuda_loop.sessions == sessions + 1 and cuda_loop.iterations == iterations + 201
+    for a, b in zip(ref.results(), out):
+        np.testing.assert_array_equal(a, b)
+    assert len(out[0]) > 0 and len(out[1]) > 0
+
+
+@pytest.mark.cuda
+def test_persistent_loop_reset_between_sessions(rs, cuda_device):
+    """reset() rewrites the static carry in place: the session after it
+    decodes as the first one did."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, 16)
+    packets = [rs.randn(32, 16).astype(np.float32) * 10 for _ in range(60)]
+    pers = online.PersistentOnlineDecoder(cfg, dec)
+    first = _persistent_session(pers, packets)
+    pers.reset()
+    second = _persistent_session(pers, packets)
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_persistent_loop_errors_return_and_the_card_stays_usable(rs, cuda_device):
+    """A feeder that raises after 2 packets: run_stream returns its error
+    within seconds.  A session aborted while its loop waits for a packet:
+    a matmul on another stream completes while it waits and after the
+    abort, and after reset() the next session decodes as an OnlineDecoder
+    does."""
+    import threading
+    import time
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    C = 16
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    pers = online.PersistentOnlineDecoder(cfg, dec)
+
+    class Broken:
+        channels, nominal_srate, calls = C, 1024, 0
+
+        def pull_chunk(self, max_samples=64, timeout=0.25):
+            self.calls += 1
+            if self.calls > 2:
+                raise OSError("amplifier link dropped")
+            return rs.randn(32, C).astype(np.float32), 1.0
+
+    t0 = time.time()
+    with pytest.raises(OSError, match="amplifier link"):
+        pers.run_stream(Broken(), max_packets=64)
+    assert time.time() - t0 < 10 and len(pers.received) == 2
+
+    # nothing may allocate device memory while a loop waits (an allocation
+    # can wait for the device, which waits for the host): the matmul's
+    # cuBLAS workspace on its stream and its output block come first
+    side = torch.cuda.Stream(cuda_device)
+    a = torch.randn(512, 512, device=cuda_device)
+    expected = (a.double() @ a.double()).float()
+    with torch.cuda.stream(side):
+        a @ a
+    torch.cuda.synchronize()
+    errors = []
+    runner = threading.Thread(target=lambda: errors.append(
+        pytest.raises(RuntimeError, pers.run_until_stopped)))
+    runner.start()
+    time.sleep(0.5)  # the loop now spins in wait_packet_kernel
+    for _ in range(2):
+        with torch.cuda.stream(side):
+            b = a @ a
+            done = torch.cuda.Event()
+            done.record(side)
+        deadline = time.time() + 10
+        while not done.query() and time.time() < deadline:
+            time.sleep(0.001)
+        completed = done.query()
+        if runner.is_alive():
+            pers._loop.abort()
+            runner.join(timeout=10)
+        assert completed and torch.allclose(b, expected, rtol=1e-3, atol=1e-3)
+    assert not runner.is_alive() and len(errors) == 1
+    ref = online.OnlineDecoder(cfg, dec)
+    packets = [rs.randn(32, C).astype(np.float32) for _ in range(20)]
+    for p in packets:
+        ref.process_packet(p)
+    pers.reset()
+    for a_ref, a_pers in zip(ref.results(), _persistent_session(pers, packets)):
+        np.testing.assert_array_equal(a_ref, a_pers)
+
+
+@pytest.mark.cuda
+def test_persistent_loop_emitter_error_leaves_it_stale_until_reset(rs, cuda_device):
+    """The emitter raises on the first block past a short init table while
+    the device has decoded packets ahead of it: the abort ends the session,
+    the next session raises until reset(), and after it the loop (its abort
+    word cleared) decodes as a fresh decoder with the same table."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    rows, C = 20, 16
+    table = pipeline.gl.default_rand_init(rows)
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    pers = online.PersistentOnlineDecoder(cfg, dec, rand_source=table)
+    packets = [rs.randn(32, C).astype(np.float32) * 10 for _ in range(40)]
+    with pytest.raises(ValueError, match=f"has {rows} rows"):
+        _persistent_session(pers, packets)
+    with pytest.raises(RuntimeError, match="call reset"):
+        pers.run_until_stopped()
+    pers.reset()
+    fresh = online.PersistentOnlineDecoder(cfg, dec, rand_source=table)
+    for a, b in zip(_persistent_session(pers, packets[:4]),
+                    _persistent_session(fresh, packets[:4])):
+        np.testing.assert_array_equal(a, b)

@@ -23,6 +23,7 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp2 as t_exp2
 from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as t_session
 from closed_loop_seeg_speech_synthesis_tpu_torch.parallel import distributed as t_dist
 from closed_loop_seeg_speech_synthesis_tpu_torch.parallel import sharded as t_sharded
+from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online as t_online
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import streams as t_streams
@@ -85,7 +86,7 @@ def _case(name, monkeypatch, tmp_path, seen):
         eeg = np.zeros((2048, 4))
         return (lambda cpu: t_decode.perform_offline_decoding(
             _loaded(4), eeg, 1024, 10.0, **({"device": "cpu"} if cpu else {}))), RuntimeError
-    if name == "perform_online_decoding":
+    if name in ("perform_online_decoding", "perform_online_decoding persistent"):
         monkeypatch.setattr(t_decode, "_build_decoder", _decoder_stand_in(seen))
         monkeypatch.setattr(t_streams, "stream_info", lambda *a, **k: (4, 1024.0))
         monkeypatch.setattr(t_streams, "StreamInlet", _Inlet)
@@ -93,7 +94,21 @@ def _case(name, monkeypatch, tmp_path, seen):
         config["Decoding"] = {"stream_name": "x"}
         return (lambda cpu: t_decode.perform_online_decoding(
             config, _loaded(4), 10, str(tmp_path), max_packets=1,
+            persistent=name.endswith("persistent"),
             **({"device": "cpu"} if cpu else {}))), RuntimeError
+    if name == "PersistentOnlineDecoder":
+        def make_step(params, cfg, rand_source=0):
+            seen.append(params.device)
+            raise _Reached
+        monkeypatch.setattr(t_pipe, "make_online_step", make_step)
+        loaded = _loaded(4)
+        cfg = t_pipe.DecoderConfig(sr=1024.0, n_channels=4, dtype=torch.float64)
+
+        def call(cpu):
+            dec = t_pipe.build_decoder_params(cfg, loaded["lda"], loaded["medians"],
+                                              loaded["select"], **({"device": "cpu"} if cpu else {}))
+            t_online.PersistentOnlineDecoder(cfg, dec).warmup()
+        return call, RuntimeError
     if name == "Experiment1":
         def runner(*args, device=None, **kwargs):
             seen.append(torch.device(device))
@@ -162,6 +177,7 @@ def _case(name, monkeypatch, tmp_path, seen):
 
 @pytest.mark.parametrize("name", ["decode CLI", "train CLI", "evaluate CLI",
                                   "perform_offline_decoding", "perform_online_decoding",
+                                  "perform_online_decoding persistent", "PersistentOnlineDecoder",
                                   "trainer.train", "train_decode_fold", "Experiment1",
                                   "evaluate CLI exp2", "Experiment2", "make_sharded_train_step",
                                   "distributed_train", "dryrun_dcn", "dryrun_dcn_train"])

@@ -38,6 +38,20 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import tracing as t_tra
 RATES = [(1024.0, 32), (2048.0, 64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The step's ops are tiny: on one thread each runs inline, where under
+    a loaded test machine (several test processes on a few cores) every
+    parallel region waits for threads that are not scheduled and a test of
+    a second takes minutes.  The thread count is restored after the file."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrays(rng, C, n_feats=16, bad=()):
     return dict(lda_coef=rng.randn(40, 9, n_feats) * 0.3, lda_intercept=rng.randn(40, 9),
                 lda_classes=np.tile(np.arange(9, dtype=np.int32), (40, 1)),

@@ -27,6 +27,20 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pi
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The decoders' ops are small here: on one thread each runs inline,
+    where under a loaded test machine (several test processes on a few
+    cores) every parallel region waits for threads that are not scheduled.
+    The thread count is restored after the file."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _session_arrays(rng, C_total, bad, n_feats=20):
     C = C_total - len(bad)
     valid = np.ones((40, 9), bool)
@@ -128,17 +142,84 @@ def _cli_config(tmp_path):
     return cfg_path
 
 
-@pytest.mark.parametrize("argv", [["--persistent"], ["--vocoder", "exact-host"],
+@pytest.mark.parametrize("argv", [["--vocoder", "exact-host"],
                                   ["--profile", "{config}"], ["--dispatch-chunk", "0"]])
 def test_decode_cli_rejects_unported_modes(tmp_path, argv):
-    """--persistent is not ported, the exact-host vocoder re-synthesizes an
-    offline decode only (this config decodes a live stream), --profile
-    takes a directory (here an existing file), and a dispatch chunk must
-    hold a packet: the CLI says so and stops."""
+    """The exact-host vocoder re-synthesizes an offline decode only (this
+    config decodes a live stream), --profile takes a directory (here an
+    existing file), and a dispatch chunk must hold a packet: the CLI says so
+    and stops."""
     config = str(_cli_config(tmp_path))
     with pytest.raises(SystemExit) as exc:
         t_decode.main([config, "--device", "cpu", *(a.format(config=config) for a in argv)])
     assert exc.value.code == 2
+
+
+@pytest.mark.parametrize("extra", [[], ["--dispatch-chunk", "4"]])
+def test_decode_cli_persistent_decodes_a_streamed_session(rng, tmp_path, monkeypatch, extra):
+    """``--persistent`` online: the port's dev streamer sends a session over
+    NSX, the CLI decodes it with the persistent loop (its host loop on the
+    CPU) and writes its artifacts; the received sEEG is what was sent and
+    the spectrogram and audio are a direct OnlineDecoder run's.  With
+    ``--dispatch-chunk 4`` the CLI warns that K is a per-packet knob and
+    ignores it."""
+    import threading
+
+    import h5py
+    import torch
+    from scipy.io import wavfile
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import dev_streamer as t_streamer
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online as t_online
+
+    monkeypatch.setenv("NSX_REGISTRY_DIR", str(tmp_path / "nsx"))
+    (tmp_path / "nsx").mkdir()
+    sr, C, n_packets = 1024, 5, 48
+    arrs = _session_arrays(rng, C, [])
+    (tmp_path / "demo").mkdir()
+    with h5py.File(tmp_path / "demo" / "params.h5", "w") as hf:
+        hf.create_dataset("bad_channels", data=np.zeros(0, np.int64))
+        hf.create_dataset("medians_array", data=arrs["medians"])
+        hf.create_dataset("select", data=np.asarray(arrs["select"], np.int64))
+        for name in ("lda_coef", "lda_intercept", "lda_classes", "lda_valid"):
+            hf.create_dataset(name, data=arrs[name])
+    streamed = (rng.randn(n_packets * 32, C) * 10.0).astype(np.float32)
+    result, errors = {}, []
+
+    def decode():
+        try:
+            result["run_dir"] = t_decode.main(
+                [str(_cli_config(tmp_path)), "--persistent", "--device", "cpu", "--backend", "nsx",
+                 "--max_packets", str(n_packets), *extra])
+        except BaseException as e:  # surfaced by the assertion below
+            errors.append(e)
+
+    t = threading.Thread(target=decode)
+    t.start()
+    t_streamer.stream_eeg(streamed, sr, "dev_sEEG", asap=True, backend="nsx",
+                          wait_for_consumers=60.0)
+    t.join(timeout=240)
+    assert not t.is_alive() and not errors, errors
+    run_dir = result["run_dir"]
+    for f in ["audio.wav", "sEEG.hdf", "spectrogram.npy", "decode.ini", "decode.log"]:
+        assert os.path.exists(os.path.join(run_dir, f)), f
+    with h5py.File(os.path.join(run_dir, "sEEG.hdf"), "r") as hf:
+        np.testing.assert_array_equal(hf["sEEG"][:], streamed)
+    loaded = t_params.from_arrays(**arrs)
+    cfg = t_pipe.DecoderConfig(sr=float(sr), n_channels=C, gl_norm=10.0, dtype=torch.float64)
+    dec = t_pipe.build_decoder_params(cfg, loaded["lda"], loaded["medians"], loaded["select"],
+                                      device="cpu")
+    ref = t_online.OnlineDecoder(cfg, dec)
+    for i in range(n_packets):
+        ref.process_packet(streamed[32 * i : 32 * (i + 1)])
+    spec_r, audio_r, _ = ref.results()
+    np.testing.assert_array_equal(np.load(os.path.join(run_dir, "spectrogram.npy")), spec_r)
+    rate, audio = wavfile.read(os.path.join(run_dir, "audio.wav"))
+    assert rate == 16000
+    np.testing.assert_array_equal(audio, audio_r)
+    with open(os.path.join(run_dir, "decode.log")) as f:
+        warned = "per-packet-mode knob" in f.read()
+    assert warned == bool(extra)
 
 
 def test_decode_cli_device_cuda_needs_a_gpu(tmp_path, monkeypatch):
@@ -189,6 +270,7 @@ def test_port_imports_no_jax():
             "closed_loop_seeg_speech_synthesis_tpu_torch.runtime.nsx, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_loop, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.host_vocoder, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.evaluate, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.eval.exp1, "
