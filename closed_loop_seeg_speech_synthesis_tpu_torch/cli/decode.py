@@ -21,8 +21,8 @@ matplotlib is installed, and online first_timestamp.npy and markers.csv.
 falls back to the CPU, which runs only with ``--device cpu``.
 ``--vocoder exact-host`` (offline mode) re-synthesizes the audio of the
 decoded spectrogram with the numpy ``ops/host_vocoder`` (the reference node's
-emission grid), its phase inits from ``--rand_init`` or the block-indexed
-inits of seed 0, where the JAX CLI draws threefry values.  ``--profile DIR``
+emission grid), its phase inits from ``--rand_init`` or, as the JAX CLI
+draws them, the float64 rows of ``PRNGKey(0)``.  ``--profile DIR``
 records the decode with ``torch.profiler`` (CPU activity, and CUDA activity
 on the card) and writes a Chrome trace, ``DIR/trace.json``.  ``--persistent``
 (online mode) decodes the session as one device dispatch
@@ -94,13 +94,17 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
     are further DecoderConfig fields.  Returns (spectrogram, audio) tensors
     plus the input and its rate.
 
+    ``seed`` (an int seed, meaning ``PRNGKey(seed)``, or a key pair) keys
+    the Griffin-Lim inits when ``rand_init`` is None: the JAX CLI's draws of
+    its default ``PRNGKey(0)``, in the decode's dtype.
+
     ``vocoder="exact-host"`` runs the front end on ``device`` and
     re-synthesizes the audio on the host with
     ``ops.host_vocoder.decode_audio_exact`` (byte-equal to the JAX package's
-    given the same inits): its inits are ``rand_init`` or the block-indexed
-    inits of ``seed`` in float64 (not the JAX CLI's threefry draws); the
-    audio comes back as a CPU int16 tensor.  The spectrogram is the same
-    either way."""
+    given the same inits): its inits are ``rand_init`` or the float64 rows
+    of ``seed``, as the JAX CLI draws them (on ``device``: the kernel draws
+    the same bits as the CPU); the audio comes back as a CPU int16 tensor.
+    The spectrogram is the same either way."""
     if vocoder not in ("device", "exact-host"):
         raise ValueError(f"vocoder must be 'device' or 'exact-host'; got {vocoder!r}")
     device = pipeline.resolve_device(device)
@@ -119,7 +123,8 @@ def perform_offline_decoding(loaded, eeg, sfreq, gl_norm, dtype=None, device=Non
         spec = pipeline._mel_frames(dec, cfg, used)
         spec_np = spec.cpu().numpy().astype(np.float64)
         rows = (np.asarray(rand_init, np.float64) if rand_init is not None else
-                gl.default_rand_init(spec_np.shape[0] - 1, 0, seed, torch.float64).numpy())
+                gl.default_rand_init(spec_np.shape[0] - 1, 0, seed, torch.float64,
+                                     device).cpu().numpy())
         audio = torch.from_numpy(decode_audio_exact(spec_np, rows, norm_factor=float(gl_norm)))
         logger.info("Exact-host vocoder: %d samples (reference-exact emission grid)", len(audio))
     logger.info("Decoding completed.")
@@ -138,7 +143,8 @@ def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
     as one device dispatch (``online.PersistentOnlineDecoder``), where
     ``chunk_steps`` has no meaning and is ignored with a warning.
     ``rand_init``: a (n_blocks, 480) table of Griffin-Lim inits indexed by
-    global block index; by default the block-indexed inits of seed 0.
+    global block index; by default the JAX decoder's draws of
+    ``PRNGKey(0)`` by global block index.
     Returns (spectrogram, audio, received sEEG, rate) as numpy arrays.
 
     The stream's rate and channel count are read without subscribing; the
@@ -237,7 +243,7 @@ def main(argv=None):
     parser.add_argument("--rand_init", metavar="NPY", default=None,
                         help="Griffin-Lim inits, one 480-sample row per block (offline: "
                              "(n_frames-1, 480); online: indexed by global block index); "
-                             "default: block-indexed inits of seed 0.")
+                             "default: the JAX package's draws of PRNGKey(0).")
     parser.add_argument("--backend", choices=["lsl", "nsx"], default=None,
                         help="online: stream transport (default lsl when pylsl imports)")
     parser.add_argument("--max_packets", type=int, default=None,

@@ -13,7 +13,8 @@ kernel K1, every proposed fold's vocoder K2); ``device="cpu"`` runs the
 float64 path the tests hold to the JAX package.  The session comes from
 ``session_dir`` (``speech1.hdf`` and ``params.h5``, read with h5py) or, where
 h5py is not installed, as a ``Session`` and the bad channels given as arrays.
-Griffin-Lim inits are the port's SplitMix64 values (``exp1_batched``).
+Griffin-Lim inits are the JAX package's: ``PRNGKey(k)`` for fold k through
+``train_decode_fold``, ``fold_in(key, k)`` in the batched folds.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from scipy.io.wavfile import write as wavwrite
 from scipy.signal import decimate
 
 from ..io.session import Session
+from ..ops import prng
 from ..ops.spectrogram import compute_spectrogram
 from ..runtime import pipeline, trainer
 from . import exp1_batched
@@ -46,9 +48,9 @@ def train_decode_fold(k, eeg_train, audio_train, eeg_test, spec_test, eeg_sr, au
                       nb_feats=150, device=None):
     """One fold: full retrain + offline decode of the held-out sEEG on
     ``device`` (default the card).  The Griffin-Lim inits are ``rand_init``
-    or those of ``seed`` (default: the fold id ``k``, as the JAX package
-    keys fold k with PRNGKey(k)).  Returns (k, spectrogram, spec_test,
-    audio) as numpy arrays."""
+    or those of ``seed``, an int seed or a key pair (default: the fold id
+    ``k``, as the JAX package keys fold k with PRNGKey(k)).  Returns (k,
+    spectrogram, spec_test, audio) as numpy arrays."""
     device = pipeline.resolve_device(device)
     dtype = dtype or pipeline.default_compute_dtype(device)
     logger.info("Processing Fold k=%d", k)
@@ -152,7 +154,8 @@ class Experiment1:
         """The folds through one proposed runner per fold shape (uniform
         KFold: one), ``fold_batch`` folds staged at a time.  Fold k's inits
         are ``rand_inits[i]`` (i its place in ``args``) or those of
-        ``fold_in(seed, k)``."""
+        ``fold_in(seed, k)``, ``seed`` an int seed (``PRNGKey(seed)``) or a
+        key pair, as the JAX package keys them."""
         groups = {}  # shape key -> [(place in args, fold args)]
         for i, a in enumerate(args):
             groups.setdefault((a[1].shape, a[3].shape, float(a[8])), []).append((i, a))
@@ -186,7 +189,7 @@ class Experiment1:
                 reco_b, audio_b = runner(
                     xts, xes, qs, yms, meds,
                     rand_inits=None if rand_inits is None else [rand_inits[i] for i, _ in chunk],
-                    seeds=[exp1_batched.fold_in(seed, a[0]) for _, a in chunk], timings=timings)
+                    seeds=[prng.fold_in(seed, a[0]) for _, a in chunk], timings=timings)
                 reco_b, audio_b = reco_b.cpu().numpy(), audio_b.cpu().numpy()
                 for j, (i, a) in enumerate(chunk):
                     recos[i], origs[i], wavs[i] = reco_b[j], a[4], audio_b[j]

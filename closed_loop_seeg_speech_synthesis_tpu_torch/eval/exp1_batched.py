@@ -16,11 +16,10 @@ the training and decode frame grids.  The JAX runners map their runs one
 after another (``lax.map``); so do these, in a Python loop.
 
 Griffin-Lim inits: a proposed-method run takes an explicit ``rand_init``
-table or an integer seed, whose inits are ``griffinlim.default_rand_init``
-values (SplitMix64 keyed by (seed, block index), not the JAX package's
-threefry draws; pass the JAX inits to reproduce its audio).  ``fold_in``
-derives the seeds as the JAX package derives its keys.  Chance runs stop at
-the mel frames and draw no inits.
+table, or an int seed or key pair whose inits are
+``griffinlim.default_rand_init``'s, the JAX package's threefry draws of that
+key (``exp1.Experiment1`` passes ``prng.fold_in(key, k)`` as the JAX package
+does).  Chance runs stop at the mel frames and draw no inits.
 """
 
 from __future__ import annotations
@@ -37,19 +36,6 @@ from ..ops import framing, iir, quantization
 from ..ops import griffinlim as gl
 from ..ops.spectrogram import compute_spectrogram
 from ..runtime import pipeline, trainer
-
-_M64 = 2**64 - 1
-
-
-def fold_in(seed: int, data: int) -> int:
-    """A seed derived from ``seed`` and ``data``: the SplitMix64 output of
-    ``seed`` advanced ``data + 1`` steps (the port's stand-in for
-    ``jax.random.fold_in``; a different value)."""
-    z = (int(seed) + (int(data) + 1) * 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
-
 
 def fold_targets(y_train_audio, n_mel=40, nb_intervals=9):
     """Fold-constant training targets (audio never shifts, exp1.py:94-99):
@@ -139,9 +125,10 @@ class FoldRunner:
         sEEG, q (n, n_mel) labels, y_mean (n,), medians (n_mel, k): tensors
         on the runner's device (``put``).  Returns (spectrogram (n_frames,
         n_mel), int16 audio ((n_frames - 1) * 160,) or None without
-        ``audio``).  ``timings`` sums milliseconds by stage into a dict
-        (``trainer.StageClock``): features, selection, lda_fit, decode (the
-        mel frames), vocoder."""
+        ``audio``); the inits are ``rand_init`` or the draws of ``seed`` (an
+        int seed or a key pair).  ``timings`` sums milliseconds by stage
+        into a dict (``trainer.StageClock``): features, selection, lda_fit,
+        decode (the mel frames), vocoder."""
         clock = trainer.StageClock(timings, self.device)
         params = self.fit(xt, q, y_mean, medians, shift, clock)
         # offline_decode's two halves, timed apart; chance runs stop after the first
@@ -183,8 +170,8 @@ def make_proposed_runner(train_len, test_len, n_channels, eeg_sr, norm_factor, n
     Returns (runner, n_frames) with ``runner(xts, xes, qs, y_means,
     medians, rand_inits=None, seeds=None, timings=None) -> (reco (K,
     n_frames, n_mel), audio (K, (n_frames - 1) * 160))`` over K folds in
-    order; fold j takes ``rand_inits[j]`` or the inits of ``seeds[j]``
-    (default 0)."""
+    order; fold j takes ``rand_inits[j]`` or the inits of ``seeds[j]``, an
+    int seed or a key pair (default 0, ``PRNGKey(0)``)."""
     one = FoldRunner(train_len, test_len, n_channels, eeg_sr, norm_factor, nb_feats,
                      nb_intervals, n_mel, line_noise, dtype=dtype, device=device)
 

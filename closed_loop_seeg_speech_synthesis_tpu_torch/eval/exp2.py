@@ -19,9 +19,8 @@ the JAX package's order, so they are the same indices.  The session, the
 decoding run, the other-task sEEG and the model come from files
 (``session_dir``, ``run_dir``, ``other_tasks``, ``params.h5``) or, where
 h5py is not installed, as objects and arrays.  Griffin-Lim inits of the
-sequential twin are the port's SplitMix64 values of seed i for segment i
-(the JAX package keys it with ``PRNGKey(i)``); the score depends only on
-the spectrogram.
+sequential twin are the JAX package's draws of ``PRNGKey(i)`` for segment
+i; the score depends only on the spectrogram.
 """
 
 from __future__ import annotations

@@ -9,13 +9,13 @@ window-sum normalization, 160 samples per frame.  The reference's phase term
 is ``exp(angle(x))`` without the ``1j`` (GriffinLim.py:93), kept behind
 ``phase_bug=True``.
 
-Deviation: ``default_rand_init`` keys block b's 480 inits by (seed, b)
-alone, as the JAX package's ``fold_in(key, b)`` does, so an online decoder
-that draws a few blocks per packet and an offline decode of the same session
-agree; but it uses a counter-based SplitMix64 hash, not JAX's threefry, so
-the same seed gives other waveforms than the JAX package.  Every entry point
-also takes ``rand_init`` as an array; the parity tests pass in the inits JAX
-drew.
+The block inits are the JAX package's: block b's 480 values are
+``jax.random.uniform(jax.random.fold_in(key, b), (480,), dtype)``, keyed by
+the global block index alone, so an online decoder that draws a few blocks
+per packet and an offline decode of the same session agree, on the CPU and
+on the card, bit for bit (``block_rand``: threefry from ``ops/prng.py``,
+the kernel ``csrc/prng.cu`` on a CUDA tensor).  Every entry point also
+takes ``rand_init`` as an array.
 
 ``offline_griffin_lim`` is the batch vocoder of the reference's offline
 evaluation (local/offline.py:131-192), with its quirks.
@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from . import cuda_prng
 from . import mel as mel_ops
 from .stft import RDFT, blackman, hann_periodic, make_rdft
 
@@ -121,42 +122,24 @@ def to_int16(audio: torch.Tensor, norm_factor: float) -> torch.Tensor:
     return x.to(torch.int16)
 
 
-# SplitMix64 (Steele, Lea and Flood 2014) constants as signed int64
-_GAMMA = 0x9E3779B97F4A7C15 - 2**64
-_MIX1 = 0xBF58476D1CE4E5B9 - 2**64
-_MIX2 = 0x94D049BB133111EB - 2**64
-
-
-def _shr(z: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of int64 bit patterns (torch's >> is arithmetic)."""
-    return (z >> k) & ((1 << (64 - k)) - 1)
-
-
-def block_rand(block_ids: torch.Tensor, seed: int = 0, dtype=torch.float64) -> torch.Tensor:
+def block_rand(block_ids: torch.Tensor, seed=0, dtype=torch.float64) -> torch.Tensor:
     """Uniform [0, 1) inits (len(block_ids), 480) of the given global block
-    indices: sample j of block b is the n-th output of SplitMix64 seeded with
-    ``seed``, n = 480 b + j, its top 53 bits scaled to [0, 1) in float64
-    (top 24 bits in float32).  Integer arithmetic only, wrapping in int64, so
-    the values are the same bits on every device; no host synchronisation,
-    so a traced or captured step can call it on device indices."""
-    n = block_ids.long()[:, None] * BLOCK_SAMPLES + torch.arange(
-        BLOCK_SAMPLES, device=block_ids.device)
-    s = int(seed) & (2**64 - 1)
-    z = (n + 1) * _GAMMA + (s - 2**64 if s >= 2**63 else s)
-    z = (z ^ _shr(z, 30)) * _MIX1
-    z = (z ^ _shr(z, 27)) * _MIX2
-    z = z ^ _shr(z, 31)
-    if dtype == torch.float64:
-        return _shr(z, 11).to(torch.float64) * 2.0**-53
-    return (_shr(z, 40).to(torch.float32) * 2.0**-24).to(dtype)
+    indices: row r is ``jax.random.uniform(jax.random.fold_in(key,
+    max(block_ids[r], 0)), (480,), dtype)`` with ``key`` = ``seed`` (an int
+    seed, meaning ``PRNGKey(seed)``, or a key pair from ``ops/prng.py``),
+    bit for bit.  The clamp is the online step's ``jnp.maximum(i, 0)``.  On
+    a CUDA tensor one launch of ``csrc/prng.cu``, which reads nothing back
+    to the host, so a captured step records it as one node."""
+    return cuda_prng.block_inits(block_ids.long().contiguous(), seed, BLOCK_SAMPLES, dtype)
 
 
-def default_rand_init(num_blocks: int, first_block_index: int = 0, seed: int = 0,
+def default_rand_init(num_blocks: int, first_block_index: int = 0, seed=0,
                       dtype=torch.float64, device=None) -> torch.Tensor:
-    """Deterministic per-block inits (num_blocks, 480) of blocks
-    first_block_index .. first_block_index + num_blocks - 1; a block's values
-    depend on (seed, its global index) only (see ``block_rand``), so
-    ``default_rand_init(k, i)`` equals ``default_rand_init(i + k)[i:]``."""
+    """The JAX package's ``default_rand_init(key, num_blocks,
+    first_block_index, dtype)``: the inits (num_blocks, 480) of blocks
+    first_block_index .. first_block_index + num_blocks - 1 (see
+    ``block_rand``), so ``default_rand_init(k, i)`` equals
+    ``default_rand_init(i + k)[i:]``."""
     ids = torch.arange(first_block_index, first_block_index + num_blocks, device=device)
     return block_rand(ids, seed, dtype)
 

@@ -3,10 +3,9 @@
 Numpy copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/host_vocoder.py``
 (``ReferenceExactVocoder``, ``decode_audio_exact``): given the same phase
 inits, its int16 stream is byte-equal to the JAX package's.  The decode CLI's
-``--vocoder exact-host`` takes the inits from ``rand_init`` (``--rand_init``,
-or the port's block-indexed SplitMix64 values of seed 0), where the JAX CLI
-draws them with threefry (its ``cli/decode.py:79-99``): that is the recorded
-deviation, and passing the JAX inits gives the JAX CLI's bytes.
+``--vocoder exact-host`` takes the inits from ``rand_init`` (``--rand_init``)
+or draws the float64 threefry rows of ``PRNGKey(0)`` that the JAX CLI draws
+(its ``cli/decode.py:79-99``), so by default its bytes are the JAX CLI's.
 
 The device Griffin-Lim (kernel K2 on the card) is the production vocoder;
 this NumPy twin exists for acceptance testing and byte-level reproducibility

@@ -1,10 +1,13 @@
 """Causal IIR filtering as linear state-space block operators.
 
 Host half: numpy copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/iir.py``
-(``StateSpace``, ``sos_to_statespace``, ``cascade_statespace``,
-``_prefix_powers``, ``make_blocked_iir``, ``make_warmstart_chain``); the
-float64 arrays are bit-identical (tests/test_torch_host_builders.py).
-``make_blocked_iir`` returns torch tensors.
+(``StateSpace``, ``sos_to_statespace``, ``ba_to_statespace``,
+``cascade_statespace``, ``_prefix_powers``, ``make_blocked_iir``,
+``make_warmstart_chain``); the float64 arrays are bit-identical
+(tests/test_torch_host_builders.py).  ``make_blocked_iir`` returns torch
+tensors.  ``iir_scan`` (per sample, the plain sequential reference),
+``zero_input_response`` and ``scale_zi_by_first_sample`` are the JAX
+helpers in torch.
 
 Device half: ``iir_blocked`` in torch.  An LTI filter
 
@@ -74,6 +77,27 @@ def sos_to_statespace(sos: np.ndarray) -> StateSpace:
     for row in sos[1:]:
         ss = series(ss, biquad_to_statespace(row))
     return ss
+
+
+def ba_to_statespace(b: np.ndarray, a: np.ndarray) -> StateSpace:
+    """(b, a) transfer function -> DF2T state-space matching scipy.lfilter,
+    its state in scipy's ``lfiltic``/``lfilter`` zi layout:
+        y    = b0*x + z0
+        zi'  = b[i+1]*x + z[i+1] - a[i+1]*y      (z[n] treated as 0)"""
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    n = max(len(a), len(b)) - 1
+    b = np.pad(b, (0, n + 1 - len(b)))
+    a = np.pad(a, (0, n + 1 - len(a)))
+    if a[0] != 1.0:
+        b, a = b / a[0], a / a[0]
+    A = np.zeros((n, n), dtype=np.float64)
+    A[:, 0] = -a[1:]
+    A[: n - 1, 1:] += np.eye(n - 1)
+    B = b[1:] - a[1:] * b[0]
+    C = np.zeros(n, dtype=np.float64)
+    C[0] = 1.0
+    return StateSpace(A, B, C, float(b[0]))
 
 
 def cascade_statespace(systems) -> StateSpace:
@@ -188,6 +212,44 @@ def make_warmstart_chain(chain_sos, prefill: int) -> tuple[StateSpace, WarmStart
 
     return combined, WarmStartChain(zi_scale=zi_scale, s_const=s_const,
                                     zf_prefix=zf, dim=combined.dim, prefill=prefill)
+
+
+# ---------------------------------------------------------------------------
+# Per-sample filtering (torch): the plain sequential reference
+# ---------------------------------------------------------------------------
+
+
+def iir_scan(A, B, C, D, x: torch.Tensor, s0: torch.Tensor):
+    """Sequential filtering, one sample at a time (the JAX package's
+    ``lax.scan``).  A (S, S), B (S,), C (S,), D () tensors; x: (T, C) in,
+    s0: (S, C) state; returns (y (T, C), sT (S, C))."""
+    ys = []
+    s = s0
+    for u in x:
+        ys.append(C @ s + D * u)
+        s = A @ s + B[:, None] * u[None, :]
+    y = torch.stack(ys) if ys else x.new_zeros((0,) + x.shape[1:])
+    return y, s
+
+
+def zero_input_response(op: "BlockedIIR", s0: torch.Tensor, n: int):
+    """y[t] = C @ A^t @ s0 for t < n, plus the state after n zero samples
+    (the reference's warm-start zero-fill, FrameBuffer.py:94-98): filtering
+    n zeros from state s0.  s0: (S, C) -> (y (n, C), s (S, C))."""
+    parts = []
+    s = s0
+    for off in range(0, n, op.block):
+        m = min(op.block, n - off)
+        parts.append(op.Cpow[:m] @ s)
+        s = op.Apow[m] @ s
+    y = torch.cat(parts, dim=0) if parts else s0.new_zeros((0,) + s0.shape[1:])
+    return y, s
+
+
+def scale_zi_by_first_sample(zi_flat: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    """Reference cold-start: zi scaled per channel by the first input sample
+    (FrameBuffer.py:90-92).  zi_flat: (S,), x0: (C,) -> (S, C)."""
+    return zi_flat[:, None] * x0[None, :]
 
 
 # ---------------------------------------------------------------------------

@@ -120,7 +120,8 @@ def replay_inputs(n_sessions: int) -> dict:
     """The replay dryrun's inputs from seed 0, at the JAX dryrun's size (8
     channels, 2,048 samples at 1024 Hz): a random model with 20 of the 40
     stacked features (the ``from_arrays`` arrays), sEEG (B, T, C) float32,
-    the rate, and session i's ``gl.default_rand_init`` of seed i."""
+    the rate, and session i's Griffin-Lim inits, the float32 draws of
+    ``PRNGKey(i)`` as the JAX dryrun draws them."""
     rng = np.random.RandomState(0)
     T, C, sr = 2048, 8, 1024.0
     arrays = dict(lda_coef=rng.randn(40, 9, 20) * 0.1, lda_intercept=rng.randn(40, 9),
@@ -130,7 +131,7 @@ def replay_inputs(n_sessions: int) -> dict:
     arrays["eeg"] = rng.randn(n_sessions, T, C).astype(np.float32)
     arrays["sr"] = np.float64(sr)
     nf = _n_frames(pipeline.DecoderConfig(sr=sr, n_channels=C), T)
-    arrays["rand"] = np.stack([gl.default_rand_init(nf - 1, 0, i).numpy()
+    arrays["rand"] = np.stack([gl.default_rand_init(nf - 1, 0, i, torch.float32).numpy()
                                for i in range(n_sessions)])
     return arrays
 

@@ -128,7 +128,8 @@ def make_sharded_decode(mesh, dec_params: pipeline.DecoderParams, cfg: pipeline.
     ``session_sharding`` block of eeg), the LDA products summed across it.
     With one model rank it is the split offline decode (K3 and the plain
     LDA, then K2 on the card).  rand_init: (n_frames - 1, 480), the
-    ``gl.default_rand_init`` of ``seed`` when None."""
+    ``gl.default_rand_init`` of ``seed`` (an int seed, meaning
+    ``PRNGKey(seed)``, or a key pair) when None."""
     C = cfg.n_channels
     channels = mesh_lib.axis_block(mesh, "model", C, "channels")
     features = mesh_lib.feature_sharding(mesh, cfg.n_stacked)
@@ -137,7 +138,7 @@ def make_sharded_decode(mesh, dec_params: pipeline.DecoderParams, cfg: pipeline.
     coef_block = dec_params.lda_coef_full[:, :, features]
     dev, dt = dec_params.device, cfg.dtype
 
-    def decode(eeg, rand_init=None, seed: int = 0, timings: dict | None = None):
+    def decode(eeg, rand_init=None, seed=0, timings: dict | None = None):
         x = torch.as_tensor(eeg)
         if x.ndim != 2 or x.shape[1] != C:
             raise ValueError(f"sharded decode built for {C} channels; got eeg of shape "

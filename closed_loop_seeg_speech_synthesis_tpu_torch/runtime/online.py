@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_loop
+from ..ops.prng import is_key
 from . import pipeline
 from .audio import BufferSink
 from .streams import StreamInlet
@@ -133,10 +134,11 @@ class OnlineDecoder:
     ``pipelined``.  The stream tail (< K packets at stop) drains through the
     single step.
 
-    ``rand_source`` is the step's: an int seed or a table of block inits
-    indexed by global block index.  A table must cover every block the
-    stream emits: the decoder raises before it would emit audio of a block
-    past the table's end."""
+    ``rand_source`` is the step's: an int seed (``PRNGKey(seed)``; 0, the
+    JAX decoder's default key ``PRNGKey(0)``), a key pair, or a table of
+    block inits indexed by global block index.  A table must cover every
+    block the stream emits: the decoder raises before it would emit audio
+    of a block past the table's end."""
 
     def __init__(self, cfg: pipeline.DecoderConfig, dec_params, bad_channels=(),
                  rand_source=0, sink=None, tracer=None, pipelined: bool = False,
@@ -148,7 +150,7 @@ class OnlineDecoder:
         self.sink = sink or BufferSink()
         self.tracer = tracer or StageTracer(enabled=True)
         self.step = pipeline.make_online_step(dec_params, cfg, rand_source)
-        self.n_rand_rows = None if isinstance(rand_source, int) else len(rand_source)
+        self.n_rand_rows = None if is_key(rand_source) else len(rand_source)
         self.carry = pipeline.init_online_carry(dec_params, cfg)
         self.pipelined = pipelined
         self.chunk_steps = int(chunk_steps)

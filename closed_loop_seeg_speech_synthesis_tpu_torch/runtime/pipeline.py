@@ -40,11 +40,12 @@ import torch
 
 from ..models import lda as lda_mod
 from ..ops import filter_design as fd
-from ..ops import framing, iir, smoothing
+from ..ops import cuda_prng, framing, iir, smoothing
 from ..ops import griffinlim as gl
 from ..ops.cuda_frontend import (FrontendOps, epilogue_constants, frontend_decode_mels,
                                  frontend_logpower, make_frontend_ops, pack_lda_weights)
 from ..ops.cuda_gl import GLAudioOps, gl_audio, gl_blocks, gl_blocks_plain, make_gl_audio_ops
+from ..ops.prng import is_key
 
 
 def resolve_device(device=None) -> torch.device:
@@ -228,13 +229,14 @@ def _products_to_mel(params: DecoderParams, products: torch.Tensor) -> torch.Ten
     return smoothing.gaussian_smooth(deq, params.gauss_kernel)
 
 
-def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg, rand_init=None,
-                   seed: int = 0):
+def offline_decode(params: DecoderParams, cfg: DecoderConfig, eeg, rand_init=None, seed=0):
     """Decode a full recorded session.
 
     eeg: (T, n_channels) raw sEEG (bad channels already excluded), array or
-    tensor.  rand_init: (N-1, 480) Griffin-Lim inits, ``gl.default_rand_init``
-    of ``seed`` when None.  Returns (spectrogram (N, n_mel), audio int16
+    tensor.  rand_init: (N-1, 480) Griffin-Lim inits; when None,
+    ``gl.default_rand_init`` of ``seed`` (an int seed, meaning
+    ``PRNGKey(seed)``, or a key pair), the JAX package's draws of the key it
+    defaults to, ``PRNGKey(0)``.  Returns (spectrogram (N, n_mel), audio int16
     ((N-1)*160,)) as tensors on the params' device.  The reference's
     file-replay decode (decode.py:71-96).
     """
@@ -414,9 +416,11 @@ def make_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0):
     'audio' (n_slots, 160) int16, 'audio_valid' (n_slots,), n_slots =
     ``max_frames_per_packet``; rows whose valid flag is False are filler.
 
-    rand_source: an int seed, whose block inits are ``gl.block_rand`` of the
-    global block index (so the default online and offline decodes agree), or
-    an (n_blocks, 480) table indexed by global block index.  The step reads
+    rand_source: an int seed (``PRNGKey(seed)``) or a key pair, whose block
+    inits are ``gl.block_rand`` of the global block index, the JAX step's
+    ``uniform(fold_in(key, max(i, 0)))`` rows (so the default online and
+    offline decodes agree), or an (n_blocks, 480) table indexed by global
+    block index.  The step reads
     no device value to check the table's length: blocks past its end reuse
     its last row (``online.OnlineDecoder`` raises before it emits one).
 
@@ -438,7 +442,7 @@ def make_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0):
     w_ola = params.gl_ops.ola_window
     w_ola0, w_ola1, w_ola2 = w_ola[: gl.HOP], w_ola[gl.HOP : 2 * gl.HOP], w_ola[2 * gl.HOP :]
     lp = params.gl_audio_ops.lp
-    if isinstance(rand_source, int):
+    if is_key(rand_source):
         rand_rows = lambda ids: gl.block_rand(ids, rand_source, dt)
     else:
         if not torch.is_tensor(rand_source):
@@ -570,6 +574,7 @@ class CapturedStep:
     carry: OnlineCarry      # the streaming state, committed in place
     outputs: dict           # 'spec', 'spec_valid', 'audio', 'audio_valid'
     k4_nodes: int           # K4 launches recorded (gl_blocks wrapper calls in the recording)
+    init_nodes: int         # block-init kernels recorded (cuda_prng.block_inits calls)
 
 
 def capture_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0,
@@ -594,11 +599,12 @@ def capture_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0
     torch.cuda.current_stream(dev).wait_stream(side)
     outputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in out.items()}
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    k4 = gl_blocks.launches
+    k4, inits = gl_blocks.launches, cuda_prng.block_inits.launches
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         new, out = step(carry, packet)
         commit_carry(carry, new, is_data != 0)
         for k, v in out.items():
             outputs[k].copy_(v)
     return CapturedStep(graph=graph, packet=packet, is_data=is_data, carry=carry, outputs=outputs,
-                        k4_nodes=gl_blocks.launches - k4)
+                        k4_nodes=gl_blocks.launches - k4,
+                        init_nodes=cuda_prng.block_inits.launches - inits)

@@ -318,31 +318,104 @@ def test_frontend_kernel_probe_variants_build(cuda_device):
 
 @pytest.mark.cuda
 def test_block_inits_bit_equal_on_cpu_and_cuda(cuda_device):
-    """The counter-based block inits are integer arithmetic: the same bits on
-    the card as on the CPU, in float32 and float64."""
+    """The block inits (threefry, counter-based) are integer arithmetic:
+    ``default_rand_init`` on the card (the kernel) gives the CPU's bits, in
+    float32 and float64."""
     for dt in (torch.float32, torch.float64):
         a = gl.default_rand_init(300, 12345, 7, dt, cuda_device).cpu()
         assert torch.equal(a, gl.default_rand_init(300, 12345, 7, dt))
 
 
+# the replay's table (30 min at 100 frames a second), and ids over the whole
+# range the online step and exp1's keys reach, negatives clamped to block 0
+INIT_IDS = {"table": lambda dev: torch.arange(180_000, device=dev),
+            "wide": lambda dev: torch.tensor([-2**40, -7, -1, 0, 1, 479, 181_000, 2**31 - 2,
+                                              2**31 - 1, 2**32 + 5], device=dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", sorted(INIT_IDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_inits_kernel_matches_plain(cuda_device, ids, dtype):
+    """csrc/prng.cu against its plain version (drawn on the CPU), bit for
+    bit: one launch for the whole table, keys from an int seed and from a
+    key pair."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_prng, prng
+
+    x = INIT_IDS[ids](cuda_device)
+    for key in (0, 7, prng.fold_in(prng.PRNGKey(0), 3)):
+        before = cuda_prng.block_inits.launches
+        k = cuda_prng.block_inits(x, key, gl.BLOCK_SAMPLES, dtype)
+        torch.cuda.synchronize()
+        assert cuda_prng.block_inits.launches == before + 1
+        p = cuda_prng.block_inits_plain(x, key, gl.BLOCK_SAMPLES, dtype)
+        assert k.shape == (x.shape[0], gl.BLOCK_SAMPLES) and k.dtype == dtype
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_block_inits_kernel_in_a_captured_graph(cuda_device):
+    """The kernel recorded in a CUDA graph (as the online step records it):
+    one node, which draws the rows of the ids the static tensor holds at
+    each replay."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_prng
+
+    ids = torch.arange(4, device=cuda_device)
+    gl.block_rand(ids, 0, torch.float32)  # built and loaded before the recording
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_prng.block_inits.launches
+    with torch.cuda.graph(graph):
+        out = gl.block_rand(ids, 0, torch.float32)
+    assert cuda_prng.block_inits.launches == before + 1
+    for first in (0, 5, 179_996, -3):
+        ids.copy_(torch.arange(first, first + 4, device=cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, cuda_prng.block_inits_plain(ids, 0, gl.BLOCK_SAMPLES,
+                                                            torch.float32))
+
+
+@pytest.mark.cuda
+def test_block_inits_wrapper_checks_its_inputs(cuda_device):
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_prng
+
+    ids = torch.arange(8, device=cuda_device)
+    for bad in (ids.int(), ids[::2], ids.reshape(2, 4)):
+        with pytest.raises(ValueError, match="1-D int64"):
+            cuda_prng.block_inits(bad, 0, 480, torch.float32)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        cuda_prng.block_inits(ids, 0, 480, torch.float16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_prng.block_inits(ids, 0, 476, torch.float32)
+    assert cuda_prng.block_inits(ids[:0], 0, 480, torch.float32).shape == (0, 480)
+
+
 @pytest.mark.cuda
 def test_online_step_launches_k4_and_tracks_offline(rs, cuda_device):
-    """The online step on the card goes through K4 once a packet and stays
-    inside the f32 label-flip budget of the split offline decode."""
+    """The online step on the card goes through K4 and the block inits'
+    kernel once a packet (the offline decode draws its table with one
+    launch) and stays inside the f32 label-flip budget of the split offline
+    decode."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_prng
+
     C, sr = 8, 1024.0
     cfg, dec = _decoder(rs, cuda_device, sr, C, use_cuda_epilogue=False, use_cuda_gl_tail=False)
     n_pkts = 160
     eeg = torch.as_tensor(rs.randn(n_pkts * 32, C), dtype=torch.float32, device=cuda_device)
+    inits = cuda_prng.block_inits.launches
     spec_off, audio_off = pipeline.offline_decode(dec, cfg, eeg)
+    assert cuda_prng.block_inits.launches == inits + 1
     step = pipeline.make_online_step(dec, cfg)
     carry = pipeline.init_online_carry(dec, cfg)
-    before = cuda_gl.gl_blocks.launches
+    before, inits = cuda_gl.gl_blocks.launches, cuda_prng.block_inits.launches
     specs, audio = [], []
     for i in range(n_pkts):
         carry, out = step(carry, eeg[i * 32 : (i + 1) * 32])
         specs.append(out["spec"][out["spec_valid"]])
         audio.append(out["audio"][out["audio_valid"]])
     assert cuda_gl.gl_blocks.launches == before + n_pkts
+    assert cuda_prng.block_inits.launches == inits + n_pkts
     spec_on, audio_on = torch.cat(specs), torch.cat(audio).reshape(-1)
     assert spec_on.shape == spec_off.shape and audio_on.shape == audio_off.shape
     flips = 1.0 - torch.isclose(spec_on, spec_off, rtol=1e-4, atol=1e-5).double().mean().item()
@@ -515,8 +588,10 @@ def test_persistent_loop_bit_identical_to_online_decoder(rs, cuda_device, C, dty
         ref.process_packet(p)
     pers = online.PersistentOnlineDecoder(cfg, dec)
     pers.warmup()
-    # K4's node in the recorded step, launched once in each iteration
+    # K4's node in the recorded step, launched once in each iteration, and
+    # the block inits' kernel (csrc/prng.cu) in every dtype
     assert pers._captured.k4_nodes == (1 if k4_step else 0)
+    assert pers._captured.init_nodes == 1
     sessions, iterations = cuda_loop.sessions, cuda_loop.iterations
     out = _persistent_session(pers, packets)
     assert cuda_loop.sessions == sessions + 1 and cuda_loop.iterations == iterations + 201

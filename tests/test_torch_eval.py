@@ -400,7 +400,8 @@ def test_decode_cli_exact_host_vocoder(decode_ws, tmp_path):
     """--vocoder exact-host --device cpu with the JAX CLI's threefry inits
     (--rand_init) writes the JAX CLI's exact-host audio byte for byte and
     the device vocoder's spectrogram; without --rand_init its audio is
-    decode_audio_exact of the port's block-indexed inits of seed 0."""
+    decode_audio_exact of the port's default inits, the same float64
+    threefry rows of PRNGKey(0), so the JAX CLI's bytes again."""
     from scipy.io import wavfile
 
     from closed_loop_seeg_speech_synthesis_tpu.cli import decode as j_decode
@@ -422,6 +423,7 @@ def test_decode_cli_exact_host_vocoder(decode_ws, tmp_path):
     _, a_0 = wavfile.read(os.path.join(t_default, "audio.wav"))
     rows = t_gl.default_rand_init(len(spec) - 1, 0, 0, torch.float64).numpy()
     assert a_0.tobytes() == t_hv.decode_audio_exact(spec, rows, norm_factor=10.0).tobytes()
+    assert a_0.tobytes() == a_j.tobytes()
 
 
 def test_decode_cli_profile_writes_a_trace(decode_ws, tmp_path):

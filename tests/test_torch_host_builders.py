@@ -227,6 +227,22 @@ def test_host_helpers_equal(sr):
         _eq(t_fd.sosfilt_zi(t_sos), j_fd.sosfilt_zi(j_sos))
 
 
+@pytest.mark.parametrize("ba", ["lowpass", "unnormalized", "short_b"])
+def test_ba_to_statespace_equal(ba):
+    """iir.ba_to_statespace ((b, a) -> the lfilter zi layout): the vocoder's
+    order-5 low-pass as (b, a), a filter with a[0] != 1 and one with fewer
+    b than a coefficients, element for element."""
+    import scipy.signal as sig
+
+    b, a = {"lowpass": sig.butter(5, 7900 / 8000),
+            "unnormalized": ([0.5, -0.2, 0.1], [2.0, 0.3, -0.4]),
+            "short_b": ([0.3], [1.0, -0.5, 0.25, -0.125])}[ba]
+    t_ss, j_ss = t_iir.ba_to_statespace(b, a), j_iir.ba_to_statespace(b, a)
+    for name in ("A", "B", "C"):
+        _eq(getattr(t_ss, name), getattr(j_ss, name))
+    assert t_ss.D == j_ss.D and type(t_ss.D) is type(j_ss.D)
+
+
 def test_dtw_and_vad_equal(rng):
     """eval/dtw and eval/vad: the cost, the path and the warped reference;
     the VAD's MFCCs, mask and the .lab lines, element for element."""

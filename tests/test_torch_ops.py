@@ -4,13 +4,16 @@ stage by stage, in float64 on the CPU."""
 import pickle
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from closed_loop_seeg_speech_synthesis_tpu.models import lda as j_lda
+from closed_loop_seeg_speech_synthesis_tpu.ops import filter_design as j_fd
 from closed_loop_seeg_speech_synthesis_tpu.ops import framing as j_fr
 from closed_loop_seeg_speech_synthesis_tpu.ops import griffinlim as j_gl
+from closed_loop_seeg_speech_synthesis_tpu.ops import iir as j_iir
 from closed_loop_seeg_speech_synthesis_tpu.ops import mel as j_mel
 from closed_loop_seeg_speech_synthesis_tpu.ops import smoothing as j_sm
 from closed_loop_seeg_speech_synthesis_tpu.runtime import params as j_params
@@ -18,6 +21,7 @@ from closed_loop_seeg_speech_synthesis_tpu.runtime import params as j_params
 from closed_loop_seeg_speech_synthesis_tpu_torch.models import lda as t_lda
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import framing as t_fr
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir as t_iir
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import mel as t_mel
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import smoothing as t_sm
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
@@ -142,9 +146,10 @@ def test_griffin_lim_stages_match_jax(rng, phase_bug):
 
 
 def test_default_rand_init_is_seeded_and_uniform():
-    """The documented deviation: block inits are SplitMix64 outputs keyed by
-    (seed, global block index), seed 0 by default, uniform on [0, 1); the
-    values are checked against the generator in Python integers."""
+    """Block inits are the JAX package's threefry draws keyed by
+    ``fold_in(PRNGKey(seed), global block index)``, seed 0 by default,
+    uniform on [0, 1); the values are checked bit for bit against
+    ``jax.random.uniform`` itself, negative ids clamped to block 0."""
     a = t_gl.default_rand_init(50)
     assert a.shape == (50, 480) and a.dtype == torch.float64
     assert torch.equal(a, t_gl.default_rand_init(50, 0, 0))
@@ -152,22 +157,14 @@ def test_default_rand_init_is_seeded_and_uniform():
     assert abs(float(a.mean()) - 0.5) < 0.01
     assert not torch.equal(a, t_gl.default_rand_init(50, 0, 1))
 
-    M = 2**64
-
-    def splitmix64(seed, n):
-        z = (seed + (n + 1) * 0x9E3779B97F4A7C15) % M
-        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % M
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % M
-        return z ^ (z >> 31)
-
-    for seed in (0, 7, 2**63 + 5, -3):
-        ids = torch.tensor([0, 3, 181_000])
+    for seed in (0, 7, 2**32 + 5, -3):
+        ids = torch.tensor([0, 3, 181_000, -2])
         f64, f32 = t_gl.block_rand(ids, seed), t_gl.block_rand(ids, seed, torch.float32)
         for i, b in enumerate(ids.tolist()):
-            for j in (0, 1, 479):
-                z = splitmix64(seed % M, 480 * b + j)
-                assert f64[i, j].item() == (z >> 11) * 2.0**-53
-                assert f32[i, j].item() == (z >> 40) * 2.0**-24
+            key = jax.random.fold_in(jax.random.PRNGKey(seed), max(b, 0))
+            for row, dt in ((f64[i], jnp.float64), (f32[i], jnp.float32)):
+                want = np.asarray(jax.random.uniform(key, (480,), dt))
+                assert np.array_equal(row.numpy().view(np.uint8), want.view(np.uint8)), (seed, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -215,3 +212,46 @@ def test_offline_griffin_lim_matches_jax(rng, dtype):
         assert d.max() <= 1
     else:
         assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+
+
+def test_iir_scan_matches_jax(rng):
+    """ops/iir.iir_scan, the per-sample sequential reference, against the
+    JAX ``lax.scan`` in float64: the combined 1024 Hz filter chain on 3
+    channels from a random state."""
+    chain = j_fd.high_gamma_bank(1024.0)
+    ss_j = j_iir.cascade_statespace([j_iir.sos_to_statespace(c) for c in chain])
+    ss_t = t_iir.cascade_statespace([t_iir.sos_to_statespace(c) for c in chain])
+    x, s0 = rng.randn(97, 3), rng.randn(ss_t.dim, 3)
+    yj, sj = j_iir.iir_scan(*(jnp.asarray(m) for m in (ss_j.A, ss_j.B, ss_j.C, ss_j.D)),
+                            jnp.asarray(x), jnp.asarray(s0))
+    yt, st = t_iir.iir_scan(*(T(m) for m in (ss_t.A, ss_t.B, ss_t.C, ss_t.D)), T(x), T(s0))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 100])
+def test_zero_input_response_matches_jax(rng, n):
+    """ops/iir.zero_input_response (n zeros from a state, over blocks of 32)
+    against the JAX helper in float64 (the low-pass's poles lie near the
+    unit circle: outputs reach ~10, so the tolerance is relative to them)."""
+    sos = j_fd.gl_output_lowpass_sos()
+    j_op = j_iir.make_blocked_iir(j_iir.sos_to_statespace(sos), 32, jnp.float64)
+    t_op = t_iir.make_blocked_iir(t_iir.sos_to_statespace(sos), 32, torch.float64)
+    s0 = rng.randn(t_op.dim, 2)
+    yj, sj = j_iir.zero_input_response(j_op, jnp.asarray(s0), n)
+    yt, st = t_iir.zero_input_response(t_op, T(s0), n)
+    assert yt.shape == (n, 2)
+    # float64 products in two summation orders: within 1e-12 of the scale
+    for got, want in ((yt, yj), (st, sj)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-12 * max(1.0, float(np.abs(want).max(initial=0))))
+
+
+def test_scale_zi_by_first_sample_matches_jax(rng):
+    """ops/iir.scale_zi_by_first_sample (the reference's cold start) against
+    the JAX helper in float64, element for element."""
+    zi, x0 = rng.randn(16), rng.randn(5)
+    np.testing.assert_array_equal(t_iir.scale_zi_by_first_sample(T(zi), T(x0)).numpy(),
+                                  np.asarray(j_iir.scale_zi_by_first_sample(jnp.asarray(zi),
+                                                                            jnp.asarray(x0))))

@@ -256,7 +256,8 @@ def test_split_offline_decode_equals_fused_on_cpu(rng, sr):
 def test_port_imports_no_jax():
     """The port, its CLIs, its online runtime, its trainer, its loaders, its
     evaluation (exp1-exp4, DTW, VAD, figures), its utilities, its host
-    vocoder, its parallel modules and its lab tools import neither jax nor
+    vocoder, its threefry keys and their kernel's wrapper, its parallel
+    modules and its lab tools import neither jax nor
     the JAX package (nor pylsl, h5py, sklearn, matplotlib or tkinter at
     import time)."""
     code = ("import sys; import closed_loop_seeg_speech_synthesis_tpu_torch.cli.decode, "
@@ -271,6 +272,8 @@ def test_port_imports_no_jax():
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_frontend, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_gl, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_loop, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.prng, "
+            "closed_loop_seeg_speech_synthesis_tpu_torch.ops.cuda_prng, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.ops.host_vocoder, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.cli.evaluate, "
             "closed_loop_seeg_speech_synthesis_tpu_torch.eval.exp1, "
