@@ -51,14 +51,21 @@ on one NVIDIA GPU.  Run from the repository root:
    use_cuda_gl_tail=False``) the same way: K3 and K4 launch, K1 and K2 do
    not, and the output stays inside the f32 budget of the fused path.
 7. Feeds 60 s of the session packet by packet (32 samples) through
-   ``runtime.online.OnlineDecoder`` at full width: K4 and the block inits'
-   kernel launch once a packet, the output has the offline decode's shapes
-   and stays inside its f32 budget, ``chunk_steps=4`` is bit-identical to
-   1; prints the
-   per-packet latency percentiles.  Holds K4 against its plain version at
+   ``runtime.online.OnlineDecoder`` at full width, which replays the step
+   recorded as a CUDA graph once a packet (``chunk_steps=4``: once per 4
+   packets): the same 1,920 packets through a plain eager loop of
+   ``pipeline.make_online_step`` give the reference, and the decoder's
+   spectrogram and audio must be bit-identical to it with K = 1 and 4, each
+   plain and ``pipelined``.  K4 and the block inits' kernel launch once a
+   packet (the wrappers count at capture, so their launches are the graph
+   replays times the nodes each graph recorded); the output has the offline
+   decode's shapes and stays inside its f32 budget; prints the per-packet
+   latency percentiles beside the eager loop's and gates p99 < 10 ms, the
+   closed loop's limit.  Holds K4 against its plain version at
    the step's own shapes (1-4 blocks, one cluster) on the session's mel
    frames, times K4 at B = 4 over 1,000 launches, profiles 200 packets
-   (launches and device time a packet), and holds the online audio against
+   (1 ``cudaGraphLaunch`` and no host kernel launch a packet, device time a
+   packet), and holds the online audio against
    runs of the same packets with the plain Griffin-Lim: with the converging
    estimator within 1 LSB on >= 99.9% of samples, under the exp(angle)
    quirk (chaotic in f32) within 1 LSB on >= 99% with no run of off hops
@@ -227,6 +234,7 @@ PAR_RANKS, PAR_SESSIONS, PAR_REPLAY_S, PAR_TRAIN_S = 2, 4, 300, 450
 PAR_MEDIANS_ATOL, PAR_COEF_RTOL, PAR_COEF_ATOL = 1e-5, 1e-3, 1e-4  # tests/test_distributed.py:73-77
 REGIME_BLOCKS = 2048
 PROFILE_PACKETS = 200
+P99_LIMIT_MS = 10.0  # the closed loop's per-packet p99 limit (BASELINE.md, PERF.md section 2)
 PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apart
 # online audio under the reference's exp(angle) quirk, K4 against the plain
 # Griffin-Lim: the share of samples within 1 LSB, and the longest run of
@@ -386,8 +394,8 @@ def float64_flips_ok(flips_kernel, flips_plain):
 
 def profile(torch, fn, units, unit, top=6):
     """Run ``fn`` once under torch.profiler: wall and device-busy ms, the
-    idle share, the heaviest device kernels, and kernel launches per
-    ``unit`` (``units`` of them in the run)."""
+    idle share, the heaviest device kernels, and kernel and graph launches
+    per ``unit`` (``units`` of them in the run); returns the totals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -407,10 +415,14 @@ def profile(torch, fn, units, unit, top=6):
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
     busy = sum(dev.values())
     launches = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    graph_launches = sum(e.count for e in events if e.key.startswith("cudaGraphLaunch"))
     say(f"  profile: {wall:.3f} ms (CUDA events), device busy {busy:.3f} ms, idle share "
-        f"{1 - busy / wall:.3f}; {launches / units:.1f} kernel launches a {unit}")
+        f"{1 - busy / wall:.3f}; {launches / units:.1f} kernel launches and "
+        f"{graph_launches / units:.2f} cudaGraphLaunch a {unit}")
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:top]:
         say(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {ms * 1e3 / units:9.2f} us a {unit}  {name[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy, "kernel_launches": launches,
+            "graph_launches": graph_launches}
 
 
 def cuda_ms(torch, fn, reps=3):
@@ -1854,26 +1866,61 @@ def main():
     packets = head_on.cpu().numpy().reshape(n_pkts, PACKET, C)
     cfg_on, dec_on = cli._build_decoder(loaded, SR, C, GL_NORM, torch.float32, dev, PACKET, **split)
 
-    def run_online(chunk_steps, c=cfg_on):
-        d = online.OnlineDecoder(c, dec_on, chunk_steps=chunk_steps)
+    def run_online(chunk_steps, c=cfg_on, pipelined=False):
+        d = online.OnlineDecoder(c, dec_on, chunk_steps=chunk_steps, pipelined=pipelined)
         d.warmup()
         zero_counts()
         for p in packets:
             d.process_packet(p)
         out = d.results()
-        return d, out, read_counts()
+        counts = read_counts()
+        # the wrappers count at capture only (in warmup): each replay runs
+        # its graph's recorded K4 and block-init nodes
+        counts["gl_blocks"] += sum(n * d.programs[k].k4_nodes for k, n in d.replays.items())
+        counts["block_inits"] += sum(n * d.programs[k].init_nodes for k, n in d.replays.items())
+        return d, out, counts
 
+    def run_eager(c=cfg_on):
+        """The reference: a plain loop of the eager step, each packet moved
+        to the card and its four outputs read back as the per-packet
+        decoder did before it replayed a graph; per-packet ms."""
+        step = pipeline.make_online_step(dec_on, c)
+        carry = pipeline.init_online_carry(dec_on, c)
+        step(carry, torch.zeros((PACKET, C), dtype=c.dtype, device=dev))
+        torch.cuda.synchronize()
+        specs, chunks, ms = [], [], []
+        for p in packets:
+            t0 = time.perf_counter()
+            carry, out = step(carry, torch.as_tensor(p).to(device=dev, dtype=c.dtype))
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            ms.append((time.perf_counter() - t0) * 1e3)
+            specs.append(host["spec"][host["spec_valid"]])
+            chunks.append(host["audio"][host["audio_valid"]])
+        return np.concatenate(specs), np.concatenate(chunks).reshape(-1), np.asarray(ms)
+
+    def pcts(lat):
+        return tuple(float(np.percentile(lat, q)) for q in (50, 95, 99)) + (float(lat.max()),)
+
+    spec_e, audio_e, lat_e = run_eager()
     dec1, (spec_on, audio_on, recv_on), on_launches = run_online(1)
-    say(f"  launches: {on_launches}")
+    say(f"  launches: {on_launches} (K4 and block inits: graph replays x recorded nodes); graph "
+        f"replays {dec1.replays}")
     check(on_launches["gl_blocks"] >= n_pkts, f"K4 launched on every one of {n_pkts} packets")
     check(on_launches["block_inits"] == n_pkts, f"the block inits' kernel launched once in each "
           f"of {n_pkts} packets")
-    lat = dec1.tracer.latencies("packet_in", "step_done") * 1e3
-    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
-    say(f"  per-packet latency (packet_in -> outputs on the host): p50 {p50:.3f} ms, "
-        f"p95 {float(np.percentile(lat, 95)):.3f} ms, p99 {p99:.3f} ms, max {float(lat.max()):.3f} ms "
-        f"over {len(lat)} packets")
-    per_packet = (p50, float(np.percentile(lat, 95)), p99, float(lat.max()))
+    check(dec1.replays == {1: n_pkts} and dec1.programs[1].k4_nodes == 1,
+          f"one graph replay a packet ({dec1.replays}), K4 one node of the recorded step")
+    per_packet = pcts(dec1.tracer.latencies("packet_in", "step_done") * 1e3)
+    eager_pct = pcts(lat_e)
+    say(f"  per-packet latency (packet_in -> outputs on the host), graph replay: p50 "
+        f"{per_packet[0]:.3f} ms, p95 {per_packet[1]:.3f} ms, p99 {per_packet[2]:.3f} ms, max "
+        f"{per_packet[3]:.3f} ms over {n_pkts} packets; eager step loop: p50 {eager_pct[0]:.3f} ms, "
+        f"p95 {eager_pct[1]:.3f} ms, p99 {eager_pct[2]:.3f} ms, max {eager_pct[3]:.3f} ms [{card}]")
+    check(per_packet[2] < P99_LIMIT_MS, f"per-packet p99 {per_packet[2]:.3f} ms < {P99_LIMIT_MS} ms")
+    check(np.array_equal(spec_on, spec_e) and np.array_equal(audio_on, audio_e)
+          and np.array_equal(recv_on, packets.reshape(-1, C)),
+          f"graph decoder (K=1) bit-identical to the eager step loop, spec {spec_on.shape} audio "
+          f"{audio_on.shape}")
     spec_ref, audio_ref = pipeline.offline_decode(dec_on, cfg_on, head_on)
     check(spec_on.shape == tuple(spec_ref.shape) and audio_on.shape == tuple(audio_ref.shape),
           f"online shapes spec {spec_on.shape} audio {audio_on.shape} == offline's")
@@ -1881,16 +1928,31 @@ def main():
     r_on = corr(torch, hop_energy(torch, torch.as_tensor(audio_on)), hop_energy(torch, audio_ref.cpu()))
     say(f"  online vs offline split path: label flips {flips_on:.6f}, audio per-hop energy r {r_on:.4f}")
     check(flips_on < FLIP_MAX and r_on > 0.9, "online step within the f32 budget of the offline decode")
-    _, (spec_c4, audio_c4, _), _ = run_online(4)
-    check(np.array_equal(spec_c4, spec_on) and np.array_equal(audio_c4, audio_on),
+    modes = {}
+    for k, pl in ((1, True), (4, False), (4, True)):
+        dk, (spec_k, audio_k, _), counts_k = run_online(k, pipelined=pl)
+        modes[f"K={k}{' pipelined' if pl else ''}"] = pcts(dk.tracer.latencies("packet_in", "step_done") * 1e3)
+        check(np.array_equal(spec_k, spec_e) and np.array_equal(audio_k, audio_e),
+              f"graph decoder (K={k}, pipelined={pl}) bit-identical to the eager step loop")
+        check(dk.replays == {**({1: 0} if k > 1 else {}), k: n_pkts // k}
+              and counts_k["gl_blocks"] == n_pkts and dk.programs[k].k4_nodes == k,
+              f"K={k}, pipelined={pl}: {dk.replays} graph replays, {k} K4 node(s) a replay, "
+              f"{counts_k['gl_blocks']} K4 launches")
+    check(np.array_equal(spec_k, spec_on) and np.array_equal(audio_k, audio_on),
           "chunk_steps=4 bit-identical to chunk_steps=1")
+    for name, q in modes.items():
+        say(f"  {name}: packet_in -> outputs on the host p50 {q[0]:.3f} ms, p95 {q[1]:.3f} ms, "
+            f"p99 {q[2]:.3f} ms, max {q[3]:.3f} ms (a chunk's latency counts from its last packet)")
     d_prof = online.OnlineDecoder(cfg_on, dec_on)
     d_prof.warmup()
     for p in packets[:PROFILE_PACKETS]:  # past the start-up packets
         d_prof.process_packet(p)
-    profile(torch, lambda: [d_prof.process_packet(p)
-                            for p in packets[PROFILE_PACKETS : 2 * PROFILE_PACKETS]],
-            PROFILE_PACKETS, "packet")
+    on_prof = profile(torch, lambda: [d_prof.process_packet(p)
+                                      for p in packets[PROFILE_PACKETS : 2 * PROFILE_PACKETS]],
+                      PROFILE_PACKETS, "packet")
+    check(on_prof["graph_launches"] == PROFILE_PACKETS and on_prof["kernel_launches"] == 0,
+          f"profiler: {on_prof['graph_launches']} cudaGraphLaunch and "
+          f"{on_prof['kernel_launches']} host kernel launches over {PROFILE_PACKETS} packets")
 
     # K4 at the step's own shapes: B = 1..4 blocks of consecutive mel frames
     # of this session with their block-indexed inits, one cluster of 4
@@ -2155,7 +2217,10 @@ def main():
             split_launches["gl_blocks"] + on_launches["gl_blocks"] + pers["persistent_launches"],
             k4_err, k4_ms, k4_plain_ms,
             k4_bound, cuda_gl.regime(B_gl), reference_matmul_ms=mm_ms,
-            online_launches=on_launches["gl_blocks"], online_ms=k4_b4_ms,
+            online_launches=on_launches["gl_blocks"], online_graph_replays=dec1.replays[1],
+            online_latency_ms=dict(zip(("p50", "p95", "p99", "max"), per_packet)),
+            online_eager_latency_ms=dict(zip(("p50", "p95", "p99", "max"), eager_pct)),
+            online_ms=k4_b4_ms,
             online_bound_ms=k4_b4_bound[0], online_regime=cuda_gl.regime(4),
             parallel_launches=par["gl_blocks"], **pers),
         row("block_inits", "prng.cu", "griffinlim.py:158",

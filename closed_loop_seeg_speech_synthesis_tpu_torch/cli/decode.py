@@ -137,11 +137,13 @@ def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
     """Closed loop against a live stream (reference decode.py:99-149).
 
     ``device`` defaults to the card (pass ``"cpu"`` to decode on the CPU),
-    ``dtype`` to float64 on the CPU and float32 on CUDA.  ``chunk_steps=K``
-    decodes K buffered packets per call (bit-identical output, (K-1) packet
-    periods more playout latency).  ``persistent=True`` decodes the session
-    as one device dispatch (``online.PersistentOnlineDecoder``), where
-    ``chunk_steps`` has no meaning and is ignored with a warning.
+    ``dtype`` to float64 on the CPU and float32 on CUDA.  A packet is one
+    dispatch of the recorded step (one CUDA-graph replay on the card);
+    ``chunk_steps=K`` decodes K buffered packets per dispatch (bit-identical
+    output, (K-1) packet periods more playout latency).  ``persistent=True``
+    decodes the session as one device dispatch
+    (``online.PersistentOnlineDecoder``), where ``chunk_steps`` has no
+    meaning and is ignored with a warning.
     ``rand_init``: a (n_blocks, 480) table of Griffin-Lim inits indexed by
     global block index; by default the JAX decoder's draws of
     ``PRNGKey(0)`` by global block index.
@@ -249,8 +251,8 @@ def main(argv=None):
     parser.add_argument("--max_packets", type=int, default=None,
                         help="online: stop after N packets (else Enter stops)")
     parser.add_argument("--dispatch-chunk", type=int, default=1, metavar="K",
-                        help="online: decode K buffered packets per call; (K-1) packet "
-                             "periods more playout latency")
+                        help="online: decode K buffered packets per dispatch (one CUDA-graph "
+                             "replay on the card); (K-1) packet periods more playout latency")
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="record the decode with torch.profiler into DIR/trace.json "
                              "(a Chrome trace, viewable with perfetto)")

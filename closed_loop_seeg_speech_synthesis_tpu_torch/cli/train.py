@@ -15,7 +15,8 @@ CLI writes; both packages' ``load_params`` read them.
 ``--device`` defaults to cuda, and without a visible GPU that is an error:
 nothing falls back to the CPU, which runs only with ``--device cpu``.
 Training runs in float32 on CUDA and float64 on the CPU.  The audio is dithered with
-N(0, 1e-4) noise (train.py:99) drawn from ``main``'s ``rng``.  h5py, sklearn
+N(0, 1e-4) noise (train.py:99) drawn from ``main``'s ``rng``, by default
+numpy's global generator, as the JAX CLI draws it.  h5py, sklearn
 and matplotlib are imported where files are written and plots drawn.
 """
 
@@ -73,7 +74,9 @@ def visualize_model_parameters(lda_params, filename):
 
 
 def main(argv=None, rng: np.random.RandomState | None = None):
-    """``rng`` draws the audio dither; None means a fresh, unseeded one."""
+    """``rng`` draws the audio dither; None means numpy's global generator
+    (``np.random.normal``, as the JAX CLI draws it), so ``np.random.seed``
+    before the call fixes the dither."""
     parser = argparse.ArgumentParser("Train per-bin LDA models on aligned neural and audio data.")
     parser.add_argument("config", help="Path to config file.")
     parser.add_argument("--file", help="Comma separated recording files (XDF/HDF5).")
@@ -87,7 +90,7 @@ def main(argv=None, rng: np.random.RandomState | None = None):
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error(f"--device {device}: no CUDA device is visible; pass --device cpu "
                      "to run on the CPU")
-    rng = rng if rng is not None else np.random.RandomState()
+    rng = rng if rng is not None else np.random
 
     config = config_mod.load_config(args.config)
     config_mod.merge_args(config, {

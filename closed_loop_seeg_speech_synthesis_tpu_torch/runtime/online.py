@@ -4,10 +4,11 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/online.py``
 (``PacketRebuffer``, ``_pump_stream``, ``OnlineDecoder``,
 ``PersistentOnlineDecoder``, ``read_markers``).
 A stream inlet is re-blocked into fixed ``packet_size`` packets; each packet
-is moved to the decoder's device once and decoded by one call of
-``pipeline.make_online_step``; decoded spectrogram frames and int16 audio
-chunks come back to the host, and the audio goes to the sink through the
-bounded-drop queue.  Per-packet latency is traced for the closed loop's
+is moved to the decoder's device once and decoded by one run of
+``pipeline.make_online_step`` over static buffers (on the card one replay of
+that run recorded as a CUDA graph); decoded spectrogram frames and int16
+audio chunks come back to the host, and the audio goes to the sink through
+the bounded-drop queue.  Per-packet latency is traced for the closed loop's
 p99 < 10 ms budget.  ``PersistentOnlineDecoder`` decodes a whole session
 as one device dispatch: on the card, one launch of a CUDA graph whose
 device-side while loop runs the step once per packet.
@@ -116,23 +117,72 @@ def _check_complete(inlet, stream, n: int, why: str, max_packets) -> None:
                            "this decoder")
 
 
+class _Lane:
+    """The host side of one of the decoder's programs (a
+    ``pipeline.StaticStep``, on the card its ``CapturedStep``): staging
+    buffers that packets are written into, host slots that its outputs are
+    copied back into and, on the card, an event after each slot's copy; one
+    set, or two with ``pipelined`` so that a packet's write and run never
+    touch the buffers of the outputs still pending.  On the card the
+    buffers are pinned, so both copies are asynchronous."""
+
+    def __init__(self, program, n_buffers: int, on_card: bool):
+        self.program = program
+        self.stage = [torch.empty(program.packet.shape, dtype=program.packet.dtype,
+                                  pin_memory=on_card) for _ in range(n_buffers)]
+        self.slots = [program.host_slot(on_card) for _ in range(n_buffers)]
+        self.events = [torch.cuda.Event() if on_card else None for _ in range(n_buffers)]
+        self.turn = 0   # the buffer set the next run uses
+        self.runs = 0   # runs of the program (graph replays on the card), warmup's not counted
+
+    def launch(self):
+        """Run the program on the packet(s) in the current staging buffer and
+        copy its outputs into the current slot; returns (the slot's views,
+        its event) and moves on to the next buffer set."""
+        b, prog = self.turn, self.program
+        prog.packet.copy_(self.stage[b], non_blocking=True)
+        prog.run()
+        slot, views = self.slots[b]
+        slot.copy_(prog.flat, non_blocking=True)
+        if self.events[b] is not None:
+            self.events[b].record()
+        self.runs += 1
+        self.turn = (b + 1) % len(self.stage)
+        return views, self.events[b]
+
+
 class OnlineDecoder:
     """Per-packet decoding on the params' device.
 
-    Each packet is moved to the device once and decoded by one call of the
-    step (``pipeline.make_online_step``); its outputs are read back to the
-    host, and the audio goes to the sink.
+    Each packet is written into a staging buffer, copied to the device once
+    and decoded by one run of the step over static buffers
+    (``pipeline.static_online_step``: the step of ``pipeline.make_online_step``,
+    the masked commit of its new carry into the decoder's static carry, the
+    copies of its outputs); the outputs come back to the host with one copy,
+    and the audio goes to the sink.  On the card ``warmup()`` records that
+    run as a CUDA graph (``pipeline.capture_online_step``), so a packet is
+    one graph replay between two asynchronous copies, as the JAX decoder's
+    packet is one call of its jitted step; on the CPU the same function runs
+    eagerly.  A CUDA decoder whose recording or replay fails raises: it
+    never decodes on the eager step.
 
     ``pipelined=True`` emits each packet's outputs when the NEXT packet
     arrives, so the device computes while the host waits for the amplifier;
-    it costs one packet period of playout latency.
+    it costs one packet period of playout latency.  The staging buffers and
+    host slots are doubled, so a packet never overwrites a slot whose
+    outputs are still pending.
 
     ``chunk_steps=K`` (K > 1) buffers K packets and decodes them with one
-    call of ``pipeline.make_online_multi_step`` (K steps of the same step
-    function, so the output is bit-identical to K = 1) and one read-back; it
-    costs (K-1) packet periods of playout latency.  Composes with
-    ``pipelined``.  The stream tail (< K packets at stop) drains through the
-    single step.
+    run of a K-step program (K calls of the same step function, outputs
+    stacked on a leading K axis as ``pipeline.make_online_multi_step``
+    stacks them, so the output is bit-identical to K = 1): one graph replay
+    per K packets on the card.  It costs (K-1) packet periods of playout
+    latency.  Composes with ``pipelined``.  The stream tail (< K packets at
+    stop) drains through the single-step program, which shares the K-step's
+    static carry (and, on the card, its graphs' memory pool).
+
+    ``carry`` is the static carry: the decoder keeps its tensors for its
+    whole life (``reset()`` and ``warmup()`` rewrite them in place).
 
     ``rand_source`` is the step's: an int seed (``PRNGKey(seed)``; 0, the
     JAX decoder's default key ``PRNGKey(0)``), a key pair, or a table of
@@ -156,14 +206,24 @@ class OnlineDecoder:
         self.chunk_steps = int(chunk_steps)
         if self.chunk_steps < 1:
             raise ValueError("chunk_steps must be >= 1")
-        self.multi_step = (pipeline.make_online_multi_step(dec_params, cfg, step=self.step)
-                           if self.chunk_steps > 1 else None)
-        self._chunk_buf = []   # packets awaiting a full K-chunk dispatch
-        self._pending = None   # outputs of the last step, not yet read back
+        self._lanes = {}       # chunk size -> _Lane; built by warmup
+        self._staged = 0       # packets staged toward the next K-chunk
+        self._pending = None   # (views, event) of the last run's outputs, not yet emitted
         self.spec_frames = []
         self.audio_chunks = []
         self.received = []
         self._warm = False
+
+    @property
+    def programs(self) -> dict:
+        """chunk size -> the program that decodes it (after warmup)."""
+        return {k: lane.program for k, lane in self._lanes.items()}
+
+    @property
+    def replays(self) -> dict:
+        """chunk size -> runs of its program since warmup (graph replays on
+        the card)."""
+        return {k: lane.runs for k, lane in self._lanes.items()}
 
     def _select(self, packet: np.ndarray) -> np.ndarray:
         if len(self.bad_channels):
@@ -173,38 +233,66 @@ class OnlineDecoder:
     def _to_device(self, packets) -> torch.Tensor:
         return torch.as_tensor(np.asarray(packets)).to(device=self.device, dtype=self.cfg.dtype)
 
+    def _restore_carry(self):
+        """Rewrite the static carry in place with ``init_online_carry``'s
+        values: recorded graphs hold its addresses."""
+        fresh = pipeline.init_online_carry(self.params, self.cfg)
+        for field in dataclasses.fields(pipeline.OnlineCarry):
+            getattr(self.carry, field.name).copy_(getattr(fresh, field.name))
+
     def warmup(self):
-        """Run the step (and the K-step) once on zeros outside the realtime
-        path, then reset the carry: warmup must not advance state."""
-        P, C = self.cfg.packet_size, self.cfg.n_channels
-        self.step(self.carry, torch.zeros((P, C), dtype=self.cfg.dtype, device=self.device))
-        if self.multi_step is not None:
-            self.multi_step(self.carry, torch.zeros((self.chunk_steps, P, C),
-                                                    dtype=self.cfg.dtype, device=self.device))
-        if self.device.type == "cuda":
+        """Build the programs outside the realtime path (the single step and,
+        with ``chunk_steps`` K > 1, the K-step, both over the static carry;
+        on the card each recorded as a CUDA graph in one memory pool), run
+        each once on zeros, then restore the carry in place: warmup must not
+        advance state."""
+        on_card = self.device.type == "cuda"
+        if not self._lanes:
+            pool = None
+            for k in sorted({1, self.chunk_steps}):
+                if on_card:
+                    prog = pipeline.capture_online_step(self.params, self.cfg, step=self.step,
+                                                        chunk_steps=k, carry=self.carry, pool=pool)
+                    pool = prog.graph.pool()
+                else:
+                    prog = pipeline.static_online_step(self.params, self.cfg, self.step, k,
+                                                       carry=self.carry)
+                n = 2 if self.pipelined and k == self.chunk_steps else 1
+                self._lanes[k] = _Lane(prog, n, on_card)
+        for lane in self._lanes.values():
+            lane.program.packet.zero_()
+            lane.program.is_data.fill_(1)
+            lane.program.run()
+        if on_card:
             torch.cuda.synchronize(self.device)
-        self.carry = pipeline.init_online_carry(self.params, self.cfg)
+        self._restore_carry()
         self._warm = True
 
     def reset(self):
         """Reset all streaming state: the equivalent of the reference's
         cross-process ``FrameBuffer.reset_buffer()`` flag for feeder restarts
-        (FrameBuffer.py:52-57)."""
-        self.carry = pipeline.init_online_carry(self.params, self.cfg)
+        (FrameBuffer.py:52-57).  The static carry is restored in place."""
+        self._restore_carry()
         self._pending = None
-        self._chunk_buf = []
+        self._staged = 0
+        for lane in self._lanes.values():
+            lane.turn = 0
         self.spec_frames, self.audio_chunks, self.received = [], [], []
 
-    def _emit(self, out):
+    def _emit(self, out, event=None):
         """Read step outputs (single or K-stacked) back to the host and hand
-        the audio to the sink.  Leading axes beyond the slot axis are
-        flattened: steps are in order and slots are in order within a step,
-        so the valid rows in sequence are the decoded stream.  The copies to
-        the host wait for the device."""
-        spec = out["spec"].cpu().numpy()
+        the audio to the sink.  ``out`` holds the outputs on the device or,
+        from a run, the views of its host slot; ``event`` is the slot's copy,
+        waited for first.  Leading axes beyond the slot axis are flattened:
+        steps are in order and slots are in order within a step, so the
+        valid rows in sequence are the decoded stream.  The rows are copied
+        out of the slot, which the next runs overwrite."""
+        if event is not None:
+            event.synchronize()
+        spec = out["spec"].cpu().numpy().copy()
         sv = out["spec_valid"].cpu().numpy().reshape(-1)
         spec = spec.reshape(-1, spec.shape[-1])
-        audio = out["audio"].cpu().numpy()
+        audio = out["audio"].cpu().numpy().copy()
         av = out["audio_valid"].cpu().numpy().reshape(-1)
         audio = audio.reshape(-1, audio.shape[-1])
         self.tracer.mark("step_done")
@@ -224,46 +312,49 @@ class OnlineDecoder:
             self.sink.write(audio[i])
         self.tracer.mark("audio_out")
 
-    def _dispatch(self, out):
+    def _dispatch(self, lane: _Lane):
+        out = lane.launch()
         if self.pipelined:
             # emit the PREVIOUS outputs, computed while this packet arrived;
-            # leave these on the device
+            # leave these in flight
             prev, self._pending = self._pending, out
             if prev is not None:
-                self._emit(prev)
+                self._emit(*prev)
         else:
-            self._emit(out)
+            self._emit(*out)
 
     def process_packet(self, packet: np.ndarray):
         """One fixed-size raw packet (packet_size, all_channels) -> outputs."""
         if not self._warm:
             self.warmup()
         self.received.append(packet)
-        sel = self._select(packet)
-        if self.multi_step is not None:
-            self._chunk_buf.append(sel)
-            if len(self._chunk_buf) < self.chunk_steps:
+        lane = self._lanes[self.chunk_steps]
+        stage = lane.stage[lane.turn].numpy()
+        if self.chunk_steps > 1:
+            stage[self._staged] = self._select(packet)
+            self._staged += 1
+            if self._staged < self.chunk_steps:
                 return
-            pkts = np.stack(self._chunk_buf)
-            self._chunk_buf = []
-            self.tracer.mark("packet_in")
-            self.carry, out = self.multi_step(self.carry, self._to_device(pkts))
-            self._dispatch(out)
-            return
+            self._staged = 0
+        else:
+            stage[...] = self._select(packet)
         self.tracer.mark("packet_in")
-        self.carry, out = self.step(self.carry, self._to_device(sel))
-        self._dispatch(out)
+        self._dispatch(lane)
 
     def flush(self):
-        """Drain the pipelined/chunked tail (call at stream end)."""
+        """Drain the pipelined/chunked tail (call at stream end): the pending
+        outputs, then the packets short of a full K-chunk, one single step
+        each."""
         if self._pending is not None:
             out, self._pending = self._pending, None
-            self._emit(out)
-        # tail packets short of a full K-chunk: single steps
-        for sel in self._chunk_buf:
-            self.carry, out = self.step(self.carry, self._to_device(sel))
-            self._emit(out)
-        self._chunk_buf = []
+            self._emit(*out)
+        if self._staged:
+            chunk = self._lanes[self.chunk_steps]
+            one = self._lanes[1]
+            for row in chunk.stage[chunk.turn].numpy()[: self._staged]:
+                one.stage[one.turn].numpy()[...] = row
+                self._emit(*one.launch())
+            self._staged = 0
 
     def run_stream(self, stream, stop_event: threading.Event | None = None,
                    max_packets: int | None = None, store_first_timestamp_to: str | None = None,
@@ -512,9 +603,7 @@ class PersistentOnlineDecoder(OnlineDecoder):
                     self._queue.get_nowait()
                 except queue.Empty:
                     break
-        fresh = pipeline.init_online_carry(self.params, self.cfg)
-        for field in dataclasses.fields(pipeline.OnlineCarry):
-            getattr(self.carry, field.name).copy_(getattr(fresh, field.name))
+        self._restore_carry()
         self.spec_frames, self.audio_chunks, self.received = [], [], []
         self._stale = False
 

@@ -5,9 +5,11 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/runtime/pipeline.py``:
 ``_exact_smooth_fields``, ``_streaming_filter_chain``, ``_frames_to_mel``,
 ``offline_decode`` (what its front half builds per input length can be
 built once: ``MelPlan``), ``OnlineCarry``, ``init_online_carry``,
-``make_online_step`` and ``make_online_multi_step``; and, for the
-persistent loop, ``commit_carry`` and ``capture_online_step`` (the step
-recorded as a CUDA graph).
+``make_online_step`` and ``make_online_multi_step``; and, for the online
+decoders, ``commit_carry``, ``static_online_step`` (the step, or K of
+them, over static buffers: the CPU path) and ``capture_online_step`` (the
+same recorded as a CUDA graph: the card's path, replayed once a packet or
+a K-packet chunk, or run inside the persistent loop).
 
 * ``offline_decode`` decodes a recorded session as one batch.  The
   reference's streaming output is chunk-size invariant (filters carry state,
@@ -545,7 +547,7 @@ def make_online_multi_step(params: DecoderParams, cfg: DecoderConfig, rand_sourc
 
 
 # ---------------------------------------------------------------------------
-# The persistent loop's step: the online step recorded as a CUDA graph
+# The online step over static buffers, and recorded as a CUDA graph
 # ---------------------------------------------------------------------------
 
 
@@ -560,51 +562,134 @@ def commit_carry(carry: OnlineCarry, new: OnlineCarry, is_data: torch.Tensor) ->
         old.copy_(torch.where(is_data, getattr(new, field.name), old))
 
 
+def _byte_layout(like: dict):
+    """For ``name: (dtype, shape)`` in order: each one's (offset, bytes) in
+    one byte buffer, every offset on a 16-byte boundary, and the buffer's
+    size."""
+    layout, size = {}, 0
+    for name, (dtype, shape) in like.items():
+        n = int(np.prod(shape)) * dtype.itemsize
+        layout[name] = (size, n)
+        size += -(-n // 16) * 16
+    return layout, size
+
+
+def _byte_views(flat: torch.Tensor, like: dict) -> dict:
+    """Views of the uint8 buffer ``flat``, one for each ``name: (dtype,
+    shape)`` of ``like``, at ``_byte_layout``'s offsets."""
+    layout, _ = _byte_layout(like)
+    return {name: flat[off : off + n].view(like[name][0]).view(like[name][1])
+            for name, (off, n) in layout.items()}
+
+
 @dataclasses.dataclass
-class CapturedStep:
-    """The online step recorded once, with the static buffers it reads and
-    writes.  ``graph`` is the ``torch.cuda.CUDAGraph`` (``keep_graph=True``):
-    its ``raw_cuda_graph()`` is what the persistent loop runs, and it holds
-    the private memory pool of every tensor made inside the recording, so it
-    must live as long as the loop."""
+class StaticStep:
+    """``chunk_steps`` = K online steps over static buffers.  ``run()``
+    decodes ``packet`` ((packet_size, n_channels), or (K, packet_size,
+    n_channels) for K > 1) from ``carry`` through K calls of the step in
+    order, commits the last new carry into ``carry``'s own tensors where
+    ``is_data`` (int32) is nonzero (``commit_carry``) and copies the outputs
+    into ``outputs``, stacked on a leading K axis for K > 1 as
+    ``make_online_multi_step`` stacks them.  The outputs are views of the
+    one byte buffer ``flat``, so a host slot of the same layout
+    (``host_slot``) reads them all back with one copy.  Here ``run()`` calls
+    ``body`` eagerly (the CPU path); ``CapturedStep`` replays the same body
+    recorded as a CUDA graph."""
+
+    body: Any
+    packet: torch.Tensor
+    is_data: torch.Tensor
+    carry: OnlineCarry
+    flat: torch.Tensor
+    outputs: dict           # 'spec', 'spec_valid', 'audio', 'audio_valid'
+    chunk_steps: int
+
+    def run(self):
+        self.body()
+
+    def host_slot(self, pin: bool):
+        """A host byte buffer the size of ``flat`` (pinned with ``pin``) and
+        its views of the outputs."""
+        slot = torch.empty(self.flat.shape, dtype=torch.uint8, pin_memory=pin)
+        return slot, _byte_views(slot, {k: (v.dtype, tuple(v.shape))
+                                        for k, v in self.outputs.items()})
+
+
+def static_online_step(params: DecoderParams, cfg: DecoderConfig, step,
+                       chunk_steps: int = 1, carry: Optional[OnlineCarry] = None) -> StaticStep:
+    """The step function (``make_online_step``'s ``step``) over static
+    buffers, ``chunk_steps`` calls a run.  ``carry`` is the static carry to
+    commit into (a new ``init_online_carry`` by default); two of these built
+    over one carry decode one stream.  The outputs' shapes come from one
+    step on a fresh carry; is_data starts at 0."""
+    K = int(chunk_steps)
+    if K < 1:
+        raise ValueError("chunk_steps must be >= 1")
+    dev = params.device
+    lead = (K,) if K > 1 else ()
+    carry = carry if carry is not None else init_online_carry(params, cfg)
+    packet = torch.zeros(lead + (cfg.packet_size, cfg.n_channels), dtype=cfg.dtype, device=dev)
+    is_data = torch.zeros((), dtype=torch.int32, device=dev)
+    _, probe = step(init_online_carry(params, cfg), packet[0] if K > 1 else packet)
+    like = {k: (v.dtype, lead + tuple(v.shape)) for k, v in probe.items()}
+    flat = torch.zeros(_byte_layout(like)[1], dtype=torch.uint8, device=dev)
+    outputs = _byte_views(flat, like)
+
+    def body():
+        new = carry
+        for i in range(K):
+            new, out = step(new, packet[i] if K > 1 else packet)
+            for name, v in out.items():
+                (outputs[name][i] if K > 1 else outputs[name]).copy_(v)
+        commit_carry(carry, new, is_data != 0)
+
+    return StaticStep(body=body, packet=packet, is_data=is_data, carry=carry, flat=flat,
+                      outputs=outputs, chunk_steps=K)
+
+
+@dataclasses.dataclass
+class CapturedStep(StaticStep):
+    """A ``StaticStep`` recorded once: ``run()`` replays ``graph``, the
+    ``torch.cuda.CUDAGraph`` (``keep_graph=True``) of its body.  Its
+    ``raw_cuda_graph()`` is what the persistent loop runs, and it holds the
+    private memory pool of every tensor made inside the recording, so it
+    must live as long as anything that replays it."""
 
     graph: Any
-    packet: torch.Tensor    # (packet_size, n_channels) in cfg.dtype
-    is_data: torch.Tensor   # int32: 1 for a data packet, 0 for STOP
-    carry: OnlineCarry      # the streaming state, committed in place
-    outputs: dict           # 'spec', 'spec_valid', 'audio', 'audio_valid'
     k4_nodes: int           # K4 launches recorded (gl_blocks wrapper calls in the recording)
     init_nodes: int         # block-init kernels recorded (cuda_prng.block_inits calls)
 
+    def run(self):
+        self.graph.replay()
+
 
 def capture_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0,
-                        step=None) -> CapturedStep:
-    """Record ``step(carry, packet)``, the masked commit of its new carry into
-    the static carry and the copies of its outputs into static buffers as
-    one CUDA graph, after two warm-up runs on a side stream (which load every
-    kernel and cuBLAS's workspace before the recording).  ``step`` reuses the
-    caller's ``make_online_step``; its arithmetic is not touched."""
+                        step=None, chunk_steps: int = 1, carry: Optional[OnlineCarry] = None,
+                        pool=None) -> CapturedStep:
+    """Record ``static_online_step``'s body (``chunk_steps`` calls of
+    ``step``, the masked commit of the new carry into the static carry and
+    the copies of the outputs into static buffers) as one CUDA graph, after
+    two warm-up runs on a side stream with is_data 0 (they load every kernel
+    and cuBLAS's workspace before the recording and leave the carry as it
+    was).  ``step`` reuses the caller's ``make_online_step``; its arithmetic
+    is not touched.  ``carry`` and ``pool`` (another graph's
+    ``graph.pool()``) let two recordings, the single step and the K-step,
+    share one static carry and one memory pool."""
     dev = params.device
     if dev.type != "cuda":
         raise ValueError(f"capture_online_step records a CUDA graph; the params lie on {dev}")
     step = step or make_online_step(params, cfg, rand_source)
-    packet = torch.zeros((cfg.packet_size, cfg.n_channels), dtype=cfg.dtype, device=dev)
-    is_data = torch.zeros((), dtype=torch.int32, device=dev)
-    carry = init_online_carry(params, cfg)
+    static = static_online_step(params, cfg, step, chunk_steps, carry)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         for _ in range(2):
-            _, out = step(carry, packet)
+            static.body()
     torch.cuda.current_stream(dev).wait_stream(side)
-    outputs = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in out.items()}
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     k4, inits = gl_blocks.launches, cuda_prng.block_inits.launches
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        new, out = step(carry, packet)
-        commit_carry(carry, new, is_data != 0)
-        for k, v in out.items():
-            outputs[k].copy_(v)
-    return CapturedStep(graph=graph, packet=packet, is_data=is_data, carry=carry, outputs=outputs,
-                        k4_nodes=gl_blocks.launches - k4,
-                        init_nodes=cuda_prng.block_inits.launches - inits)
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        static.body()
+    return CapturedStep(graph=graph, k4_nodes=gl_blocks.launches - k4,
+                        init_nodes=cuda_prng.block_inits.launches - inits,
+                        **{f.name: getattr(static, f.name) for f in dataclasses.fields(StaticStep)})

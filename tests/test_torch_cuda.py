@@ -705,3 +705,127 @@ def test_persistent_loop_emitter_error_leaves_it_stale_until_reset(rs, cuda_devi
     for a, b in zip(_persistent_session(pers, packets[:4]),
                     _persistent_session(fresh, packets[:4])):
         np.testing.assert_array_equal(a, b)
+
+
+def _eager_loop(dec, cfg, rand_source, packets, bad):
+    step = pipeline.make_online_step(dec, cfg, rand_source)
+    carry = pipeline.init_online_carry(dec, cfg)
+    specs, audio = [], []
+    for p in packets:
+        x = torch.as_tensor(np.delete(p, bad, axis=1)).to(device=dec.device, dtype=cfg.dtype)
+        carry, out = step(carry, x)
+        specs.append(out["spec"][out["spec_valid"]].cpu().numpy())
+        audio.append(out["audio"][out["audio_valid"]].cpu().numpy())
+    return np.concatenate(specs), np.concatenate(audio).reshape(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_steps,pipelined", [(1, False), (1, True), (4, False), (4, True)])
+@pytest.mark.parametrize("rand", ["key", "table"])
+@pytest.mark.parametrize("C", [4, 128])
+def test_graph_decoder_bit_identical_to_eager_step(rs, cuda_device, C, rand, chunk_steps,
+                                                   pipelined):
+    """OnlineDecoder on the card replays the recorded step: 50 packets, a
+    reset() (mid-chunk for K = 4), then 130 packets (a tail of 2 past the
+    last 4-chunk), with two bad channels dropped.  After the reset the
+    output is bit-identical to a plain loop of the eager
+    ``make_online_step``; no kernel wrapper runs in ``process_packet`` (K4
+    and the block inits run only as nodes of the recorded graphs), and the
+    programs ran once per packet, or once per K-chunk plus one per tail
+    packet."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_prng
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    bad = [1, C + 1]
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    rand_source = 3 if rand == "key" else gl.default_rand_init(600, 0, 5, torch.float32)
+    packets = [rs.randn(32, C + 2).astype(np.float32) * 10 for _ in range(180)]
+    d = online.OnlineDecoder(cfg, dec, bad_channels=bad, rand_source=rand_source,
+                             chunk_steps=chunk_steps, pipelined=pipelined)
+    d.warmup()
+    assert d.programs[chunk_steps].k4_nodes == chunk_steps
+    # a table's rows are gathered by index; a key draws them with the kernel
+    assert d.programs[chunk_steps].init_nodes == (chunk_steps if rand == "key" else 0)
+    k4, inits = cuda_gl.gl_blocks.launches, cuda_prng.block_inits.launches
+    for p in packets[:50]:
+        d.process_packet(p)
+    d.reset()
+    for p in packets[50:]:
+        d.process_packet(p)
+    spec, audio, received = d.results()
+    assert cuda_gl.gl_blocks.launches == k4 and cuda_prng.block_inits.launches == inits
+    runs = {chunk_steps: 50 // chunk_steps + 130 // chunk_steps}
+    if chunk_steps > 1:
+        runs[1] = 130 % chunk_steps
+    assert d.replays == runs
+    spec_e, audio_e = _eager_loop(dec, cfg, rand_source, packets[50:], bad)
+    assert len(spec) > 0 and len(audio) > 0
+    np.testing.assert_array_equal(spec, spec_e)
+    np.testing.assert_array_equal(audio, audio_e)
+    np.testing.assert_array_equal(received, np.vstack(packets[50:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_steps", [1, 4])
+def test_graph_decoder_issues_one_graph_launch_per_dispatch(rs, cuda_device, chunk_steps):
+    """Under the profiler, 40 packets after warmup are 40 / K
+    cudaGraphLaunch calls and no kernel launched by the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    C = 16
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    packets = [rs.randn(32, C).astype(np.float32) for _ in range(40)]
+    d = online.OnlineDecoder(cfg, dec, chunk_steps=chunk_steps)
+    d.warmup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for p in packets:
+            d.process_packet(p)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    graph_launches = sum(e.count for e in events if e.key.startswith("cudaGraphLaunch"))
+    kernels = sum(e.count for e in events
+                  if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    assert graph_launches == 40 // chunk_steps and kernels == 0, (graph_launches, kernels)
+
+
+@pytest.mark.cuda
+def test_graph_decoder_raises_when_the_graph_fails(rs, cuda_device, monkeypatch):
+    """A recording that fails raises out of process_packet, and so does
+    the next packet: the decoder emits nothing and never decodes on the
+    eager step.  A replay that fails raises the same way."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    C = 16
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    packet = rs.randn(32, C).astype(np.float32)
+
+    class FailingCapture:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            raise RuntimeError("forced capture failure")
+
+        def __exit__(self, *exc):
+            return False
+
+    d = online.OnlineDecoder(cfg, dec)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "graph", FailingCapture)
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="forced capture failure"):
+                d.process_packet(packet)
+    assert d.spec_frames == [] and d.audio_chunks == [] and len(d.sink.audio()) == 0
+
+    def failing_replay(self):
+        raise RuntimeError("forced replay failure")
+
+    d = online.OnlineDecoder(cfg, dec)
+    d.warmup()
+    monkeypatch.setattr(pipeline.CapturedStep, "run", failing_replay)
+    with pytest.raises(RuntimeError, match="forced replay failure"):
+        d.process_packet(packet)
+    assert d.spec_frames == [] and d.audio_chunks == [] and d.replays == {1: 0}

@@ -11,6 +11,7 @@ inits are for.
 """
 
 import configparser
+import dataclasses
 import threading
 
 import numpy as np
@@ -203,6 +204,131 @@ def test_decoder_warmup_and_reset_keep_state(rng):
     assert np.array_equal(first[0], spec_off.numpy())
     p = d.latency_report()
     assert set(p) == {50, 95, 99} and all(v >= 0 for v in p.values())
+
+
+def _carry_tensors(carry):
+    return [getattr(carry, f.name) for f in dataclasses.fields(t_pipe.OnlineCarry)]
+
+
+@pytest.mark.parametrize("chunk_steps,pipelined", [(1, False), (1, True), (4, True)])
+def test_reset_mid_stream_restores_the_static_carry(rng, chunk_steps, pipelined):
+    """The carry is static: warmup and a reset() mid-stream (mid-chunk for
+    K = 4, with outputs pending when pipelined) rewrite the decoder's own
+    tensors, which its programs hold, with the initial values; the stream
+    after the reset decodes as a fresh decoder decodes it."""
+    C, P = 4, 32
+    cfg, dec = _port_decoder(_arrays(rng, C), 1024.0, P, C)
+    packets = [rng.randn(P, C) * 10.0 for _ in range(41)]
+    d = t_online.OnlineDecoder(cfg, dec, chunk_steps=chunk_steps, pipelined=pipelined)
+    tensors = _carry_tensors(d.carry)
+    d.warmup()
+    fresh = _carry_tensors(t_pipe.init_online_carry(dec, cfg))
+    assert all(prog.carry is d.carry for prog in d.programs.values())
+    assert sorted(d.programs) == sorted({1, chunk_steps}) and set(d.replays.values()) == {0}
+    for p in packets[:25]:
+        d.process_packet(p)
+    assert int(d.carry.frame_k) > 0 and int(d.carry.sample_count) > cfg.prefill
+    d.reset()
+    assert all(a is b for a, b in zip(_carry_tensors(d.carry), tensors))
+    assert all(torch.equal(a, b) for a, b in zip(tensors, fresh))
+    assert d.spec_frames == [] and d.audio_chunks == [] and d.received == []
+    for p in packets:
+        d.process_packet(p)
+    after = d.results()
+    ref = t_online.OnlineDecoder(cfg, dec)
+    for p in packets:
+        ref.process_packet(p)
+    for a, b in zip(after, ref.results()):
+        np.testing.assert_array_equal(a, b)
+    assert all(a is b for a, b in zip(_carry_tensors(d.carry), tensors))
+
+
+@pytest.mark.parametrize("chunk_steps", [1, 4])
+def test_pipelined_slots_are_not_overwritten_before_they_are_emitted(rng, chunk_steps):
+    """With ``pipelined`` a run's outputs wait in a host slot while the next
+    packet's run fills the other one: every emitted slot still holds the
+    whole outputs (filler rows too) of the run it belongs to, as an eager
+    loop of ``make_online_step`` (K = 1) or ``make_online_multi_step``
+    (K = 4) gives them, the slots alternate, and the pending slot is never
+    the one being emitted."""
+    C, P, n = 4, 32, 40
+    cfg, dec = _port_decoder(_arrays(rng, C), 1024.0, P, C)
+    packets = [rng.randn(P, C) * 10.0 for _ in range(n)]
+    step = t_pipe.make_online_step(dec, cfg)
+    run = step if chunk_steps == 1 else t_pipe.make_online_multi_step(dec, cfg, step=step)
+    carry, runs = t_pipe.init_online_carry(dec, cfg), []
+    for i in range(0, n, chunk_steps):
+        chunk = np.stack(packets[i : i + chunk_steps]) if chunk_steps > 1 else packets[i]
+        carry, out = run(carry, torch.as_tensor(chunk))
+        runs.append(out)
+    d = t_online.OnlineDecoder(cfg, dec, chunk_steps=chunk_steps, pipelined=True)
+    emitted, emit = [], d._emit
+
+    def checked_emit(out, event=None):
+        run = runs[len(emitted)]
+        for k, v in out.items():
+            assert torch.equal(v, run[k]), (len(emitted), k)
+        if d._pending is not None:
+            assert d._pending[0]["spec"].data_ptr() != out["spec"].data_ptr()
+        emitted.append(out["spec"].data_ptr())
+        emit(out, event)
+
+    d._emit = checked_emit
+    for i, p in enumerate(packets):
+        d.process_packet(p)
+        assert len(emitted) == max((i + 1) // chunk_steps - 1, 0)
+    spec, audio, _ = d.results()
+    assert len(emitted) == n // chunk_steps == d.replays[chunk_steps]
+    assert len(set(emitted)) == 2 and all(a != b for a, b in zip(emitted, emitted[1:]))
+    np.testing.assert_array_equal(spec, np.concatenate([o["spec"][o["spec_valid"]].numpy()
+                                                        for o in runs]))
+    np.testing.assert_array_equal(audio, np.concatenate([o["audio"][o["audio_valid"]].numpy()
+                                                         for o in runs]).reshape(-1))
+
+
+def test_online_matches_offline_512():
+    """512 Hz (tests/test_pipeline_512.py): a 32-sample packet holds up to 7
+    frame ends.  A model trained by the JAX package on 8 s of 3 channels;
+    the port's online step and its OnlineDecoder, both with the key pair
+    of ``PRNGKey(2)``, against the port's offline decode and the JAX
+    offline decode with that key: spectrogram to rtol 1e-9 / atol 1e-10,
+    audio within 1 LSB, float64 on the CPU."""
+    from closed_loop_seeg_speech_synthesis_tpu.runtime import trainer as j_trainer
+
+    sr, C, T, P = 512.0, 3, 4096, 32
+    rs = np.random.RandomState(31)
+    eeg = rs.randn(T, C)
+    t = np.arange(int(T / sr * 48000)) / 48000.0
+    res = j_trainer.train(eeg, 0.3 * np.sin(2 * np.pi * 200 * t), sr, 48000.0, bad_channels=[],
+                          nb_feats=10)
+    jcfg = j_pipe.DecoderConfig(sr=sr, n_channels=C, packet_size=P, dtype=jnp.float64)
+    jdec = j_pipe.build_decoder_params(jcfg, res.lda, res.medians, res.select)
+    key = jax.random.PRNGKey(2)
+    spec_j, audio_j = j_pipe.offline_decode(jdec, jcfg, eeg, key=key)
+    arrs = dict(lda_coef=np.array(res.lda.coef), lda_intercept=np.array(res.lda.intercept),
+                lda_classes=np.array(res.lda.classes), lda_valid=np.array(res.lda.valid),
+                medians=np.array(res.medians), select=np.array(res.select), bad_channels=[])
+    cfg, dec = _port_decoder(arrs, sr, P, C)
+    assert t_pipe.max_frames_per_packet(P, dec.shift_table.numpy()) > 4
+    pair = tuple(int(k) for k in np.asarray(key))
+    spec_t, audio_t = t_pipe.offline_decode(dec, cfg, eeg, seed=pair)
+    step = t_pipe.make_online_step(dec, cfg, pair)
+    carry, most = t_pipe.init_online_carry(dec, cfg), 0
+    for i in range(0, T, P):
+        carry, out = step(carry, torch.as_tensor(eeg[i : i + P]))
+        most = max(most, int(out["spec_valid"].sum()))
+    assert most > 4
+    online = [_run_port_step(step, t_pipe.init_online_carry(dec, cfg), eeg, P)]
+    d = t_online.OnlineDecoder(cfg, dec, rand_source=pair)
+    for i in range(0, T, P):
+        d.process_packet(eeg[i : i + P])
+    online.append(d.results()[:2])
+    for spec_on, audio_on in online:
+        for spec_ref, audio_ref in ((spec_t.numpy(), audio_t.numpy()),
+                                    (np.asarray(spec_j), np.asarray(audio_j))):
+            assert spec_on.shape == spec_ref.shape and audio_on.shape == audio_ref.shape
+            np.testing.assert_allclose(spec_on, spec_ref, rtol=1e-9, atol=1e-10)
+            assert np.abs(audio_on.astype(int) - audio_ref.astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("sizes", [[32] * 5, [7, 50, 3, 64, 36], [160], [1] * 70, [0, 31, 1, 97]])

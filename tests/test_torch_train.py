@@ -349,6 +349,45 @@ def test_train_cli_matches_jax(tmp_path, fmt):
             np.testing.assert_allclose(ht[name][()], hj[name][()], rtol=COEF_RTOL, atol=COEF_ATOL)
 
 
+def test_train_cli_dithers_from_numpys_global_seed(tmp_path):
+    """With no ``rng=``, the port's train CLI draws its dither from numpy's
+    global generator as the JAX CLI does (train.py:99): after the same
+    ``np.random.seed`` both write the same params.h5 in float64, and both
+    leave the global generator in the same state."""
+    import h5py
+
+    sr, audio_sr = 1024, 48000
+    eeg, audio = _session(np.random.RandomState(5), 9, 5, sr, audio_sr)
+    rec = str(tmp_path / "speech.hdf")
+    j_loaders.save_hdf5(rec, eeg.astype(np.float32), sr, audio.astype(np.float32), audio_sr,
+                        ch_names=["LA1", "LA2", "LA3", "LB1", "LB2"])
+    cfg = configparser.ConfigParser()
+    cfg["General"] = {"storage_dir": str(tmp_path / "storage"), "session": "demo"}
+    cfg["Training"] = {"file": rec, "power_line": "50", "overwrite_on_rerun": "True",
+                       "draw_plots": "False"}
+    cfg_path = str(tmp_path / "experiment.ini")
+    with open(cfg_path, "w") as f:
+        cfg.write(f)
+
+    np.random.seed(23)
+    j_path = j_train_cli.main([cfg_path, "--session", "jax"])
+    j_state = np.random.get_state()
+    np.random.seed(23)
+    t_path = t_train_cli.main([cfg_path, "--session", "torch", "--device", "cpu"])
+    t_state = np.random.get_state()
+    assert t_state[2] == j_state[2] and np.array_equal(t_state[1], j_state[1])
+    with h5py.File(j_path, "r") as hj, h5py.File(t_path, "r") as ht:
+        assert set(ht.keys()) == set(hj.keys())
+        for name in ("bad_channels", "select", "lda_classes", "lda_valid"):
+            np.testing.assert_array_equal(ht[name][()], hj[name][()])
+        for name in ("medians_array", "borders_array"):
+            assert ht[name].dtype == np.float64
+            _assert_quantizer_close(ht[name][()], hj[name][()])
+        for name in ("lda_coef", "lda_intercept"):
+            assert ht[name].dtype == np.float64
+            np.testing.assert_allclose(ht[name][()], hj[name][()], rtol=COEF_RTOL, atol=COEF_ATOL)
+
+
 def test_io_utils_match_jax(rng, capsys, caplog):
     """The host helpers of io.utils: channel regexes, the audio squeeze, the
     wall-clock decorator (returns the value, logs one line) and the stdout
