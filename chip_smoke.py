@@ -50,6 +50,23 @@ on one NVIDIA GPU.  Run from the repository root:
 6. Drives the split replay decode (``use_cuda_epilogue=False,
    use_cuda_gl_tail=False``) the same way: K3 and K4 launch, K1 and K2 do
    not, and the output stays inside the f32 budget of the fused path.
+6b. The bf16 variants of K4 and K2 (``DecoderConfig.gl_bf16``, the JAX
+   kernels' ``bf16=True`` branch): each against its plain bf16 version on
+   the replay's mel frames and inits, K4 at B = 4, 199, 447-449 (cluster
+   and the crossing) and 179,999 (tensor cores), K2 at 199 and 179,999,
+   under the ``BF16_*`` gates (one iteration, both estimators: max |diff|
+   within 1e-3 of the blocks' max, from 199 blocks on 99% of samples within
+   2e-5 of it, the f32 kernel outside; K2 within 1 LSB on 99.9%; 8
+   iterations: converging 99.5% within 1e-3, the quirk by attainment and
+   envelope r; K2 within 1 LSB of the plain tail on K4's bf16 blocks); times
+   each at 199 and 179,999 blocks beside the f32 kernel in the same call,
+   with the bound at the bf16 rate (989 TFLOP/s) and the DFT products as
+   bf16 ``torch.matmul``; then the fused and the split replay through
+   ``pipeline.offline_decode`` with ``gl_bf16=True``, counts set to 0 just
+   before each: only K2's (K4's) bf16 variant runs, the spectrogram is
+   bit-identical to the f32 decode's, the audio attains the target within
+   1.1x of the f32 decode's and tracks the plain bf16 vocoder (envelope
+   r > 0.9); decode times beside the f32 decode's, one profile.
 7. Feeds 60 s of the session packet by packet (32 samples) through
    ``runtime.online.OnlineDecoder`` at full width, which replays the step
    recorded as a CUDA graph once a packet (``chunk_steps=4``: once per 4
@@ -82,7 +99,7 @@ on one NVIDIA GPU.  Run from the repository root:
    session is one graph launch of 1,921 iterations (the STOP included) and
    its output is bit-identical to phase 7's ``OnlineDecoder``; the
    captured step holds one node of the block inits' kernel.  A profiled
-   200-packet session counts 1 ``cudaGraphLaunch`` and 201
+   100-packet session counts 1 ``cudaGraphLaunch`` and 101
    ``gl_cluster_kernel`` runs (K4's wrapper counts only at capture: the
    kernels line gives K4's persistent launches as iterations times its
    nodes in the captured step).  Sessions with the plain Griffin-Lim are
@@ -218,8 +235,8 @@ AUDIO_SR, TRIAL_S, TRAIN_DECODE_MIN, TRAIN_SLICE_S = 48000, 3, 5, 60
 SELECT_MIN, PREDICT_MIN, R_DIFF_MAX, R_MIN, COEF_RTOL = 0.95, 0.98, 0.02, 0.15, 1e-6
 QUANT_MAX = 5e-3  # log-mel; a quarter of docs/NUMERICS.md:155's max 2e-2 for f32 targets
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 FMA outside the tensor
-# cores, TF32 tensor cores (3xTF32 takes three passes), HBM3
-FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+# cores, TF32 tensor cores (3xTF32 takes three passes), bf16 tensor cores, HBM3
+FP32_FLOPS, TF32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 495e12, 989e12, 3.35e12
 # 32-bit integer operations: shifts and logic issue only on the 64 INT32
 # lanes per SM a clock (a quarter of the fp32 rate's 128 lanes x 2, NVIDIA's
 # Hopper white paper), adds also as IMAD on the FMA pipe, so at most twice
@@ -234,6 +251,11 @@ PAR_RANKS, PAR_SESSIONS, PAR_REPLAY_S, PAR_TRAIN_S = 2, 4, 300, 450
 PAR_MEDIANS_ATOL, PAR_COEF_RTOL, PAR_COEF_ATOL = 1e-5, 1e-3, 1e-4  # tests/test_distributed.py:73-77
 REGIME_BLOCKS = 2048
 PROFILE_PACKETS = 200
+# The profiled persistent session: 101 iterations of ~190 kernels, ~19k CUPTI
+# activity records.  At 200 packets (~38k) one call's profile missed ~4.7
+# iterations' records of every kernel alike while the loop ran all 201 (the
+# output bit-identical, the loop's own counter exact; PERF.md).
+PERSISTENT_PROFILE_PACKETS = 100
 P99_LIMIT_MS = 10.0  # the closed loop's per-packet p99 limit (BASELINE.md, PERF.md section 2)
 PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apart
 # online audio under the reference's exp(angle) quirk, K4 against the plain
@@ -243,6 +265,19 @@ PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apa
 # QUIRK_KEYS - 1 the share read 0.994601-0.996570, each run at most 3 hops
 # (PERF.md); the persistent phase holds every key, phase 7 key 0.
 QUIRK_WITHIN_MIN, QUIRK_MAX_RUN, QUIRK_KEYS, HOP = 0.99, 3, 5, 160
+# The bf16 variants of K2 / K4 (DecoderConfig.gl_bf16): K4 in the cluster
+# regime and across its threshold, K2 at exp2's sequential twin's 199 blocks,
+# both at the replay's blocks on the tensor cores.  One iteration: a bf16
+# kernel and its plain version differ only where another summation order
+# moves a frame or Z value across a bf16 rounding boundary (one bf16 step of
+# it times an inverse-DFT entry): max |diff| within BF16_ONE_MAX of the
+# blocks' max |value| (the f32 kernel is 0.4-34% off, PERF.md), and from 199
+# blocks on >= BF16_ONE_SHARE of the samples within BF16_ONE_ATOL of it.
+# 8 iterations, converging: tests/test_torch_gl_bf16.py's gate; under the
+# quirk, test_gl_bf16_quality's (attainment <= 1.1x, envelope r > 0.9).
+BF16_K4_BLOCKS, BF16_K2_BLOCKS = (4, 199, 447, 448, 449), (199,)
+BF16_ONE_MAX, BF16_ONE_ATOL, BF16_ONE_SHARE = 1e-3, 2e-5, 0.99
+BF16_CONV_ATOL, BF16_CONV_MIN, BF16_ATTAIN, BF16_R = 1e-3, 0.995, 1.1, 0.9
 
 
 def say(*args):
@@ -255,9 +290,10 @@ def check(ok, what):
     say(f"  ok: {what}")
 
 
-def bound(fp32_flops, nbytes, tf32x3_flops=0.0, int32_ops=0.0):
+def bound(fp32_flops, nbytes, tf32x3_flops=0.0, int32_ops=0.0, bf16_flops=0.0):
     """(ms, "operations" or "bytes"): the least time for the work on one H100."""
-    t_ops = fp32_flops / FP32_FLOPS + 3 * tf32x3_flops / TF32_FLOPS + int32_ops / INT32_OPS
+    t_ops = (fp32_flops / FP32_FLOPS + 3 * tf32x3_flops / TF32_FLOPS + int32_ops / INT32_OPS
+             + bf16_flops / BF16_FLOPS)
     t_mem = nbytes / HBM_BYTES_S
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
 
@@ -273,13 +309,14 @@ def regime_threshold(cuda_gl, cluster_max_b):
         cuda_gl.CLUSTER_MAX_B = saved
 
 
-def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False):
+def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False, bf16=False):
     """Bound of K4 (or, with ``tail``, K2) on B blocks in the regime its
     launch picks: both DFT products in 3xTF32 on the tensor cores above
-    CLUSTER_MAX_B, else fp32 FMA; the target magnitudes, the Nyquist bin
-    and K2's overlap-add and low-pass in fp32 FMA.  Bytes: the mel frames
-    and inits read once, the blocks (K4) or int16 audio (K2) written once,
-    and the constants."""
+    CLUSTER_MAX_B, else fp32 FMA; with ``bf16`` at the bf16 tensor-core rate
+    in either regime (one pass on bf16 operands).  The target magnitudes,
+    the Nyquist bin and K2's overlap-add and low-pass in fp32 FMA.  Bytes:
+    the mel frames and inits read once, the blocks (K4) or int16 audio (K2)
+    written once, and the constants (bf16: the DFT operands as bf16)."""
     frames, kin = 2 * B, 128 if phase_bug else 256
     dft = 2.0 * frames * iterations * 256 * (256 + kin)
     other = 2.0 * (frames * NM * 129 + frames * iterations * 2 * 256)
@@ -287,6 +324,9 @@ def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False):
     # the operands the regime reads: the packed hi/lo DFTs or the f32 ones
     consts = sum(t.numel() * 4 for t in (ops.gl_f32[:1] + ops.gl_f32[3:] + ops.gl_tf32 if mma
                                          else ops.gl_f32))
+    if bf16:
+        consts = sum(t.numel() * t.element_size() for t in ops.gl_f32[:1] + ops.gl_f32[3:]
+                     + ops.gl_bf16[2:])
     nbytes = (B + 1) * NM * 4 + B * 480 * 4 + consts
     if tail:
         S, n_pow = ops.lp.dim, ops.n_pow
@@ -294,6 +334,8 @@ def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False):
         nbytes += B * 160 * 2 + sum(t.numel() * 4 for t in ops.tail_f32)
     else:
         nbytes += B * 480 * 4
+    if bf16:
+        return bound(other, nbytes, bf16_flops=dft)
     return bound(other, nbytes, dft) if mma else bound(other + dft, nbytes)
 
 
@@ -460,23 +502,26 @@ def card_line():
 
 
 def launch_counters(torch):
-    """(zero_counts, read_counts) over the five kernel wrappers' launch
-    counts, each synchronized with the card."""
+    """(zero_counts, read_counts) over the kernel wrappers' launch counts
+    (K2's and K4's bf16 variants apart), each synchronized with the card."""
     from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl, cuda_prng
 
-    counters = {"frontend_decode_mels": cuda_frontend.frontend_decode_mels,
-                "frontend_logpower": cuda_frontend.frontend_logpower,
-                "gl_audio": cuda_gl.gl_audio, "gl_blocks": cuda_gl.gl_blocks,
-                "block_inits": cuda_prng.block_inits}
+    counters = {"frontend_decode_mels": (cuda_frontend.frontend_decode_mels, "launches"),
+                "frontend_logpower": (cuda_frontend.frontend_logpower, "launches"),
+                "gl_audio": (cuda_gl.gl_audio, "launches"),
+                "gl_blocks": (cuda_gl.gl_blocks, "launches"),
+                "block_inits": (cuda_prng.block_inits, "launches"),
+                "gl_audio_bf16": (cuda_gl.gl_audio, "launches_bf16"),
+                "gl_blocks_bf16": (cuda_gl.gl_blocks, "launches_bf16")}
 
     def zero_counts():
         torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counts():
         torch.cuda.synchronize()
-        return {name: fn.launches for name, fn in counters.items()}
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
     return zero_counts, read_counts
 
@@ -597,6 +642,169 @@ def k4_vs_plain_audio(torch, label, audio_k, audio_p, spec, gl_ops, converging):
 
 def corr(torch, a, b):
     return torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+
+
+def blocks_attainment(torch, re, log_mels, gl_ops):
+    """tests/test_pallas_kernels.py::test_gl_bf16_quality's attainment of
+    Griffin-Lim blocks: ||(|rfft(first frame)| - target)|| / ||target||."""
+    target = torch.exp(log_mels[: re.shape[0]].double()) @ gl_ops.Minv.double()
+    mag = torch.fft.rfft(re[:, :256].double() * gl_ops.window.double(), dim=1).abs()
+    return ((mag - target).norm() / target.norm()).item()
+
+
+def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_counts):
+    """K2's and K4's bf16 variants against their plain bf16 versions on the
+    replay's mel frames and inits, under the BF16_* gates; the fused and the
+    split replay with ``gl_bf16=True`` (``refs``: the float32 decodes'
+    (spectrogram, audio), fused and split), each driven with the counts set
+    to 0 just before it; the times beside the float32 kernels' in this call.
+    Returns the figures of the two kernels lines."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline
+
+    ops, B_gl, NM = dec.gl_audio_ops, rand.shape[0], lm.shape[1]
+    k4, k2 = {}, {}
+    say(f"== bf16 variants of K4 / K2 (DecoderConfig.gl_bf16) vs their plain bf16 versions")
+    for B in BF16_K4_BLOCKS + (B_gl,):
+        l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
+        label = f"K4 bf16, B = {B} ({cuda_gl.regime(B)})"
+        for bug in (False, True):
+            k = cuda_gl.gl_blocks(l, r, ops, 1, bug, bf16=True)
+            p = cuda_gl.gl_blocks_plain(l, r, ops, 1, bug, bf16=True)
+            err, scale = (k - p).abs(), p.abs().max().item()
+            rel = err.max().item() / scale
+            share = (err <= BF16_ONE_ATOL * scale).double().mean().item()
+            f32_rel = (cuda_gl.gl_blocks(l, r, ops, 1, bug) - p).abs().max().item() / scale
+            say(f"  {label}, phase_bug={bug}, 1 iteration: max |diff| {rel:.3e} of the blocks' "
+                f"max |value| {scale:.4f} (the f32 kernel: {f32_rel:.3e}); {share:.6f} of samples "
+                f"within {BF16_ONE_ATOL} of it")
+            big = B >= 199
+            check(bool(torch.isfinite(k).all()) and rel <= BF16_ONE_MAX
+                  and (not big or (share >= BF16_ONE_SHARE and f32_rel > BF16_ONE_MAX)),
+                  f"{label}, phase_bug={bug}, 1 iteration: max |diff| <= {BF16_ONE_MAX} of the "
+                  f"blocks' max" + (f", >= {BF16_ONE_SHARE} within {BF16_ONE_ATOL} of it, the "
+                                    "f32 kernel outside" if big else ""))
+            if B == B_gl:
+                k4[f"one_iteration_{'quirk' if bug else 'converging'}"] = {
+                    "max_abs_err": err.max().item(), "max_rel": rel, "share_within": share,
+                    "f32_kernel_max_rel": f32_rel}
+        e8 = (cuda_gl.gl_blocks(l, r, ops, 8, False, bf16=True)
+              - cuda_gl.gl_blocks_plain(l, r, ops, 8, False, bf16=True)).abs()
+        within = (e8 <= BF16_CONV_ATOL).double().mean().item()
+        kq, fq = cuda_gl.gl_blocks(l, r, ops, 8, True, bf16=True), cuda_gl.gl_blocks(l, r, ops, 8, True)
+        att_k, att_f = (blocks_attainment(torch, x, l, dec.gl_ops) for x in (kq, fq))
+        r_q = corr(torch, hop_energy(torch, kq), hop_energy(torch, fq))
+        say(f"  {label}, 8 iterations: converging {within:.6f} of samples within {BF16_CONV_ATOL}; "
+            f"quirk attainment bf16 {att_k:.4f} f32 kernel {att_f:.4f}, per-hop envelope r {r_q:.4f}")
+        check(within >= BF16_CONV_MIN and att_k <= BF16_ATTAIN * att_f and r_q > BF16_R,
+              f"{label}, 8 iterations: converging >= {BF16_CONV_MIN} within {BF16_CONV_ATOL}; quirk "
+              f"attainment <= {BF16_ATTAIN}x the f32 kernel's, envelope r > {BF16_R}")
+        if B == B_gl:
+            k4.update(converging_within=within, quirk_attainment=(att_k, att_f), quirk_r=r_q)
+    for B in BF16_K2_BLOCKS + (B_gl,):
+        l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
+        label = f"K2 bf16, B = {B} ({cuda_gl.regime(B)})"
+        for bug in (False, True):
+            d = (cuda_gl.gl_audio(l, r, ops, GL_NORM, 1, bug, bf16=True).long()
+                 - cuda_gl.gl_audio_plain(l, r, ops, GL_NORM, 1, bug, bf16=True).long()).abs()
+            a = cuda_gl.gl_audio(l, r, ops, GL_NORM, 8, bug, bf16=True)
+            tail = cuda_gl.audio_tail_plain(cuda_gl.gl_blocks(l, r, ops, 8, bug, bf16=True), ops,
+                                            GL_NORM)
+            d_tail = int((a.long() - tail.long()).abs().max())
+            a_f = cuda_gl.gl_audio(l, r, ops, GL_NORM, 8, bug)
+            a_p = cuda_gl.gl_audio_plain(l, r, ops, GL_NORM, 8, bug, bf16=True)
+            att_k, att_f = (attainment(torch, x, l, dec.gl_ops) for x in (a, a_f))
+            r_p = corr(torch, hop_energy(torch, a), hop_energy(torch, a_p))
+            r_f = corr(torch, hop_energy(torch, a), hop_energy(torch, a_f))
+            within = (d <= 1).double().mean().item()
+            say(f"  {label}, phase_bug={bug}: 1 iteration {within:.6f} of samples within 1 LSB "
+                f"(max {int(d.max())}); 8 iterations: max {d_tail} LSB from the plain tail on K4's "
+                f"bf16 blocks, attainment bf16 {att_k:.4f} f32 kernel {att_f:.4f}, per-hop "
+                f"envelope r {r_p:.4f} against the plain bf16 version, {r_f:.4f} against the f32 "
+                "kernel")
+            check(within >= WITHIN_MIN and d_tail <= 1 and att_k <= BF16_ATTAIN * att_f
+                  and r_p > BF16_R,
+                  f"{label}, phase_bug={bug}: 1 iteration within 1 LSB on >= {WITHIN_MIN}; 8 "
+                  f"iterations within 1 LSB of the plain tail on K4's bf16 blocks, attainment "
+                  f"<= {BF16_ATTAIN}x the f32 kernel's, envelope r > {BF16_R} against the plain "
+                  "bf16 version")
+            if B == B_gl and not bug:
+                k2["max_abs_err"] = int(d.max())
+            if B == B_gl:
+                k2[f"eight_iterations_{'quirk' if bug else 'converging'}"] = {
+                    "attainment": (att_k, att_f), "r_plain_bf16": r_p, "r_f32_kernel": r_f}
+
+    say("  times (median of 3 CUDA-event runs, 8 iterations, exp(angle)), each beside the f32 "
+        "kernel in this call:")
+    for name, fig, tail in (("gl_blocks", k4, False), ("gl_audio", k2, True)):
+        kernel, plain = getattr(cuda_gl, name), getattr(cuda_gl, name + "_plain")
+        args = (GL_NORM,) if tail else ()
+        for B in (BF16_K2_BLOCKS[0], B_gl):
+            l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
+            t = {"ms": cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, True, bf16=True)),
+                 "f32_ms": cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, True)),
+                 "plain_ms": cuda_ms(torch, lambda: plain(l, r, ops, *args, 8, True, bf16=True)),
+                 "bound": gl_bound(cuda_gl, B, NM, 8, True, ops, tail=tail, bf16=True),
+                 "regime": cuda_gl.regime(B)}
+            say(f"    {name} bf16, B = {B} ({t['regime']}): {t['ms']:.4f} ms, f32 kernel "
+                f"{t['f32_ms']:.4f} ms, plain bf16 {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound'][0]:.4f} ms ({t['bound'][1]}, products at 989 TFLOP/s) [{card}]")
+            if B == B_gl:
+                fig.update(t)
+            else:
+                fig["cluster"] = t
+    # for reference the DFT products alone as bf16 torch.matmul (library_ms)
+    g = torch.Generator(device=lm.device).manual_seed(1)
+    frames16 = torch.randn((2 * B_gl, 256), generator=g, device=lm.device).to(torch.bfloat16)
+    fwd16, inv16 = ops.gl_bf16[0].to(torch.bfloat16), ops.gl_bf16[1][:128].to(torch.bfloat16)
+
+    def bf16_products():
+        for _ in range(8):
+            (frames16 @ fwd16)[:, :128] @ inv16
+
+    lib_ms = cuda_ms(torch, bf16_products)
+    del frames16
+    say(f"    library: torch.matmul bf16, the 8 iterations' forward ({2 * B_gl} x 256 x 256) and "
+        f"inverse ({2 * B_gl} x 128 x 256) products: {lib_ms:.3f} ms [{card}]")
+    for fig in (k4, k2):
+        fig["library_ms"] = lib_ms
+
+    split = dict(use_cuda_epilogue=False, use_cuda_gl_tail=False)
+    cfg16 = dataclasses.replace(cfg, gl_bf16=True)
+    for path, c, (spec32, audio32), name in (
+            ("fused", cfg16, refs[0], "gl_audio_bf16"),
+            ("split", dataclasses.replace(cfg16, **split), refs[1], "gl_blocks_bf16")):
+        say(f"== bf16 {path} replay: pipeline.offline_decode(gl_bf16=True), {C} ch, {SR} Hz, "
+            f"{MINUTES} min")
+        zero_counts()
+        spec16, audio16 = pipeline.offline_decode(dec, c, eeg)
+        counts = read_counts()
+        say(f"  launches: {counts}")
+        others = [k for k in ("gl_audio", "gl_blocks", "gl_audio_bf16", "gl_blocks_bf16") if k != name]
+        check(counts[name] == 1 and all(counts[k] == 0 for k in others)
+              and counts["block_inits"] == 1,
+              f"the {path} bf16 replay launched {name} once and no other Griffin-Lim kernel")
+        (k2 if name == "gl_audio_bf16" else k4)["launches"] = counts[name]
+        audio_p = cuda_gl.gl_audio_plain(spec16, rand, ops, GL_NORM, 8, True, bf16=True)
+        att16, att32 = attainment(torch, audio16, spec16, dec.gl_ops), attainment(torch, audio32, spec32, dec.gl_ops)
+        r_p = corr(torch, hop_energy(torch, audio16), hop_energy(torch, audio_p))
+        r_32 = corr(torch, hop_energy(torch, audio16), hop_energy(torch, audio32))
+        say(f"  spectrogram bit-identical to the f32 decode's: {torch.equal(spec16, spec32)}; audio "
+            f"attainment bf16 {att16:.4f} f32 {att32:.4f}, per-hop envelope r {r_p:.4f} against the "
+            f"plain bf16 vocoder on the same frames, {r_32:.4f} against the f32 decode")
+        check(torch.equal(spec16, spec32) and audio16.shape == audio32.shape
+              and att16 <= BF16_ATTAIN * att32 and r_p > BF16_R,
+              f"bf16 {path} replay: spectrogram bit-identical to the f32 decode's, attainment <= "
+              f"{BF16_ATTAIN}x its, envelope r > {BF16_R} against the plain bf16 vocoder")
+        runs = {"f32": [], "bf16": []}
+        for which in ("f32", "bf16", "bf16", "f32"):
+            cc = c if which == "bf16" else dataclasses.replace(c, gl_bf16=False)
+            runs[which].append(cuda_ms(torch, lambda: pipeline.offline_decode(dec, cc, eeg), reps=1))
+        say(f"  decode time (CUDA events): bf16 {runs['bf16']} ms, f32 {runs['f32']} ms [{card}]")
+        (k2 if name == "gl_audio_bf16" else k4)["replay_ms"] = runs
+        if path == "fused":
+            profile(torch, lambda: pipeline.offline_decode(dec, c, eeg), 1, "decode", top=6)
+    return k4, k2
 
 
 def synthetic_session(torch, noise, sr, seed=0):
@@ -1335,11 +1543,11 @@ def persistent_phase(torch, dev, card, cli, online, cuda_gl, cfg_on, dec_on, pac
           and np.array_equal(recv_p, packets.reshape(-1, packets.shape[-1])),
           f"persistent output {spec_p.shape} / {audio_p.shape} bit-identical to OnlineDecoder's")
 
-    # a profiled session of PROFILE_PACKETS packets: one graph launch, K4 in
+    # a profiled session of PERSISTENT_PROFILE_PACKETS packets: one graph launch, K4 in
     # every iteration
     pf = online.PersistentOnlineDecoder(cfg_on, dec_on)
     pf.warmup()
-    for p in packets[:PROFILE_PACKETS]:
+    for p in packets[:PERSISTENT_PROFILE_PACKETS]:
         pf.feed_packet(p)
     pf.feed_stop()
     torch.cuda.synchronize()
@@ -1356,15 +1564,16 @@ def persistent_phase(torch, dev, card, cli, online, cuda_gl, cfg_on, dec_on, pac
     k4_runs = sum(c for k, (c, _) in dev_ev.items() if "gl_cluster_kernel" in k)
     waits = sum(ms for k, (_, ms) in dev_ev.items() if "wait_packet_kernel" in k)
     step_ms = sum(ms for k, (_, ms) in dev_ev.items() if "wait_packet_kernel" not in k)
-    per_iter = step_ms / (PROFILE_PACKETS + 1)
-    say(f"  profile of a {PROFILE_PACKETS}-packet session: {prof_s * 1e3:.1f} ms; {graph_launches} "
-        f"cudaGraphLaunch, {kernel_launches} kernel launches by the host, gl_cluster_kernel ran "
+    per_iter = step_ms / (PERSISTENT_PROFILE_PACKETS + 1)
+    say(f"  profile of a {PERSISTENT_PROFILE_PACKETS}-packet session: {prof_s * 1e3:.1f} ms; "
+        f"{graph_launches} cudaGraphLaunch, {kernel_launches} kernel launches by the host, gl_cluster_kernel ran "
         f"{k4_runs} times; device time an iteration without the wait {per_iter * 1e3:.1f} us "
         f"(the wait kernel's spin {waits:.1f} ms in all) [{card}]")
     for name, (cnt, ms) in sorted(dev_ev.items(), key=lambda kv: -kv[1][1])[:6]:
         say(f"    {ms:9.3f} ms  {cnt:6d} runs  {name[:90]}")
-    check(graph_launches == 1 and k4_runs == (PROFILE_PACKETS + 1) * pf._captured.k4_nodes,
-          f"profiler: 1 cudaGraphLaunch and {PROFILE_PACKETS + 1} iterations x "
+    check(graph_launches == 1
+          and k4_runs == (PERSISTENT_PROFILE_PACKETS + 1) * pf._captured.k4_nodes,
+          f"profiler: 1 cudaGraphLaunch and {PERSISTENT_PROFILE_PACKETS + 1} iterations x "
           f"{pf._captured.k4_nodes} recorded K4 node(s) = gl_cluster_kernel runs")
 
     # the same packets with the plain Griffin-Lim in the captured step, under
@@ -1857,6 +2066,13 @@ def main():
         f"fused {split_runs['fused']} ms")
     say(f"  xRT: split {duration_s / (split_ms['split'] / 1e3):.1f}, "
         f"fused {duration_s / (split_ms['fused'] / 1e3):.1f}")
+    check(launches["gl_audio_bf16"] == launches["gl_blocks_bf16"] == 0
+          and split_launches["gl_audio_bf16"] == split_launches["gl_blocks_bf16"] == 0,
+          "no bf16 variant launched on the float32 replays")
+
+    # ---- the bf16 variants and the bf16 replays ---------------------------
+    k4_bf16, k2_bf16 = bf16_phase(torch, card, dec, cfg, eeg, lm, rand,
+                                  ((spec, audio), (spec_s, audio_s)), zero_counts, read_counts)
 
     # ---- the online step --------------------------------------------------
     say(f"== online: OnlineDecoder.process_packet, {C} ch, {SR} Hz, {PACKET}-sample packets, "
@@ -1905,7 +2121,8 @@ def main():
     dec1, (spec_on, audio_on, recv_on), on_launches = run_online(1)
     say(f"  launches: {on_launches} (K4 and block inits: graph replays x recorded nodes); graph "
         f"replays {dec1.replays}")
-    check(on_launches["gl_blocks"] >= n_pkts, f"K4 launched on every one of {n_pkts} packets")
+    check(on_launches["gl_blocks"] >= n_pkts and on_launches["gl_blocks_bf16"] == 0,
+          f"K4 (f32) launched on every one of {n_pkts} packets, its bf16 variant never")
     check(on_launches["block_inits"] == n_pkts, f"the block inits' kernel launched once in each "
           f"of {n_pkts} packets")
     check(dec1.replays == {1: n_pkts} and dec1.programs[1].k4_nodes == 1,
@@ -2197,6 +2414,17 @@ def main():
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, "regime": regime,
                 **extra}
 
+    def bf16_row(name, replaces, f, err):
+        # launches: the bf16 replay's (fused: K2, split: K4); max_abs_err: one
+        # iteration at the replay's blocks (K2 in LSB), the converging estimator
+        extra = {k: v for k, v in f.items() if k not in ("launches", "ms", "plain_ms", "bound",
+                                                         "regime", "library_ms")}
+        return {**row(name, "gl_audio.cu", replaces, f["launches"], err, f["ms"], f["plain_ms"],
+                      f["bound"], f["regime"], branch="bf16=True (DecoderConfig.gl_bf16)",
+                      library_call="8 x (frames @ [cos | sin], zr @ I_cos[:128]), torch.matmul "
+                                   "bf16: the DFT products alone", **extra),
+                "library_ms": f["library_ms"]}
+
     kernels = [
         row("frontend_decode_mels", "frontend_decode.cu", "pallas_frontend.py:195",
             launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "3xtf32",
@@ -2223,6 +2451,9 @@ def main():
             online_ms=k4_b4_ms,
             online_bound_ms=k4_b4_bound[0], online_regime=cuda_gl.regime(4),
             parallel_launches=par["gl_blocks"], **pers),
+        bf16_row("gl_audio_bf16", "pallas_gl.py:153", k2_bf16, k2_bf16["max_abs_err"]),
+        bf16_row("gl_blocks_bf16", "pallas_gl.py:141", k4_bf16,
+                 k4_bf16["one_iteration_converging"]["max_abs_err"]),
         row("block_inits", "prng.cu", "griffinlim.py:158",
             launches["block_inits"] + split_launches["block_inits"]
             + on_launches["block_inits"] + pers_inits,

@@ -10,6 +10,8 @@
 //     (1-4 blocks a packet) call it.
 //     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:141
 //     _gl_kernel (entry gl_blocks_pallas).
+//   Both take bf16 = 1 for the kernels' bf16=True branch (DecoderConfig.gl_bf16;
+//   pallas_gl._gl_loop with mm_t = bfloat16), below.
 //
 // Work.  Each iteration of each 480-sample block windows its two frames
 // (samples [0, 256) and [160, 416)), takes their forward 256-point real DFT
@@ -61,6 +63,21 @@
 //     Each iteration the phase-corrected bins and the output samples are
 //     exchanged through distributed shared memory, with a cluster barrier
 //     after each product; no operand is read from L2 after the first.
+//   * bf16 (both regimes, a template parameter of each kernel): the 128
+//     clean-bin DFT products take bf16 operands (round to nearest even, as
+//     JAX's astype(bfloat16)) and accumulate in fp32: the windowed frames
+//     before the forward product, zr (and zi with the converging estimator)
+//     before the inverse, and the four DFT matrices, which the host rounds
+//     once.  Unrounded: exp(logmel) @ Minv, the Nyquist bin (from the
+//     unrounded frames) and its inverse row, the phase step and everything
+//     after.  A product of two bf16 values is exact in fp32, so only the
+//     order of the sums differs from JAX.  gl_mma_kernel issues one
+//     mma.sync.m16n8k16 bf16 per k-step of 16 where 3xTF32 issues three
+//     m16n8k8 per k-step of 8: 6x fewer tensor-core instructions, at the
+//     bf16 rate (989 TFLOP/s, bound 0.57 ms for the replay's products), and a
+//     quarter of the operand bytes (bf16, no lo part).  Each k-step still
+//     goes to a fresh accumulator added in fp32.  gl_cluster_kernel keeps its
+//     fp32 FMA on the rounded operands.
 // The tail of gl_audio:
 //   ola: chunk b = (G[b][0:160] + G[b-1][160:320] + G[b-2][320:480]) times
 //     the window-sum reciprocal (rows 0 and 1 have partial sums), and the
@@ -75,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -120,60 +139,43 @@ constexpr int SS = NBIN + 4;       // target-magnitude row stride (129 used)
 constexpr int NT = 4;              // n-tiles of 8 columns per warp
 constexpr int MTL = MF / 16;       // m-tiles of 16 frames
 constexpr int STAGES = 4;          // cp.async ring depth per warp
-constexpr int KSTEPS = FFT / 8;    // k-steps of 8 in the packed operands
+// A k-step is 8 deep in 3xTF32 (m16n8k8), 16 in bf16 (m16n8k16); a lane's
+// operand slots per k-step: one float4 per n-tile in 3xTF32 (hi and lo of
+// two rows), one per pair of n-tiles in bf16 (two registers of two bf16 each)
+template <bool BF16> constexpr int KSTEPS = BF16 ? FFT / 16 : FFT / 8;
+template <bool BF16> constexpr int SLOTS = BF16 ? NT / 2 : NT;
 static_assert(MTHREADS == FFT, "one thread per window sample");
 
-// x rounded to TF32 (10 explicit mantissa bits, nearest, ties away from zero:
-// cvt.rna.tf32.f32) with integer operations
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The operand of a product is (ksteps, NT, 32 lanes) float4s, each lane's
-// (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n]) with k = 8 ks + lane%4 and n
-// the tile's column lane/4: exactly the lane's B fragments, so a lane copies
-// and reads only its own ring slots (no warp barrier).  mma_prefetch issues a
-// product's first STAGES-1 k-slabs; it runs ahead of the barrier before the
-// product, once the previous product has read the ring.
+// The operand of a product is (ksteps, SLOTS, 32 lanes) float4s, exactly
+// each lane's B fragments, so a lane copies and reads only its own ring
+// slots (no warp barrier).  3xTF32: slot nt holds (hi[k][n], hi[k+4][n],
+// lo[k][n], lo[k+4][n]) with k = 8 ks + lane%4 and n the tile's column
+// lane/4.  bf16: slot p holds n-tiles 2p and 2p+1, each as the registers
+// {B[k][n], B[k+1][n]} and {B[k+8][n], B[k+9][n]} with k = 16 ks + 2 (lane%4).
+// mma_prefetch issues a product's first STAGES-1 k-slabs; it runs ahead of
+// the barrier before the product, once the previous product has read the ring.
+template <bool BF16>
 __device__ __forceinline__ void mma_prefetch(const float4* __restrict__ bpk, float4* ring,
                                              int lane) {
+  constexpr int SL = SLOTS<BF16>;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      cp_async16(ring + (s * NT + nt) * 32 + lane, bpk + (s * NT + nt) * 32 + lane);
+    for (int j = 0; j < SL; ++j)
+      cp_async16(ring + (s * SL + j) * 32 + lane, bpk + (s * SL + j) * 32 + lane);
     cp_async_commit();
   }
 }
 
-// acc[mt][nt] = a[16 mt .. 16 mt + 16, 0 .. 8 ksteps) x this warp's packed
-// operand, n-tile nt, after mma_prefetch(bpk, ring, lane).
+// acc[mt][nt] = a[16 mt .. 16 mt + 16, 0 .. depth ksteps) x this warp's
+// packed operand, n-tile nt, after mma_prefetch<BF16>(bpk, ring, lane).  In
+// bf16 the A fragments are the f32 values in shared memory rounded to bf16
+// (nearest even) as they are loaded.
+template <bool BF16>
 __device__ __forceinline__ void mma_product(const float* __restrict__ a,
                                             const float4* __restrict__ bpk, float4* ring,
                                             int ksteps, float (&acc)[MTL][NT][4], int lane) {
+  constexpr int SL = SLOTS<BF16>;
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < MTL; ++mt)
@@ -186,34 +188,58 @@ __device__ __forceinline__ void mma_product(const float* __restrict__ a,
     const int nx = ks + STAGES - 1;  // refill the slot that k-step ks-1 used
     if (nx < ksteps)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        cp_async16(ring + ((nx % STAGES) * NT + nt) * 32 + lane, bpk + (nx * NT + nt) * 32 + lane);
+      for (int j = 0; j < SL; ++j)
+        cp_async16(ring + ((nx % STAGES) * SL + j) * 32 + lane, bpk + (nx * SL + j) * 32 + lane);
     cp_async_commit();
-    float4 b[NT];
+    float4 b[SL];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) b[nt] = ring[((ks % STAGES) * NT + nt) * 32 + lane];
-    const float* ak = a + g * AS + 8 * ks + q;
+    for (int j = 0; j < SL; ++j) b[j] = ring[((ks % STAGES) * SL + j) * 32 + lane];
+    if constexpr (BF16) {
+      const float* ak = a + g * AS + 16 * ks + 2 * q;
 #pragma unroll
-    for (int mt = 0; mt < MTL; ++mt) {
-      const float* r = ak + 16 * mt * AS;
-      const float v[4] = {r[0], r[8 * AS], r[4], r[8 * AS + 4]};
-      uint32_t hi[4], lo[4];  // the mma reads lo's top 10 mantissa bits
+      for (int mt = 0; mt < MTL; ++mt) {
+        const float* r = ak + 16 * mt * AS;
+        const float2 v0 = *reinterpret_cast<const float2*>(r);
+        const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * AS);
+        const float2 v2 = *reinterpret_cast<const float2*>(r + 8);
+        const float2 v3 = *reinterpret_cast<const float2*>(r + 8 * AS + 8);
+        const uint32_t af[4] = {bf16x2(v0.x, v0.y), bf16x2(v1.x, v1.y), bf16x2(v2.x, v2.y),
+                                bf16x2(v3.x, v3.y)};
+        // one pass a k-step, into a fresh accumulator added to acc in fp32
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        hi[i] = tf32_hi(v[i]);
-        lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 bp = b[nt >> 1];
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(c, af, __float_as_uint(nt & 1 ? bp.z : bp.x),
+                   __float_as_uint(nt & 1 ? bp.w : bp.y));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
+        }
       }
-      // the tensor cores add into their accumulator rounding toward zero:
-      // each k-step sums into a fresh one, added to acc rounding to nearest
+    } else {
+      const float* ak = a + g * AS + 8 * ks + q;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint32_t bh0 = __float_as_uint(b[nt].x), bh1 = __float_as_uint(b[nt].y);
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32(c, lo, bh0, bh1);
-        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-        mma_tf32(c, hi, bh0, bh1);
+      for (int mt = 0; mt < MTL; ++mt) {
+        const float* r = ak + 16 * mt * AS;
+        const float v[4] = {r[0], r[8 * AS], r[4], r[8 * AS + 4]};
+        uint32_t hi[4], lo[4];  // the mma reads lo's top 10 mantissa bits
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
+        for (int i = 0; i < 4; ++i) {
+          hi[i] = tf32_hi(v[i]);
+          lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
+        }
+        // the tensor cores add into their accumulator rounding toward zero:
+        // each k-step sums into a fresh one, added to acc rounding to nearest
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint32_t bh0 = __float_as_uint(b[nt].x), bh1 = __float_as_uint(b[nt].y);
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(c, lo, bh0, bh1);
+          mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+          mma_tf32(c, hi, bh0, bh1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
+        }
       }
     }
   }
@@ -222,6 +248,11 @@ __device__ __forceinline__ void mma_product(const float* __restrict__ a,
 constexpr size_t MMA_SMEM = (size_t)(4 * MWARPS * STAGES * NT * 32 + MF * AS + MF * SS + 3 * FFT +
                                      2 * MF) * sizeof(float);
 
+// BF16: the DFT products in one bf16 pass (frames and Z rounded to bf16 as
+// they are loaded, fpk / ipk the bf16-rounded operands' m16n8k16 fragments);
+// else 3xTF32.  The target magnitudes, the Nyquist bin (from the unrounded
+// frames), the phase step and the overlap-add are fp32 either way.
+template <bool BF16>
 __global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
     const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
     const float4* __restrict__ fpk, const float4* __restrict__ ipk,
@@ -293,15 +324,16 @@ __global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
   __syncthreads();
   for (int i = t; i < MF * FFT; i += MTHREADS) a[(i / FFT) * AS + i % FFT] *= w[i % FFT];
   __syncthreads();
+  constexpr int KS = KSTEPS<BF16>;
   float acc[MTL][NT][4];
   float4* wring = ring + warp * STAGES * NT * 32;
-  const float4* wfpk = fpk + (size_t)warp * KSTEPS * NT * 32;
-  const float4* wipk = ipk + (size_t)warp * KSTEPS * NT * 32;
-  mma_prefetch(wfpk, wring, lane);
+  const float4* wfpk = fpk + (size_t)warp * KS * SLOTS<BF16> * 32;
+  const float4* wipk = ipk + (size_t)warp * KS * SLOTS<BF16> * 32;
+  mma_prefetch<BF16>(wfpk, wring, lane);
   for (int it = 0; it < iterations; ++it) {
     // forward: bins [16 warp, 16 warp + 16), cos columns in n-tiles 0-1, sin in 2-3
-    mma_product(a, wfpk, wring, KSTEPS, acc, lane);
-    mma_prefetch(wipk, wring, lane);
+    mma_product<BF16>(a, wfpk, wring, KS, acc, lane);
+    mma_prefetch<BF16>(wipk, wring, lane);
     {  // Nyquist bin: 4 lanes per frame
       const int f = t >> 2, part = t & 3;
       float s = 0.f;
@@ -329,8 +361,8 @@ __global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
     if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);
     __syncthreads();
     // inverse: output samples [32 warp, 32 warp + 32); the sin rows vanish under phase_bug
-    mma_product(a, wipk, wring, phase_bug ? KSTEPS / 2 : KSTEPS, acc, lane);
-    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);
+    mma_product<BF16>(a, wipk, wring, phase_bug ? KS / 2 : KS, acc, lane);
+    if (it + 1 < iterations) mma_prefetch<BF16>(wfpk, wring, lane);
     __syncthreads();
 #pragma unroll
     for (int mt = 0; mt < MTL; ++mt)
@@ -392,6 +424,10 @@ constexpr size_t cluster_smem(int NM) {
                   CF * CCOL + 2 * FFT + 2 * CF + CF * CSS + CF * NM) * sizeof(float);
 }
 
+// BF16: the same fp32 FMA products on bf16-rounded operands (fm, im rounded
+// on the host; frames and Z rounded as they are staged); the Nyquist bin
+// from the unrounded frames.
+template <bool BF16>
 __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
     const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
     const float* __restrict__ fm, const float* __restrict__ im, const float* __restrict__ fnyq,
@@ -449,7 +485,8 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
     __syncthreads();
     for (int i = t; i < CF * FFT; i += CTHREADS) {
       const int ff = i / FFT, n = i % FFT;
-      frm[i] = wav[(ff >> 1) * BLK + (ff & 1) * HOP + n] * w[n];
+      const float v = wav[(ff >> 1) * BLK + (ff & 1) * HOP + n] * w[n];
+      frm[i] = BF16 ? bf16_round(v) : v;
     }
     __syncthreads();
     {  // forward: thread (f, lane) = own column lane of frame f
@@ -465,7 +502,9 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
       }
       xl[f * 2 * CBIN + lane] = s;
       float sn = 0.f;  // Nyquist bin of frame f
-      for (int n = lane; n < FFT; n += 32) sn = fmaf(frm[f * FFT + n], wn[n], sn);
+      for (int n = lane; n < FFT; n += 32)
+        sn = fmaf(BF16 ? wav[(f >> 1) * BLK + (f & 1) * HOP + n] * w[n] : frm[f * FFT + n], wn[n],
+                  sn);
       for (int off = 16; off > 0; off >>= 1) sn += __shfl_xor_sync(0xffffffffu, sn, off);
       if (lane == 0) xn[f] = sn;
     }
@@ -483,7 +522,8 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
     for (int i = t; i < CF * kin; i += CTHREADS) {
       const int ff = i / kin, kk = i % kin, k = kk % NBIN;
       const float* src = cluster.map_shared_rank(zl, k / CBIN);
-      zf[ff * FFT + kk] = src[ff * 2 * CBIN + (kk / NBIN) * CBIN + k % CBIN];
+      const float z = src[ff * 2 * CBIN + (kk / NBIN) * CBIN + k % CBIN];
+      zf[ff * FFT + kk] = BF16 ? bf16_round(z) : z;
     }
     __syncthreads();
     {  // inverse: thread (f, lane) = own output sample lane of frame f
@@ -566,17 +606,19 @@ __global__ void __launch_bounds__(HOP) lowpass_kernel(
 }
 
 // Griffin-Lim of B blocks into G: a cluster of 8 CTAs per 4 blocks when
-// use_cluster, else the tensor-core kernel, 32 blocks a CTA.
-cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
-                             const float* fm, const float* im, const float4* fpk,
-                             const float4* ipk, const float* fnyq, const float* inyq,
-                             const float* win, float* G, int B, int NM, int iterations,
-                             int phase_bug, int use_cluster, cudaStream_t stream) {
+// use_cluster, else the tensor-core kernel, 32 blocks a CTA; the bf16 variant
+// of either when BF16 (fm, im, fpk, ipk are then the bf16 operands).
+template <bool BF16>
+cudaError_t launch_gl(const float* lm, const float* rnd, const float* minv, const float* fm,
+                      const float* im, const float4* fpk, const float4* ipk, const float* fnyq,
+                      const float* inyq, const float* win, float* G, int B, int NM,
+                      int iterations, int phase_bug, int use_cluster, cudaStream_t stream) {
   cudaError_t err;
   if (use_cluster) {
     const size_t smem = cluster_smem(NM);
-    if ((err = cudaFuncSetAttribute(gl_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem)) != cudaSuccess)
+    if ((err = cudaFuncSetAttribute(gl_cluster_kernel<BF16>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
       return err;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -590,28 +632,44 @@ cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* min
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel, lm, rnd, minv, fm, im, fnyq, inyq, win,
-                                  G, B, NM, iterations, phase_bug)) != cudaSuccess)
+    if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel<BF16>, lm, rnd, minv, fm, im, fnyq,
+                                  inyq, win, G, B, NM, iterations, phase_bug)) != cudaSuccess)
       return err;
     return cudaGetLastError();
   }
-  if ((err = cudaFuncSetAttribute(gl_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(gl_mma_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)MMA_SMEM)) != cudaSuccess)
     return err;
-  gl_mma_kernel<<<(B + MB - 1) / MB, MTHREADS, MMA_SMEM, stream>>>(
+  gl_mma_kernel<BF16><<<(B + MB - 1) / MB, MTHREADS, MMA_SMEM, stream>>>(
       lm, rnd, minv, fpk, ipk, fnyq, inyq, win, G, B, NM, iterations, phase_bug);
   return cudaGetLastError();
 }
 
+cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
+                             const float* fm, const float* im, const float* fpk, const float* ipk,
+                             const float* fnyq, const float* inyq, const float* win, float* G,
+                             int B, int NM, int iterations, int phase_bug, int use_cluster,
+                             int bf16, cudaStream_t stream) {
+  const float4* f4 = reinterpret_cast<const float4*>(fpk);
+  const float4* i4 = reinterpret_cast<const float4*>(ipk);
+  return bf16 ? launch_gl<true>(lm, rnd, minv, fm, im, f4, i4, fnyq, inyq, win, G, B, NM,
+                                iterations, phase_bug, use_cluster, stream)
+              : launch_gl<false>(lm, rnd, minv, fm, im, f4, i4, fnyq, inyq, win, G, B, NM,
+                                 iterations, phase_bug, use_cluster, stream);
+}
+
 }  // namespace
 
+// bf16 = 0: fm / im the f32 DFT operands, fpk / ipk their 3xTF32 fragments;
+// bf16 = 1: fm / im the operands rounded to bf16 (as f32), fpk / ipk their
+// m16n8k16 bf16 fragments (ops/cuda_gl.make_gl_audio_ops builds both sets).
 extern "C" int gl_blocks(const float* lm, const float* rnd, const float* minv, const float* fm,
                          const float* im, const float* fnyq, const float* inyq, const float* win,
                          const float* fpk, const float* ipk, float* G, int B, int NM,
-                         int iterations, int phase_bug, int use_cluster, cudaStream_t stream) {
-  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, reinterpret_cast<const float4*>(fpk),
-                               reinterpret_cast<const float4*>(ipk), fnyq, inyq, win, G, B, NM,
-                               iterations, phase_bug, use_cluster, stream);
+                         int iterations, int phase_bug, int use_cluster, int bf16,
+                         cudaStream_t stream) {
+  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, fpk, ipk, fnyq, inyq, win, G, B, NM,
+                               iterations, phase_bug, use_cluster, bf16, stream);
 }
 
 extern "C" int gl_audio(const float* lm, const float* rnd, const float* minv, const float* fm,
@@ -619,11 +677,10 @@ extern "C" int gl_audio(const float* lm, const float* rnd, const float* minv, co
                         const float* fpk, const float* ipk, const float* winv,
                         const float* pmatT, const float* apow, const float* cpow, const float* h,
                         float* G, float* CH, float* Q, short* out, int B, int NM, int S,
-                        int n_pow, int iterations, int phase_bug, int use_cluster, float denom,
-                        cudaStream_t stream) {
-  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, reinterpret_cast<const float4*>(fpk),
-                                     reinterpret_cast<const float4*>(ipk), fnyq, inyq, win, G, B,
-                                     NM, iterations, phase_bug, use_cluster, stream);
+                        int n_pow, int iterations, int phase_bug, int use_cluster, int bf16,
+                        float denom, cudaStream_t stream) {
+  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, fpk, ipk, fnyq, inyq, win, G, B, NM,
+                                     iterations, phase_bug, use_cluster, bf16, stream);
   if (err != cudaSuccess) return (int)err;
   ola_kernel<<<B, HOP, 0, stream>>>(G, winv, pmatT, CH, Q, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -17,6 +17,15 @@ cluster of 8 CTAs per 4 blocks computes the DFTs in fp32 FMA from the f32
 operands held in shared memory; above it (replay) a tensor-core kernel
 computes them in 3xTF32 from the operands' hi/lo split, which
 ``make_gl_audio_ops`` builds once, in mma fragment order (``gl_tf32``).
+
+``bf16=True`` (``DecoderConfig.gl_bf16``) is the JAX kernels' ``bf16=True``
+branch (``pallas_gl._gl_loop`` with ``mm_t = bfloat16``): the 128 clean-bin
+DFT products take bf16 operands and accumulate in float32; everything else
+stays float32.  Its plain version is ``_gl_loop_plain``, float32 whatever
+the constants' dtype.  On the card both regimes have a bf16 variant: one
+``mma.sync.m16n8k16`` bf16 pass on the tensor cores, or the cluster's fp32
+FMA on bf16-rounded operands (``gl_bf16``).  The wrappers count its
+launches in ``launches_bf16``, apart from the float32 ones.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ class GLAudioOps:
     gl_f32: tuple         # Griffin-Lim operands of K2 and K4 (_gl_operands)
     gl_tf32: tuple        # forward and inverse DFT operands split hi/lo for 3xTF32,
                           # in mma fragment order (_pack_fragments)
+    gl_bf16: tuple        # the same two rounded to bf16, as float32 (the cluster
+                          # kernel's and the plain version's), then their bf16
+                          # m16n8k16 fragments (_pack_fragments_bf16)
     tail_f32: tuple       # K2's tail: winv, Pmat^T, apow, Cpow, Tmat[:, 0]
 
     @property
@@ -86,6 +98,12 @@ def _pack_fragments(m: torch.Tensor, forward: bool) -> torch.Tensor:
     return tf32.pack_b_fragments(m, fragment_columns(forward))
 
 
+def _pack_fragments_bf16(m: torch.Tensor, forward: bool) -> torch.Tensor:
+    """(256, 256) float32 operand -> its bf16 B fragments (warp, k-step of 16,
+    pair of n-tiles, lane, 8), the n-tiles of ``fragment_columns``."""
+    return tf32.pack_b_fragments_bf16(m, fragment_columns(forward))
+
+
 def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float64,
                       device=None, n_pow: int = 16) -> GLAudioOps:
     """Host-side (float64) construction.  ``n_pow`` = 16 puts the truncation of
@@ -103,6 +121,9 @@ def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float
     gl_f32 = _gl_operands(gl)
     return GLAudioOps(gl=gl, lp=lp, apow=apow, winv=winv, gl_f32=gl_f32,
                       gl_tf32=(_pack_fragments(gl_f32[1], True), _pack_fragments(gl_f32[2], False)),
+                      gl_bf16=(tf32.bf16_round(gl_f32[1]), tf32.bf16_round(gl_f32[2]),
+                               _pack_fragments_bf16(gl_f32[1], True),
+                               _pack_fragments_bf16(gl_f32[2], False)),
                       tail_f32=(_f32(winv), _f32(lp.Pmat.T), _f32(apow), _f32(lp.Cpow),
                                 _f32(lp.Tmat[:, 0])))
 
@@ -129,9 +150,63 @@ def _check_inputs(what: str, dev: torch.device, log_mels: torch.Tensor,
         raise ValueError(f"{what}: constants on {gl.window.device}, data on {dev}")
 
 
+def _gl_loop_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
+                   iterations: int, phase_bug: bool) -> torch.Tensor:
+    """Griffin-Lim blocks (B, 480) of the JAX kernels' bf16 branch, in
+    float32: ``pallas_gl._gl_loop`` with ``mm_t = bfloat16`` in its split
+    form.  Rounded to bf16 (nearest even): the windowed frames before the
+    forward product with the 128 clean columns of F_cos and F_sin, zr (and,
+    with the converging estimator, zi) before the inverse product, and those
+    DFT matrices (``ops.gl_bf16``).  Not rounded: exp(logmel) @ Minv, the
+    Nyquist bin (from the unrounded frames) and its inverse row, the phase
+    step, the overlap-add."""
+    f32, Km = torch.float32, FFT_SIZE // 2
+    minv, _, _, fnyq, inyq, win = ops.gl_f32
+    fwd, inv = ops.gl_bf16[:2]
+    e = torch.exp(log_mels.to(f32))
+    spec_all = e @ minv                                          # (B+1, 129)
+    spec_all = torch.where(torch.isfinite(spec_all), spec_all, torch.zeros_like(spec_all))
+    zero = torch.zeros((), dtype=f32, device=e.device)
+    pi = torch.tensor(np.pi, dtype=f32, device=e.device)
+
+    def one_frame(fr, spec):
+        x = tf32.bf16_round(fr) @ fwd                            # (B, [cos | sin])
+        xr, xi = x[:, :Km], -x[:, Km:]
+        xrn = (fr * fnyq).sum(dim=1, keepdim=True)
+        sp, spn = spec[:, :Km], spec[:, Km:]
+        if phase_bug:
+            ang = torch.atan2(xi, xr)
+            ang = torch.cat([torch.where(xr[:, :1] < 0, pi, zero), ang[:, 1:]], dim=1)
+            zr = sp * torch.exp(ang)
+            zrn = spn * torch.exp(torch.where(xrn < 0, pi, zero))
+            t = tf32.bf16_round(zr) @ inv[:Km]
+        else:
+            r = torch.sqrt(xr * xr + xi * xi)
+            safe = r > 0
+            rinv = torch.where(safe, 1.0 / torch.where(safe, r, torch.ones_like(r)), zero)
+            zr = sp * torch.where(safe, xr * rinv, torch.ones_like(r))
+            zi = sp * (xi * rinv)
+            zrn = spn * torch.where(xrn < 0, -1.0, 1.0).to(f32)
+            t = tf32.bf16_round(zr) @ inv[:Km] + tf32.bf16_round(zi) @ inv[Km:]
+        return (t + zrn * inyq) * win
+
+    pad = torch.nn.functional.pad
+    wav = rand_init.to(f32)
+    for _ in range(iterations):
+        t0 = one_frame(wav[:, :FFT_SIZE] * win, spec_all[:-1])
+        t1 = one_frame(wav[:, HOP : HOP + FFT_SIZE] * win, spec_all[1:])
+        wav = (pad(t0, (0, BLOCK_SAMPLES - FFT_SIZE))
+               + pad(t1, (HOP, BLOCK_SAMPLES - HOP - FFT_SIZE)))
+    return wav
+
+
 def gl_blocks_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
-                    iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
-    """Plain torch version of kernel K4, in the dtype of the constants."""
+                    iterations: int = 8, phase_bug: bool = True,
+                    bf16: bool = False) -> torch.Tensor:
+    """Plain torch version of kernel K4, in the dtype of the constants; with
+    ``bf16`` the bf16 branch (``_gl_loop_plain``), in float32."""
+    if bf16:
+        return _gl_loop_plain(log_mels, rand_init, ops, iterations, phase_bug)
     dt = ops.winv.dtype
     return streaming_gl_blocks(log_mels.to(dt), rand_init.to(dt), ops.gl, iterations, phase_bug)
 
@@ -143,15 +218,33 @@ def regime(B: int) -> str:
     return "cluster" if B <= CLUSTER_MAX_B else "mma"
 
 
+def _kernel_operands(ops: GLAudioOps, bf16: bool) -> tuple:
+    """The Griffin-Lim launch's constants, in the C entries' order: Minv, the
+    forward and inverse DFT operands, the Nyquist column and row, the
+    window, then the two operands' fragments; in bf16 the operands rounded
+    and their bf16 fragments, else f32 and 3xTF32."""
+    if not bf16:
+        return (*ops.gl_f32, *ops.gl_tf32)
+    minv, _, _, fnyq, inyq, win = ops.gl_f32
+    return (minv, *ops.gl_bf16[:2], fnyq, inyq, win, *ops.gl_bf16[2:])
+
+
+def _count(wrapper, bf16: bool) -> None:
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
-              iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
+              iterations: int = 8, phase_bug: bool = True, bf16: bool = False) -> torch.Tensor:
     """Kernel K4: log_mels (B+1, n_mel), rand_init (B, 480) -> Griffin-Lim
     blocks (B, 480) before the overlap-add; block b uses frames b and b+1.
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/gl_audio.cu`` (float32) in the regime ``regime(B)`` names, or
-    raises."""
+    ``csrc/gl_audio.cu`` (float32; with ``bf16`` its bf16 variant) in the
+    regime ``regime(B)`` names, or raises."""
     if log_mels.device.type == "cpu":
-        return gl_blocks_plain(log_mels, rand_init, ops, iterations, phase_bug)
+        return gl_blocks_plain(log_mels, rand_init, ops, iterations, phase_bug, bf16)
     dev = log_mels.device
     if dev.type != "cuda":
         raise ValueError(f"gl_blocks: unsupported device {dev}")
@@ -160,23 +253,33 @@ def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     G = torch.empty((B, BLOCK_SAMPLES), dtype=torch.float32, device=dev)
     if B == 0:
         return G
-    fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 11, 5)
-    ptrs = (log_mels, rand_init, *ops.gl_f32, *ops.gl_tf32, G)
+    fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 11, 6)
+    ptrs = (log_mels, rand_init, *_kernel_operands(ops, bf16), G)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, int(iterations), int(bool(phase_bug)),
-             int(regime(B) == "cluster"), torch.cuda.current_stream(dev).cuda_stream)
+             int(regime(B) == "cluster"), int(bool(bf16)),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_blocks")
-    gl_blocks.launches += 1
+    _count(gl_blocks, bf16)
     return G
 
 
 gl_blocks.launches = 0
+gl_blocks.launches_bf16 = 0
 
 
 def gl_audio_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
-                   norm: float, iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
-    """Plain torch version of the kernel, in the dtype of the constants."""
-    dt = ops.winv.dtype
-    re = streaming_gl_blocks(log_mels.to(dt), rand_init.to(dt), ops.gl, iterations, phase_bug)
+                   norm: float, iterations: int = 8, phase_bug: bool = True,
+                   bf16: bool = False) -> torch.Tensor:
+    """Plain torch version of the kernel, in the dtype of the constants; with
+    ``bf16`` its Griffin-Lim is the bf16 branch's (``_gl_loop_plain``)."""
+    re = gl_blocks_plain(log_mels, rand_init, ops, iterations, phase_bug, bf16)
+    return audio_tail_plain(re.to(ops.winv.dtype), ops, norm)
+
+
+def audio_tail_plain(re: torch.Tensor, ops: GLAudioOps, norm: float) -> torch.Tensor:
+    """K2's tail in plain torch: Griffin-Lim blocks (B, 480) -> overlap-add
+    times the window-sum reciprocal, the low-pass with its boundary states
+    from the truncated power sum, int16 (B*160,)."""
     B = re.shape[0]
     rp = torch.nn.functional.pad(re, (0, 0, 2, 0))        # rows b-2, b-1 of block b
     acc = rp[2:, :HOP] + rp[1:-1, HOP : 2 * HOP] + rp[:-2, 2 * HOP :]
@@ -193,13 +296,14 @@ def gl_audio_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudio
 
 
 def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
-             norm: float, iterations: int = 8, phase_bug: bool = True) -> torch.Tensor:
+             norm: float, iterations: int = 8, phase_bug: bool = True,
+             bf16: bool = False) -> torch.Tensor:
     """log_mels (B+1, n_mel), rand_init (B, 480) -> int16 audio (B*160,).
     A CPU tensor runs the plain version; a CUDA tensor launches
     ``csrc/gl_audio.cu`` (float32, Griffin-Lim in the regime ``regime(B)``
-    names) or raises."""
+    names; with ``bf16`` its bf16 variant) or raises."""
     if log_mels.device.type == "cpu":
-        return gl_audio_plain(log_mels, rand_init, ops, norm, iterations, phase_bug)
+        return gl_audio_plain(log_mels, rand_init, ops, norm, iterations, phase_bug, bf16)
     dev = log_mels.device
     if dev.type != "cuda":
         raise ValueError(f"gl_audio: unsupported device {dev}")
@@ -216,14 +320,15 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     CH = torch.empty((B, HOP), dtype=torch.float32, device=dev)
     Q = torch.empty((B, S), dtype=torch.float32, device=dev)
     out = torch.empty(B * HOP, dtype=torch.int16, device=dev)
-    fn = _build.bind(_build.load("gl_audio"), "gl_audio", 19, 7, 1)
-    ptrs = (log_mels, rand_init, *ops.gl_f32, *ops.gl_tf32, *ops.tail_f32, G, CH, Q, out)
+    fn = _build.bind(_build.load("gl_audio"), "gl_audio", 19, 8, 1)
+    ptrs = (log_mels, rand_init, *_kernel_operands(ops, bf16), *ops.tail_f32, G, CH, Q, out)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, S, ops.n_pow, int(iterations),
-             int(bool(phase_bug)), int(regime(B) == "cluster"), float(norm * 1.01),
-             torch.cuda.current_stream(dev).cuda_stream)
+             int(bool(phase_bug)), int(regime(B) == "cluster"), int(bool(bf16)),
+             float(norm * 1.01), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_audio")
-    gl_audio.launches += 1
+    _count(gl_audio, bf16)
     return out
 
 
 gl_audio.launches = 0
+gl_audio.launches_bf16 = 0

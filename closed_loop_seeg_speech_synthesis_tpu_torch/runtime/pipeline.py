@@ -95,6 +95,14 @@ class DecoderConfig:
     use_cuda_epilogue: bool = True  # K1 (fused epilogue) rather than K3 + plain LDA
     use_cuda_gl: bool = True        # kernels K2/K4 for float32 CUDA decodes
     use_cuda_gl_tail: bool = True   # K2 (fused tail) rather than K4 + plain tail
+    # The Griffin-Lim DFT products of K2/K4 with bf16 operands (f32
+    # accumulation; the JAX field of the same name): the kernels' bf16
+    # variants.  Honoured where K2/K4 run (float32 CUDA offline decodes), as
+    # the JAX package honours it on its Pallas route only; the plain route
+    # and the online step ignore it.  Griffin-Lim under any precision change
+    # picks another waveform: quality-gated, not LSB parity
+    # (docs/NUMERICS.md, "bf16 Griffin-Lim matmuls").
+    gl_bf16: bool = False
 
     @property
     def win(self) -> int:
@@ -253,7 +261,7 @@ def _vocode(params: DecoderParams, cfg: DecoderConfig, mel_frames: torch.Tensor,
             rand_init) -> torch.Tensor:
     """``offline_decode``'s back half: mel frames (N, n_mel) and inits
     (N-1, 480) -> int16 audio ((N-1)*160,), through K2 (or K4) in float32
-    on CUDA."""
+    on CUDA, their bf16 variants with ``cfg.gl_bf16``."""
     dev, dt = params.device, cfg.dtype
     rand_init = torch.as_tensor(rand_init).to(device=dev, dtype=dt)
     on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
@@ -262,11 +270,11 @@ def _vocode(params: DecoderParams, cfg: DecoderConfig, mel_frames: torch.Tensor,
     if use_k2 and cfg.use_cuda_gl_tail:
         # K2: GL iterations + overlap-add + low-pass + int16
         return gl_audio(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
-                        float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug)
+                        float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug, cfg.gl_bf16)
     if use_k2:
         # K4: GL iterations only; the tail below is plain
         re = gl_blocks(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
-                       cfg.gl_iterations, cfg.phase_bug)
+                       cfg.gl_iterations, cfg.phase_bug, cfg.gl_bf16)
     else:
         re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
                                     cfg.gl_iterations, cfg.phase_bug)

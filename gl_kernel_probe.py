@@ -37,21 +37,22 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import probe_tools  # noqa: E402
 
 SRC = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu"
-ONE_ACC = ('''        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32(c, lo, bh0, bh1);
-        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-        mma_tf32(c, hi, bh0, bh1);
+HEADER = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/tf32_mma.cuh"  # included by SRC
+ONE_ACC = ('''          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(c, lo, bh0, bh1);
+          mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+          mma_tf32(c, hi, bh0, bh1);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];''', '''        mma_tf32(acc[mt][nt], lo, bh0, bh1);
-        mma_tf32(acc[mt][nt], hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-        mma_tf32(acc[mt][nt], hi, bh0, bh1);''')
+          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];''', '''          mma_tf32(acc[mt][nt], lo, bh0, bh1);
+          mma_tf32(acc[mt][nt], hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+          mma_tf32(acc[mt][nt], hi, bh0, bh1);''')
 # (text the stamp follows, stamp) in each kernel; slot = 8 * iteration + stamp
 MMA_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n", 0),
-              ("    mma_prefetch(wipk, wring, lane);\n", 1),
+              ("    mma_prefetch<BF16>(wipk, wring, lane);\n", 1),
               ("      if (part == 0) xn[f] = s;\n    }\n    __syncthreads();\n", 2),
               ("    if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);\n"
                "    __syncthreads();\n", 3),
-              ("    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);\n", 4),
+              ("    if (it + 1 < iterations) mma_prefetch<BF16>(wfpk, wring, lane);\n", 4),
               ("          a[f * AS + n] = (acc[mt][nt][j] + zn[f] * wi[n]) * w[n];\n        }\n"
                "    __syncthreads();\n", 5),
               ("          G[(size_t)(b0 + bl) * BLK + s] = v;\n        }\n      }\n    }\n"
@@ -59,12 +60,10 @@ MMA_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n", 0),
 MMA_PHASES = ["forward product", "Nyquist + barrier", "phase step + barrier", "inverse product",
               "barrier + epilogue + barrier", "overlap-add + barrier"]
 CLUSTER_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n    __syncthreads();\n", 0),
-                  ("      frm[i] = wav[(ff >> 1) * BLK + (ff & 1) * HOP + n] * w[n];\n    }\n"
-                   "    __syncthreads();\n", 1),
+                  ("      frm[i] = BF16 ? bf16_round(v) : v;\n    }\n    __syncthreads();\n", 1),
                   ("      if (lane == 0) xn[f] = sn;\n    }\n    __syncthreads();\n", 2),
                   ("    cluster.sync();  // every CTA's zl is written\n", 3),
-                  ("      zf[ff * FFT + kk] = src[ff * 2 * CBIN + (kk / NBIN) * CBIN + k % CBIN];\n"
-                   "    }\n    __syncthreads();\n", 4),
+                  ("      zf[ff * FFT + kk] = BF16 ? bf16_round(z) : z;\n    }\n    __syncthreads();\n", 4),
                   ("    cluster.sync();  // every CTA's yl is written; every zl read\n", 5),
                   ("      wav[i] = v;\n    }\n", 6)]
 CLUSTER_PHASES = ["frames + barrier", "forward + Nyquist + barrier", "phase + cluster barrier",
@@ -109,8 +108,11 @@ def regime_threshold(cuda_gl, cluster_max_b):
 
 
 def build_variants(src):
-    """name -> library of each copy in ``variants(src)``, built together."""
-    return probe_tools.build_all({name: {"gl_audio.cu": text} for name, text in variants(src).items()})
+    """name -> library of each copy in ``variants(src)``, built together,
+    each beside the package's tensor-core header."""
+    header = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), HEADER)).read()
+    return probe_tools.build_all({name: {"gl_audio.cu": text, "tf32_mma.cuh": header}
+                                  for name, text in variants(src).items()})
 
 
 def main():

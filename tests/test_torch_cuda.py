@@ -274,6 +274,219 @@ def test_gl_blocks_regimes_agree(rs, cuda_device, monkeypatch, B):
             assert ((mma - cluster).abs() <= 2e-4).double().mean().item() >= 0.999
 
 
+# The bf16 variants (DecoderConfig.gl_bf16): the online step's 1-4 blocks,
+# the cluster regime (exp2's sequential twin: 199) and both sides of its
+# threshold, a ragged 1,001 on the tensor cores
+BF16_BLOCKS = [1, 2, 4, 199, _T - 1, _T, _T + 1, 1001]
+BF16_RUNS = [(0, True), (1, False), (1, True), (8, False), (8, True)]
+
+
+def _first_frame_attainment(re, log_mels, ops):
+    """tests/test_pallas_kernels.py::test_gl_bf16_quality's attainment:
+    ||(|rfft(first frame of each block)| - target)|| / ||target||."""
+    target = torch.exp(log_mels[: re.shape[0]].double()) @ ops.Minv.double()
+    mag = torch.fft.rfft(re[:, :256].double() * ops.window.double(), dim=1).abs()
+    return ((mag - target).norm() / target.norm()).item()
+
+
+def _hop_envelope_r(a, b):
+    """Pearson r of the two runs' RMS per 160-sample hop."""
+    e = lambda x: torch.sqrt((x.double().reshape(-1, 160) ** 2).mean(1) + 1e-6)
+    return torch.corrcoef(torch.stack([e(a), e(b)]))[0, 1].item()
+
+
+def _bf16_blocks_ok(re_k, re_p, re_32, lm, rand, ops, iterations, phase_bug):
+    """The bf16 kernel's blocks ``re_k`` against the plain bf16 version's
+    ``re_p`` (and, under the quirk, the f32 kernel's ``re_32``).  Without
+    iterations the inits come back.  One iteration: the two differ only
+    where another summation order moves a frame or Z value across a bf16
+    rounding boundary, by one bf16 step of it times an inverse-DFT entry:
+    max |diff| <= 1e-3 of the blocks' max |value| (the f32 kernel is 0.4-34%
+    off), and from 199 blocks on >= 99% of samples within 2e-5 of it.
+    8 iterations, converging: >= 99.5% of samples within 1e-3.  8 iterations,
+    quirk (chaotic): attainment <= 1.1x the f32 kernel's and per-hop
+    envelope r > 0.9 against it (test_gl_bf16_quality's gate)."""
+    B = re_k.shape[0]
+    assert re_k.shape == re_p.shape == (B, 480) and bool(torch.isfinite(re_k).all())
+    err = (re_k - re_p).abs()
+    if iterations == 0:
+        assert torch.equal(re_k, rand)
+    elif iterations == 1:
+        scale = re_p.abs().max().item()
+        assert err.max().item() <= 1e-3 * scale, (err.max().item(), scale)
+        if B >= 199:
+            assert (err <= 2e-5 * scale).double().mean().item() >= 0.99
+    elif not phase_bug:
+        assert (err <= 1e-3).double().mean().item() >= 0.995
+    else:
+        assert _first_frame_attainment(re_k, lm, ops.gl) <= 1.1 * _first_frame_attainment(
+            re_32, lm, ops.gl)
+        assert _hop_envelope_r(re_k, re_32) > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,phase_bug", BF16_RUNS)
+@pytest.mark.parametrize("B", BF16_BLOCKS)
+def test_gl_blocks_bf16_kernel_matches_plain(rs, cuda_device, B, iterations, phase_bug):
+    """K4's bf16 variant against the plain bf16 version (``_bf16_blocks_ok``),
+    in the regime its launch picks; counted in ``launches_bf16`` only."""
+    lm, rand = _gl_inputs(rs, B, cuda_device)
+    ops = _gl_ops(cuda_device)
+    before = (cuda_gl.gl_blocks.launches, cuda_gl.gl_blocks.launches_bf16)
+    re_k = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug, bf16=True)
+    torch.cuda.synchronize()
+    assert (cuda_gl.gl_blocks.launches, cuda_gl.gl_blocks.launches_bf16) == (before[0],
+                                                                           before[1] + 1)
+    re_p = cuda_gl.gl_blocks_plain(lm, rand, ops, iterations, phase_bug, bf16=True)
+    re_32 = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
+    _bf16_blocks_ok(re_k, re_p, re_32, lm, rand, ops, iterations, phase_bug)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,phase_bug", BF16_RUNS)
+@pytest.mark.parametrize("B", BF16_BLOCKS)
+def test_gl_audio_bf16_kernel_matches_plain(rs, cuda_device, B, iterations, phase_bug):
+    """K2's bf16 variant.  0 and 1 iterations against the plain bf16 version:
+    within 1 LSB everywhere without iterations (init sample 0 zeroed, see
+    test_gl_audio_kernel_matches_plain), on >= 99.9% of samples after one.
+    Any iterations: within 1 LSB everywhere of the plain tail applied to K4's
+    bf16 blocks (the same Griffin-Lim launch), which
+    test_gl_blocks_bf16_kernel_matches_plain holds to the plain version."""
+    lm, rand = _gl_inputs(rs, B, cuda_device)
+    rand[0, 0] = 0.0
+    ops = _gl_ops(cuda_device)
+    before = (cuda_gl.gl_audio.launches, cuda_gl.gl_audio.launches_bf16)
+    a_k = cuda_gl.gl_audio(lm, rand, ops, 10.0, iterations, phase_bug, bf16=True)
+    torch.cuda.synchronize()
+    assert (cuda_gl.gl_audio.launches, cuda_gl.gl_audio.launches_bf16) == (before[0],
+                                                                         before[1] + 1)
+    assert a_k.dtype == torch.int16 and a_k.shape == (B * 160,)
+    lsb = lambda a: (a_k.long() - a.long()).abs()
+    if iterations <= 1:
+        d = lsb(cuda_gl.gl_audio_plain(lm, rand, ops, 10.0, iterations, phase_bug, bf16=True))
+        assert (d <= 1).double().mean().item() >= (1.0 if iterations == 0 else 0.999)
+    re_k = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug, bf16=True)
+    assert int(lsb(cuda_gl.audio_tail_plain(re_k, ops, 10.0)).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 1001])
+def test_gl_blocks_bf16_regimes_agree(rs, cuda_device, monkeypatch, B):
+    """The bf16 variants of the tensor-core kernel (CLUSTER_MAX_B = 0) and
+    the cluster kernel (CLUSTER_MAX_B = B) on the same blocks: identical
+    without iterations, within ``_bf16_blocks_ok``'s one-iteration gate of
+    each other after one."""
+    lm, rand = _gl_inputs(rs, B, cuda_device)
+    ops = _gl_ops(cuda_device)
+    for iterations in (0, 1):
+        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
+        mma = cuda_gl.gl_blocks(lm, rand, ops, iterations, False, bf16=True)
+        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", B)
+        cluster = cuda_gl.gl_blocks(lm, rand, ops, iterations, False, bf16=True)
+        _bf16_blocks_ok(mma, cluster, None, lm, rand, ops, iterations, False)
+
+
+@pytest.mark.cuda
+def test_gl_bf16_launch_error_raises(rs, cuda_device, monkeypatch):
+    """A bf16 launch whose C entry reports an error raises, and is not
+    counted; nothing falls back to the plain version or to float32."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build
+
+    lm, rand = _gl_inputs(rs, 4, cuda_device)
+    ops = _gl_ops(cuda_device)
+    flags = []
+
+    def failing_bind(lib, name, *sig):
+        def fn(*args):
+            flags.append(args[-2] if name == "gl_blocks" else args[-3])  # the bf16 flag
+            return 1  # cudaErrorInvalidValue
+        return fn
+
+    monkeypatch.setattr(_build, "bind", failing_bind)
+    counts = lambda: (cuda_gl.gl_blocks.launches_bf16, cuda_gl.gl_audio.launches_bf16,
+                      cuda_gl.gl_blocks.launches, cuda_gl.gl_audio.launches)
+    before = counts()
+    with pytest.raises(RuntimeError, match="gl_blocks failed"):
+        cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True)
+    with pytest.raises(RuntimeError, match="gl_audio failed"):
+        cuda_gl.gl_audio(lm, rand, ops, 10.0, 8, True, bf16=True)
+    assert counts() == before and flags == [1, 1]
+
+
+def _audio_attainment(audio, log_mels, ops):
+    """||a |STFT(audio)| - target|| / ||target||, a fitted: audio samples
+    [160 j, 160 j + 256) carry block j's first frame, whose target is mel j."""
+    frames = (audio.double() / 32767.0).unfold(0, 256, 160)
+    mag = torch.fft.rfft(frames * ops.window.double(), dim=1).abs()
+    target = torch.exp(log_mels[: frames.shape[0]].double()) @ ops.Minv.double()
+    alpha = (mag * target).sum() / (mag * mag).sum()
+    return ((alpha * mag - target).norm() / target.norm()).item()
+
+
+@pytest.mark.cuda
+def test_offline_decode_gl_bf16_launches_the_bf16_variants(rs, cuda_device):
+    """``DecoderConfig(gl_bf16=True)``: the fused offline decode launches K2's
+    bf16 variant, the split one K4's, and neither a float32 K2/K4; the
+    spectrogram is bit-identical to the float32 decode's.  The audio (the
+    exp(angle) quirk, 8 iterations) attains the target within 1.1x of the
+    float32 decode's, and against the plain bf16 vocoder on the same frames
+    and inits its per-hop envelope r > 0.9.  (Against the float32 decode
+    the envelope r of these rough decoded frames is 0.68-0.81 on the plain
+    versions alone: bf16 picks another waveform.)"""
+    import dataclasses
+
+    C = 16
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    eeg = torch.as_tensor(rs.randn(20 * 1024, C), dtype=torch.float32, device=cuda_device)
+    counts = lambda: {w: (fn.launches, fn.launches_bf16)
+                      for w, fn in (("k2", cuda_gl.gl_audio), ("k4", cuda_gl.gl_blocks))}
+    for split in ({}, dict(use_cuda_epilogue=False, use_cuda_gl_tail=False)):
+        c = dataclasses.replace(cfg, **split)
+        spec_32, audio_32 = pipeline.offline_decode(dec, c, eeg)
+        before = counts()
+        spec_16, audio_16 = pipeline.offline_decode(dec, dataclasses.replace(c, gl_bf16=True), eeg)
+        torch.cuda.synchronize()
+        after = counts()
+        which, other = ("k4", "k2") if split else ("k2", "k4")
+        assert after[which] == (before[which][0], before[which][1] + 1), (before, after)
+        assert after[other] == before[other]
+        assert torch.equal(spec_16, spec_32) and audio_16.shape == audio_32.shape
+        rand = gl.default_rand_init(spec_16.shape[0] - 1, 0, 0, torch.float32, cuda_device)
+        audio_p = cuda_gl.gl_audio_plain(spec_16, rand, dec.gl_audio_ops, c.gl_norm, 8, True,
+                                         bf16=True)
+        assert _audio_attainment(audio_16, spec_16, dec.gl_ops) <= 1.1 * _audio_attainment(
+            audio_32, spec_32, dec.gl_ops)
+        assert _hop_envelope_r(audio_16, audio_p) > 0.9
+
+
+@pytest.mark.cuda
+def test_online_step_ignores_gl_bf16(rs, cuda_device):
+    """The online step stays float32 (the JAX online step runs plain
+    Griffin-Lim without bf16): with ``gl_bf16=True`` OnlineDecoder's recorded
+    step holds one float32 K4 node and no bf16 launch, and decodes
+    bit-identically to the ``gl_bf16=False`` decoder."""
+    import dataclasses
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import online
+
+    C = 16
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, C)
+    packets = [rs.randn(32, C).astype(np.float32) * 10 for _ in range(60)]
+    outs = []
+    for bf16 in (False, True):
+        before = (cuda_gl.gl_blocks.launches, cuda_gl.gl_blocks.launches_bf16)
+        d = online.OnlineDecoder(dataclasses.replace(cfg, gl_bf16=bf16), dec)
+        d.warmup()
+        assert d.programs[1].k4_nodes == 1
+        assert cuda_gl.gl_blocks.launches_bf16 == before[1]
+        assert cuda_gl.gl_blocks.launches > before[0]
+        for p in packets:
+            d.process_packet(p)
+        outs.append(d.results())
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.cuda
 def test_gl_wrappers_reject_misaligned_inits(rs, cuda_device):
     """The kernels copy the inits in 16-byte pieces: a view that starts off a
@@ -508,6 +721,44 @@ def test_exp1_fold_through_the_kernels_tracks_the_plain_path(cuda_device):
     assert flips < 0.02, flips
     hop = lambda a: a.double().reshape(-1, 160).pow(2).mean(1).sqrt()
     assert torch.corrcoef(torch.stack([hop(audio_k), hop(audio_p)]))[0, 1].item() > 0.9
+
+
+@pytest.mark.cuda
+def test_exp1_fold_runner_honours_gl_bf16(cuda_device):
+    """exp1's proposed fold (``FoldRunner.run``, its vocoder through
+    ``pipeline._vocode``) with ``gl_bf16=True`` in its config launches K2's
+    bf16 variant once and no float32 K2; its audio attains the target
+    within 1.1x of the float32 fold's."""
+    import dataclasses
+
+    import configparser
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.eval import exp1, exp1_batched
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import session
+
+    eeg, audio, words, _ = session.make_synthetic_session(10, 1024, 48000, 32, seed=1)
+    rng = np.random.RandomState(0)
+    sess = session.Session.from_arrays(eeg, 1024, audio, 48000, words, downsample_audio=False,
+                                       rng=rng)
+    config = configparser.ConfigParser()
+    config["Experiment1"] = {"griffin_lim_norm": "10"}
+    e = exp1.Experiment1(config, None, None, rng=rng, device=cuda_device, session=sess,
+                         bad_channels=[])
+    _, x_train, y_train, x_test, *_ = e._construct_datasets_for_run(10)[0]
+    fr = exp1_batched.FoldRunner(len(x_train), len(x_test), 32, 1024, 10.0, device=cuda_device)
+    q, medians, y_mean = exp1_batched.fold_targets(y_train)
+    fold = (fr.put(x_train), fr.put(x_test), fr.put(q, torch.int64), fr.put(y_mean),
+            fr.put(medians))
+    spec_32, audio_32 = fr.run(*fold)
+    fr.cfg = dataclasses.replace(fr.cfg, gl_bf16=True)
+    before = (cuda_gl.gl_audio.launches, cuda_gl.gl_audio.launches_bf16)
+    spec_16, audio_16 = fr.run(*fold)
+    torch.cuda.synchronize()
+    assert (cuda_gl.gl_audio.launches, cuda_gl.gl_audio.launches_bf16) == (before[0],
+                                                                         before[1] + 1)
+    assert audio_16.shape == audio_32.shape and bool(torch.isfinite(spec_16).all())
+    assert _audio_attainment(audio_16, spec_16, fr.template.gl_ops) <= 1.1 * _audio_attainment(
+        audio_32, spec_32, fr.template.gl_ops)
 
 
 @pytest.mark.cuda
