@@ -110,8 +110,28 @@ on one NVIDIA GPU.  Run from the repository root:
    packet and equals a direct persistent run; a feeder that raises after 2
    packets returns its error; a matmul on another stream completes while a
    loop waits and after it is aborted.
-9. Runs ``cli.decode.main`` end to end on files in a temporary directory
-   when h5py is installed.
+9. After step 11, drives the CLIs end to end on files that the port's own
+   HDF5 codec (``io/hdf5.py``; the card's machine has neither h5py nor
+   sklearn) writes in a temporary directory, each stage's wall time printed:
+   the codec's write and read MB/s on the 30-min 128-ch training recording
+   (1.9 GB of float64 sEEG), its sEEG read beside ``np.fromfile`` of the
+   same bytes; (a) ``cli.train.main`` on a 60 s recording, its params.h5
+   equal to ``trainer.train`` + ``store_training`` on the same arrays, and
+   its LDAs.pkl (the estimators blob) read by the restricted unpickler
+   carrying the same arrays; (b) ``cli.decode.main`` offline with that model
+   and with the seed-0 published-width one: K1, K2 and the inits' kernel
+   launch, spectrogram.npy bit-identical and audio.wav equal to
+   ``perform_offline_decoding`` on the same arrays, sEEG.hdf read back
+   equal; (c) ``--vocoder exact-host`` (audio byte-equal to
+   ``ops/host_vocoder`` on the same spectrogram and inits) and ``--profile``
+   (the trace names ``gl_mma_kernel`` and K1's kernels); (d) decodes with
+   the committed h5py-written fixtures (the JAX package's params.h5, the
+   reference's blob-only one, a gzip-chunked recording), equal to the
+   arrays' decode; (e) ``cli.dev_streamer.main`` streaming 20 s in real time
+   over NSX to the online decode CLI (every packet received, sEEG.hdf equal
+   to the streamed samples, markers logged); (f) the 100-word protocol
+   session through ``cli.train.main`` and ``cli.evaluate.main`` exp4 and
+   exp1 (one chance run), its proposed mean r within 0.01 of step 11's.
 10. Trains: a word-locked synthetic session (600 trials of 3 s: a 120 Hz
    burst on half the channels and a voiced harmonic stack in 48 kHz audio
    during each trial's first 2 s) at 128 ch / 1024 Hz / 30 min goes through
@@ -124,8 +144,7 @@ on one NVIDIA GPU.  Run from the repository root:
    two models' mean per-bin Pearson r against the training target agree.
    A 60 s slice trains on the card in float64 and through the float64 CPU
    path (the one the tests hold to the JAX package): the same features,
-   coefficients within rtol 1e-6.  With h5py and sklearn installed,
-   ``cli.train.main`` runs end to end on an HDF5 file.
+   coefficients within rtol 1e-6.
 11. Runs experiment 1 on the card: the protocol session of
    ``benchmarks/exp1_protocol.py`` (100 words, 128 ch, 1024 Hz, 48 kHz
    audio, seed 0; ``io.session.make_synthetic_session``) trains its model,
@@ -196,6 +215,7 @@ import configparser
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -232,6 +252,10 @@ FLIP_RTOL, FLIP_ATOL, FLIP_MAX = 1e-4, 1e-5, 0.02       # tests/test_f32_error_b
 K3_ATOL, K4_ATOL, WITHIN_MIN = 1e-4, 2e-4, 0.999         # tests/test_pallas_kernels.py:76, :24
 F64_FLIP_FLOOR = 1e-5  # K1's flips against float64 allowed beyond twice the plain f32 version's
 AUDIO_SR, TRIAL_S, TRAIN_DECODE_MIN, TRAIN_SLICE_S = 48000, 3, 5, 60
+# the CLI phase: packets the online decode CLI takes from the dev streamer's
+# LOOP_S s (10 s of them); its exp1 against phase 11's on the same session,
+# whose dither the CLI draws from an unseeded RandomState() as the JAX CLI does
+CLI_ONLINE_PACKETS, CLI_EXP1_R_DIFF = 320, 0.01
 SELECT_MIN, PREDICT_MIN, R_DIFF_MAX, R_MIN, COEF_RTOL = 0.95, 0.98, 0.02, 0.15, 1e-6
 QUANT_MAX = 5e-3  # log-mel; a quarter of docs/NUMERICS.md:155's max 2e-2 for f32 targets
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 FMA outside the tensor
@@ -1727,6 +1751,321 @@ def persistent_phase(torch, dev, card, cli, online, cuda_gl, cfg_on, dec_on, pac
             "persistent_ms_per_iteration": per_iter, "persistent_latency_ms": pct}
 
 
+def _write_ini(path, sections):
+    config = configparser.ConfigParser()
+    for name, values in sections.items():
+        config[name] = values
+    with open(path, "w") as f:
+        config.write(f)
+    return path
+
+
+def codec_rates(torch, card, eeg, audio, tmp):
+    """The HDF5 codec on the training step's 30-min 128-ch recording (sEEG
+    float64, audio 48 kHz): ``loaders.save_hdf5`` and ``load_hdf5`` MB/s, and
+    the sEEG alone through the codec against a plain ``np.fromfile`` of the
+    same bytes (both files just written, in the page cache).  Returns the
+    figures."""
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import hdf5, loaders
+
+    eeg64 = eeg.double().cpu().numpy()
+    path, raw = os.path.join(tmp, "speech_30min.hdf"), os.path.join(tmp, "sEEG.raw")
+    mb = (eeg64.nbytes + audio.nbytes) / 1e6
+    t0 = time.perf_counter()
+    loaders.save_hdf5(path, eeg64, SR, audio, AUDIO_SR)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = loaders.load_hdf5(path)
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(back[0], eeg64) and np.array_equal(back[2], audio) and back[1] == SR,
+          f"load_hdf5 reads back the {mb / 1e3:.2f} GB recording equal")
+    del back
+    t0 = time.perf_counter()
+    with hdf5.File(path, "r") as hf:
+        codec = hf["sEEG"][:]
+    codec_s = time.perf_counter() - t0
+    os.remove(path)
+    del codec
+    eeg64.tofile(raw)
+    t0 = time.perf_counter()
+    plain = np.fromfile(raw, np.float64)
+    plain_s = time.perf_counter() - t0
+    os.remove(raw)
+    check(np.array_equal(plain.reshape(eeg64.shape), eeg64), "np.fromfile reads the raw sEEG equal")
+    del plain
+    seeg_mb = eeg64.nbytes / 1e6
+    fig = {"recording_mb": mb, "save_hdf5_mb_s": mb / write_s, "load_hdf5_mb_s": mb / load_s,
+           "seeg_mb": seeg_mb, "codec_seeg_read_mb_s": seeg_mb / codec_s,
+           "np_fromfile_mb_s": seeg_mb / plain_s, "codec_over_fromfile_time": codec_s / plain_s}
+    say(f"  codec: save_hdf5 {mb:.1f} MB (sEEG {eeg64.shape} f64 + audio {audio.shape} f64) in "
+        f"{write_s:.3f} s = {fig['save_hdf5_mb_s']:.1f} MB/s; load_hdf5 {load_s:.3f} s = "
+        f"{fig['load_hdf5_mb_s']:.1f} MB/s; sEEG alone {codec_s:.3f} s = "
+        f"{fig['codec_seeg_read_mb_s']:.1f} MB/s against np.fromfile of the same bytes "
+        f"{plain_s:.3f} s = {fig['np_fromfile_mb_s']:.1f} MB/s ({fig['codec_over_fromfile_time']:.2f}x "
+        f"its time; page cache warm) [{card}]")
+    return fig
+
+
+def cli_phase(torch, dev, card, arrs, train_eeg, train_audio, exp1_r, zero_counts, read_counts):
+    """Step 9 of the module docstring: the CLIs end to end on files the
+    port's codec writes.  Returns the stages' wall seconds, the codec's
+    rates and the launches counted under the offline decode CLI."""
+    from scipy.io import wavfile
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import dev_streamer, evaluate
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as train_cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import hdf5, loaders
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import session as session_mod
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io.utils import squeeze_audio_to_float64
+    from closed_loop_seeg_speech_synthesis_tpu_torch.models import lda
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import host_vocoder
+    from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params, trainer
+
+    out = {"stage_s": {}}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["stage_s"][name] = s = time.perf_counter() - t0
+        say(f"  {name}: {s:.2f} s wall [{card}]")
+        return res
+
+    def read(path, *names):
+        with hdf5.File(path, "r") as hf:
+            return {n: hf[n][()] for n in (names or hf.keys())}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        storage = os.path.join(tmp, "storage")
+        out["codec"] = codec_rates(torch, card, train_eeg, train_audio, tmp)
+
+        # (a) the train CLI on a 60 s recording, against trainer.train +
+        # store_training on the same arrays
+        eeg60 = train_eeg[: TRAIN_SLICE_S * SR].cpu().numpy()
+        audio60 = train_audio[: TRAIN_SLICE_S * AUDIO_SR]
+        rec = os.path.join(tmp, "speech.hdf")
+        loaders.save_hdf5(rec, eeg60, SR, audio60, AUDIO_SR)
+        cfg = _write_ini(os.path.join(tmp, "train.ini"), {
+            "General": {"storage_dir": storage, "session": "trained"},
+            "Training": {"file": rec, "overwrite_on_rerun": "True"}})
+        path = timed(f"(a) cli.train.main, {TRAIN_SLICE_S} s x {C} ch",
+                     lambda: train_cli.main([cfg, "--device", "cuda"], rng=np.random.RandomState(0)))
+        session = os.path.dirname(path)
+        check(all(os.path.exists(os.path.join(session, f)) for f in
+                  ("params.h5", "LDAs.pkl", "training_features.npy", "train.ini", "train.log")),
+              "train CLI artifacts written")
+        eeg_r, _, audio_r, _, _ = loaders.load_hdf5(rec)
+        audio_r = squeeze_audio_to_float64(audio_r)
+        audio_r = audio_r + np.random.RandomState(0).normal(0, 0.0001, len(audio_r))
+        result = trainer.train(eeg_r.astype(np.float64), audio_r, SR, AUDIO_SR, [], device=dev)
+        ref_path = params.store_training(os.path.join(tmp, "arrays"), result, [])
+        cli_h5, ref_h5 = read(path), read(ref_path)
+        same = [n for n in ("lda_coef", "lda_intercept", "lda_classes", "lda_valid", "select",
+                            "medians_array", "borders_array", "bad_channels")
+                if np.array_equal(cli_h5[n], ref_h5[n]) and cli_h5[n].dtype == ref_h5[n].dtype]
+        check(len(same) == 8, f"train CLI's params.h5 equals trainer.train + store_training "
+                              f"on the same arrays (equal: {same})")
+        with open(os.path.join(session, "LDAs.pkl"), "rb") as f:
+            pkl = f.read()
+        check(pkl == cli_h5["estimators"].tobytes(), "LDAs.pkl is params.h5's estimators blob")
+        back = lda.from_sklearn_estimators(lda.load_estimators(pkl))
+        coef, icpt = cli_h5["lda_coef"].copy(), cli_h5["lda_intercept"].copy()
+        valid = cli_h5["lda_valid"]
+        two = valid.sum(axis=1) == 2  # sklearn's binary convention: one row, class1 - class0
+        coef[two, 1], icpt[two, 1] = coef[two, 1] - coef[two, 0], icpt[two, 1] - icpt[two, 0]
+        coef[two, 0], icpt[two, 0] = 0.0, 0.0
+        check(np.array_equal(back.valid.numpy(), valid)
+              and np.array_equal(back.classes.numpy()[valid], cli_h5["lda_classes"][valid])
+              and np.array_equal(back.coef.numpy()[valid], coef[valid])
+              and np.array_equal(back.intercept.numpy()[valid], icpt[valid]),
+              f"the pickled estimators (restricted unpickler, no sklearn) carry params.h5's "
+              f"lda_* arrays ({int(two.sum())} binary bins)")
+
+        # (b) the decode CLI, offline, on the same recording: the trained
+        # model and the seed-0 published-width model, against the arrays
+        published = os.path.join(storage, "published")
+        os.makedirs(published)
+        with hdf5.File(os.path.join(published, "params.h5"), "w") as hf:
+            hf.create_dataset("bad_channels", data=np.zeros(0, np.int64))
+            hf.create_dataset("medians_array", data=arrs["medians"])
+            hf.create_dataset("select", data=np.asarray(arrs["select"], np.int64))
+            for name in ("lda_coef", "lda_intercept", "lda_classes", "lda_valid"):
+                hf.create_dataset(name, data=arrs[name])
+        dcfg = _write_ini(os.path.join(tmp, "decode.ini"), {
+            "General": {"storage_dir": storage, "session": "published"},
+            "Decoding": {"stream_name": "x", "griffin_lim_norm": str(int(GL_NORM))}})
+        models = {"trained": params.from_arrays(
+                      result.lda.coef.cpu().numpy(), result.lda.intercept.cpu().numpy(),
+                      result.lda.classes.cpu().numpy(), result.lda.valid.cpu().numpy(),
+                      result.medians, result.select, [], dtype=torch.float32, device=dev),
+                  "published": params.from_arrays(**arrs, dtype=torch.float32, device=dev)}
+        runs = {}
+        for name, loaded in models.items():
+            zero_counts()
+            run_dir = timed(f"(b) cli.decode.main offline, {name} model, {TRAIN_SLICE_S} s",
+                            lambda: cli.main([dcfg, "--session", name, "--seeg_file", rec,
+                                              "--run", "device", "--device", "cuda"]))
+            launches = read_counts()
+            if name == "published":
+                out["decode_cli_launches"] = launches
+            say(f"  launches under the decode CLI ({name}): {launches}")
+            check(launches["frontend_decode_mels"] >= 1 and launches["gl_audio"] >= 1
+                  and launches["block_inits"] >= 1, "K1, K2 and the inits' kernel launched "
+                                                    "under the CLI")
+            check(all(os.path.exists(os.path.join(run_dir, f))
+                      for f in ("audio.wav", "sEEG.hdf", "spectrogram.npy", "decode.ini",
+                                "decode.log")), f"decode CLI artifacts written ({name})")
+            spec_cli = np.load(os.path.join(run_dir, "spectrogram.npy"))
+            wav_sr, audio_cli = wavfile.read(os.path.join(run_dir, "audio.wav"))
+            spec_a, audio_a, _, _ = cli.perform_offline_decoding(loaded, eeg60, SR, GL_NORM,
+                                                                 device=dev)
+            check(spec_cli.shape[1] == 40 and np.isfinite(spec_cli).all()
+                  and np.array_equal(spec_cli, spec_a.cpu().numpy()),
+                  f"{name}: the CLI's spectrogram.npy {spec_cli.shape} bit-identical to "
+                  f"perform_offline_decoding on the same arrays")
+            check(wav_sr == 16000 and np.array_equal(audio_cli, audio_a.cpu().numpy()
+                                                     .astype(np.int16)),
+                  f"{name}: the CLI's audio.wav equal to the arrays' decode")
+            seeg = read(os.path.join(run_dir, "sEEG.hdf"))
+            check(np.array_equal(seeg["sEEG"], eeg60) and seeg["sEEG_sr"] == SR,
+                  f"{name}: sEEG.hdf reads back equal")
+            runs[name] = (run_dir, spec_cli)
+
+        # (c) the decode CLI's extra modes
+        run_dir = timed(f"(c) cli.decode.main --vocoder exact-host, {TRAIN_SLICE_S} s",
+                        lambda: cli.main([dcfg, "--seeg_file", rec, "--run", "exact",
+                                          "--device", "cuda", "--vocoder", "exact-host"]))
+        spec_x = np.load(os.path.join(run_dir, "spectrogram.npy"))
+        _, audio_x = wavfile.read(os.path.join(run_dir, "audio.wav"))
+        rows = gl.default_rand_init(spec_x.shape[0] - 1, 0, 0, torch.float64, "cpu").numpy()
+        audio_h = host_vocoder.decode_audio_exact(spec_x.astype(np.float64), rows,
+                                                  norm_factor=GL_NORM)
+        check(np.array_equal(spec_x, runs["published"][1]), "exact-host: the device decode's "
+                                                            "spectrogram")
+        check(audio_x.tobytes() == audio_h.tobytes(), f"exact-host audio.wav ({len(audio_x)} "
+              "samples) equals ops/host_vocoder on the same spectrogram and inits, byte for byte")
+        prof = os.path.join(tmp, "profile")
+        timed(f"(c) cli.decode.main --profile, {TRAIN_SLICE_S} s",
+              lambda: cli.main([dcfg, "--seeg_file", rec, "--run", "profiled", "--device", "cuda",
+                                "--profile", prof]))
+        with open(os.path.join(prof, "trace.json")) as f:
+            trace = f.read()
+        names = ("gl_mma_kernel", "chunk_scan_kernel", "carry_scan_kernel", "features_kernel",
+                 "lda_epilogue_kernel")
+        say(f"  --profile: trace.json {len(trace) / 1e6:.1f} MB, kernels named: "
+            f"{[n for n in names if n in trace]}")
+        check(all(n in trace for n in names), "--profile's trace names gl_mma_kernel and K1's "
+                                               "four kernels")
+
+        # (d) files that h5py wrote: the committed fixtures
+        fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                "fixtures_torch")
+        rec_fx = os.path.join(fixtures, "recording_gzip.hdf")
+        seeg_fx = read(rec_fx, "sEEG", "sEEG_sr")
+        for name in ("params_jax.h5", "params_reference.h5"):
+            sess = os.path.join(storage, name.split(".")[0])
+            os.makedirs(sess)
+            shutil.copyfile(os.path.join(fixtures, name), os.path.join(sess, "params.h5"))
+            run_dir = timed(f"(d) cli.decode.main on h5py's {name} and gzip-chunked recording",
+                            lambda: cli.main([dcfg, "--session", os.path.basename(sess),
+                                              "--seeg_file", rec_fx, "--run", "fixture",
+                                              "--device", "cuda"]))
+            h5 = read(os.path.join(fixtures, name))
+            if "lda_coef" in h5:
+                loaded = params.from_arrays(h5["lda_coef"], h5["lda_intercept"], h5["lda_classes"],
+                                            h5["lda_valid"], h5["medians_array"], h5["select"],
+                                            h5["bad_channels"], dtype=torch.float32, device=dev)
+            else:
+                loaded = {"medians": h5["medians_array"], "select": h5["select"],
+                          "bad_channels": h5["bad_channels"],
+                          "lda": lda.from_sklearn_estimators(
+                              lda.load_estimators(h5["estimators"].tobytes()),
+                              dtype=torch.float32, device=dev)}
+            spec_a, _, _, _ = cli.perform_offline_decoding(loaded, seeg_fx["sEEG"],
+                                                           int(seeg_fx["sEEG_sr"]), GL_NORM,
+                                                           device=dev)
+            spec_cli = np.load(os.path.join(run_dir, "spectrogram.npy"))
+            check(np.array_equal(spec_cli, spec_a.cpu().numpy()),
+                  f"{name}: the CLI's spectrogram {spec_cli.shape} equals the arrays' decode")
+
+        # (e) online through the CLIs: the dev streamer's main against the
+        # decode CLI's online mode over NSX, paced in real time
+        live = os.path.join(tmp, "live.hdf")
+        eeg_live = train_eeg[: LOOP_S * SR].cpu().numpy()
+        loaders.save_hdf5(live, eeg_live, SR, train_audio[: LOOP_S * AUDIO_SR], AUDIO_SR)
+        os.environ["NSX_REGISTRY_DIR"] = os.path.join(tmp, "nsx")
+        os.makedirs(os.environ["NSX_REGISTRY_DIR"])
+        ocfg = _write_ini(os.path.join(tmp, "online.ini"), {
+            "General": {"storage_dir": storage, "session": "published"},
+            "Decoding": {"stream_name": "cli_sEEG", "griffin_lim_norm": str(int(GL_NORM)),
+                         "marker_stream_name": "cli_markers", "run": "live"},
+            "Development": {"file": live}})
+        streamer = threading.Thread(target=dev_streamer.main, args=(
+            [ocfg, "--stream_name", "cli_sEEG", "--backend", "nsx", "--markers"],), daemon=True)
+        t_stream = time.perf_counter()
+        streamer.start()
+        run_dir = timed(f"(e) cli.decode.main online --backend nsx --max_packets "
+                        f"{CLI_ONLINE_PACKETS}",
+                        lambda: cli.main([ocfg, "--backend", "nsx", "--max_packets",
+                                          str(CLI_ONLINE_PACKETS), "--device", "cuda"]))
+        streamer.join(timeout=LOOP_S + 60)
+        say(f"  dev_streamer.main streamed {LOOP_S} s in {time.perf_counter() - t_stream:.2f} s wall "
+            f"[{card}]")
+        check(not streamer.is_alive(), "dev_streamer.main finished")
+        check(all(os.path.exists(os.path.join(run_dir, f))
+                  for f in ("audio.wav", "sEEG.hdf", "spectrogram.npy", "decode.ini", "decode.log",
+                            "first_timestamp.npy", "markers.csv")), "online CLI artifacts written")
+        received = read(os.path.join(run_dir, "sEEG.hdf"))["sEEG"]
+        sent = eeg_live.astype(np.float32)
+        starts = [k for k in range(0, len(sent) - len(received) + 1, PACKET)
+                  if np.array_equal(sent[k], received[0])]
+        check(len(received) == CLI_ONLINE_PACKETS * PACKET and len(starts) == 1
+              and np.array_equal(received, sent[starts[0] : starts[0] + len(received)]),
+              f"every packet received: sEEG.hdf {received.shape} equals the streamed samples "
+              f"from sample {starts[:1]} on")
+        spec_live = np.load(os.path.join(run_dir, "spectrogram.npy"))
+        with open(os.path.join(run_dir, "markers.csv")) as f:
+            n_markers = sum(1 for line in f if ",start;" in line)
+        say(f"  online: {CLI_ONLINE_PACKETS} packets from sample {starts[0]}, spectrogram "
+            f"{spec_live.shape}, {n_markers} word markers logged")
+        check(np.isfinite(spec_live).all() and spec_live.shape[1] == 40 and n_markers >= 1,
+              "online spectrogram finite, markers logged")
+
+        # (f) the evaluate CLI on the protocol session, written by the codec
+        eeg_p, audio_p, words, markers = session_mod.make_synthetic_session(
+            EXP1_WORDS, SR, AUDIO_SR, C, seed=0)
+        protocol = os.path.join(storage, "protocol")
+        os.makedirs(protocol)
+        speech1 = os.path.join(protocol, "speech1.hdf")
+        loaders.save_hdf5(speech1, eeg_p, SR, audio_p, AUDIO_SR,
+                          ch_names=[f"ch_{i:03d}" for i in range(C)], markers=markers)
+        pcfg = _write_ini(os.path.join(tmp, "protocol.ini"), {
+            "General": {"storage_dir": storage, "session": "protocol",
+                        "temp_dir": os.path.join(tmp, "evaluation")},
+            "Training": {"file": speech1, "overwrite_on_rerun": "True"},
+            "Experiment1": {"nb_randomization_runs": "1", "griffin_lim_norm": str(int(GL_NORM))}})
+        timed(f"(f) cli.train.main on the {EXP1_WORDS}-word session",
+              lambda: train_cli.main([pcfg, "--device", "cuda"], rng=np.random.RandomState(0)))
+        act = timed("(f) cli.evaluate.main exp4",
+                    lambda: evaluate.main([pcfg, "exp4", "--device", "cuda"]))
+        check(np.isfinite(act).all() and np.abs(act).max() > 0 and os.path.exists(os.path.join(
+            tmp, "evaluation", "protocol", "exp4", "activations.npy")),
+            f"exp4 activations {act.shape} finite, nonzero, written")
+        pm, _ = timed("(f) cli.evaluate.main exp1, 1 chance run",
+                      lambda: evaluate.main([pcfg, "exp1", "--device", "cuda"]))
+        out["exp1_cli_r"] = r_cli = float(np.mean(pm[0]))
+        say(f"  exp1 through the CLI: proposed mean r {r_cli:.4f}; phase 11's Experiment1 from "
+            f"arrays on the same session {exp1_r:.4f} (the CLI draws the dither from an unseeded "
+            f"RandomState(), as the JAX CLI does)")
+        check(abs(r_cli - exp1_r) <= CLI_EXP1_R_DIFF,
+              f"exp1 CLI's proposed mean r within {CLI_EXP1_R_DIFF} of phase 11's")
+    # each CLI points the root logger at its run's log file and stdout
+    logging.basicConfig(level=logging.WARNING, force=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2262,70 +2601,9 @@ def main():
                             per_packet, (spec_on, audio_on))
     pers_inits = pers.pop("persistent_init_launches")
 
-    # ---- the CLI end to end -----------------------------------------------
-    try:
-        import h5py
-    except ImportError:
-        say("== CLI: h5py is not installed, cli.decode.main skipped")
-    else:
-        say("== CLI: cli.decode.main on a fabricated 60 s session")
-        with tempfile.TemporaryDirectory() as tmp:
-            session = os.path.join(tmp, "storage", "demo")
-            os.makedirs(session)
-            with h5py.File(os.path.join(session, "params.h5"), "w") as hf:
-                hf.create_dataset("bad_channels", data=np.zeros(0, np.int64))
-                hf.create_dataset("medians_array", data=arrs["medians"])
-                hf.create_dataset("select", data=np.asarray(arrs["select"], np.int64))
-                for name in ("lda_coef", "lda_intercept", "lda_classes", "lda_valid"):
-                    hf.create_dataset(name, data=arrs[name])
-            seeg_file = os.path.join(tmp, "replay.hdf")
-            with h5py.File(seeg_file, "w") as hf:
-                hf.create_dataset("sEEG", data=eeg[: 60 * SR].cpu().numpy())
-                hf.create_dataset("sEEG_sr", data=SR, dtype=np.int32)
-            cfg_path = os.path.join(tmp, "experiment.ini")
-            with open(cfg_path, "w") as f:
-                f.write(f"[General]\nstorage_dir = {os.path.join(tmp, 'storage')}\nsession = demo\n"
-                        "[Decoding]\nstream_name = x\ngriffin_lim_norm = 10\nrun = smoke\n")
-            cuda_frontend.frontend_decode_mels.launches = 0
-            cuda_gl.gl_audio.launches = 0
-            run_dir = cli.main([cfg_path, "--seeg_file", seeg_file, "--device", "cuda"])
-            cli_spec = np.load(os.path.join(run_dir, "spectrogram.npy"))
-            check(all(os.path.exists(os.path.join(run_dir, f))
-                      for f in ("audio.wav", "sEEG.hdf", "spectrogram.npy", "decode.ini")),
-                  "CLI artifacts written")
-            check(cli_spec.shape[1] == 40 and np.isfinite(cli_spec).all(), "CLI spectrogram")
-            check(cuda_frontend.frontend_decode_mels.launches >= 1 and cuda_gl.gl_audio.launches >= 1,
-                  "both kernels launched under the CLI")
-
     # ---- training -----------------------------------------------------------
     say(f"== training: runtime.trainer.train, {C} ch, {SR} Hz, {MINUTES} min, f32 and f64")
     train_eeg, train_audio = training_phase(torch, dev, eeg, SR, zero_counts, read_counts)
-    try:
-        import h5py
-        import sklearn  # noqa: F401  (store_training pickles sklearn estimators)
-    except ImportError as e:
-        say(f"== train CLI: {e.name} is not installed, cli.train.main skipped")
-    else:
-        from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as train_cli
-
-        say(f"== train CLI: cli.train.main on a {TRAIN_SLICE_S} s HDF5 recording")
-        with tempfile.TemporaryDirectory() as tmp:
-            rec = os.path.join(tmp, "speech.hdf")
-            with h5py.File(rec, "w") as hf:
-                hf.create_dataset("sEEG", data=train_eeg[: TRAIN_SLICE_S * SR].cpu().numpy())
-                hf.create_dataset("Audio", data=train_audio[: TRAIN_SLICE_S * AUDIO_SR])
-                hf.create_dataset("sEEG_sr", data=SR, dtype=np.int32)
-                hf.create_dataset("Audio_sr", data=AUDIO_SR, dtype=np.int32)
-            cfg_path = os.path.join(tmp, "experiment.ini")
-            with open(cfg_path, "w") as f:
-                f.write(f"[General]\nstorage_dir = {os.path.join(tmp, 'storage')}\nsession = demo\n"
-                        f"[Training]\nfile = {rec}\noverwrite_on_rerun = True\n")
-            path = train_cli.main([cfg_path, "--device", "cuda"], rng=np.random.RandomState(0))
-            trained = params.load_params(path, dtype=torch.float32, device=dev)
-            check(trained["lda"].coef.shape == (40, 9, N_FEATS) and trained["select"].shape == (N_FEATS,)
-                  and all(os.path.exists(os.path.join(tmp, "storage", "demo", f))
-                          for f in ("LDAs.pkl", "training_features.npy", "train.ini", "train.log")),
-                  "train CLI artifacts written and loaded")
 
     # ---- exp1 ---------------------------------------------------------------
     say(f"== exp1 on the card: Experiment1 from arrays, {EXP1_WORDS} words, {C} ch, {SR} Hz, "
@@ -2366,6 +2644,12 @@ def main():
     profile(torch, lambda: cuda_frontend.frontend_decode_mels(*k1_fold), 1, "call", top=4)
 
     exp1_errs = {"frontend_decode_mels": k1_fold_err, "gl_audio": k2_fold_err}
+
+    # ---- the CLIs on files ----------------------------------------------------
+    say(f"== CLIs: train -> decode (offline, exact-host, profile, h5py's files, online over NSX) "
+        f"-> evaluate, on files the port's HDF5 codec writes, {C} ch, {SR} Hz")
+    clis = cli_phase(torch, dev, card, arrs, train_eeg, train_audio,
+                     ex["figures"]["proposed_mean_r"], zero_counts, read_counts)
 
     # ---- exp2-exp4 ------------------------------------------------------------
     say(f"== exp2-exp4 on the card: {EXP2_WORDS} words, {EXP2_C} ch, {SR} Hz, runs "
@@ -2430,11 +2714,12 @@ def main():
             launches["frontend_decode_mels"], k1_err, k1_ms, k1_plain_ms, k1_bound, "3xtf32",
             serial_scan_steps=scan_steps, reference_matmul_ms=k1_mm_ms, float64_p999=k1_f64,
             float64_flips=k1_flips, long_period=long_times["frontend_decode_mels"],
+            cli_launches=clis["decode_cli_launches"]["frontend_decode_mels"],
             parallel_launches=par["frontend_decode_mels"], parallel_max_abs_err=par_errs["frontend_decode_mels"],
             **exp1_extra("frontend_decode_mels"), **exp2_extra("frontend_decode_mels")),
         row("gl_audio", "gl_audio.cu", "pallas_gl.py:153", launches["gl_audio"], k2_err, k2_ms,
             k2_plain_ms, k2_bound, cuda_gl.regime(B_gl), reference_matmul_ms=mm_ms,
-            parallel_launches=par["gl_audio"], parallel_max_abs_err=par_errs["gl_audio"], **exp1_extra("gl_audio"),
+            cli_launches=clis["decode_cli_launches"]["gl_audio"], parallel_launches=par["gl_audio"], parallel_max_abs_err=par_errs["gl_audio"], **exp1_extra("gl_audio"),
             **exp2_extra("gl_audio")),
         row("frontend_logpower", "frontend_decode.cu", "pallas_frontend.py:94",
             split_launches["frontend_logpower"], k3_err, k3_ms, k3_plain_ms, k3_bound, "3xtf32",
@@ -2460,7 +2745,7 @@ def main():
             inits["max_abs_err"], inits["ms"], inits["plain_ms"], inits["bound"], "threefry",
             replay_launches=launches["block_inits"], split_launches=split_launches["block_inits"],
             online_launches=on_launches["block_inits"], persistent_launches=pers_inits,
-            graph_nodes=inits["graph_nodes"],
+            graph_nodes=inits["graph_nodes"], cli_launches=clis["decode_cli_launches"]["block_inits"],
             reference_torch_rand_ms=inits["reference_torch_rand_ms"],
             not_a_tpu_kernel="replaces XLA's jax.random work (fold_in + uniform)"),
     ]

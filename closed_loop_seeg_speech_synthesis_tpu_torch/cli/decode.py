@@ -28,8 +28,8 @@ on the card) and writes a Chrome trace, ``DIR/trace.json``.  ``--persistent``
 (online mode) decodes the session as one device dispatch
 (``runtime.online.PersistentOnlineDecoder``: on the card one launch of a
 CUDA graph whose device-side while loop runs the step once per packet; on
-the CPU the same body as a host loop).  h5py is imported where files are
-read or written; matplotlib where the plot is drawn.
+the CPU the same body as a host loop).  HDF5 files go through the port's
+``io.hdf5`` (no h5py); matplotlib is imported where the plot is drawn.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..io import config as config_mod
+from ..io import hdf5
 from ..io.utils import in_offline_mode
 from ..runtime import online
 from ..runtime import params as params_io
@@ -209,7 +210,6 @@ def perform_online_decoding(config, loaded, gl_norm, run_dir, stop_event=None,
 
 
 def store_decoding_to_file(run_dir, config, spectrogram, output_audio, received_sEEG, sfreq):
-    import h5py
     from scipy.io.wavfile import write as wavwrite
 
     spectrogram = torch.as_tensor(spectrogram).cpu().numpy()
@@ -221,7 +221,7 @@ def store_decoding_to_file(run_dir, config, spectrogram, output_audio, received_
     else:
         plot_streamed_data(spectrogram, output_audio, os.path.join(run_dir, "decoding.png"))
     wavwrite(os.path.join(run_dir, "audio.wav"), 16000, output_audio)
-    with h5py.File(os.path.join(run_dir, "sEEG.hdf"), "w") as hf:
+    with hdf5.File(os.path.join(run_dir, "sEEG.hdf"), "w") as hf:
         hf.create_dataset("sEEG", data=torch.as_tensor(received_sEEG).cpu().numpy())
         hf.create_dataset("sEEG_sr", data=sfreq, dtype=np.int32)
     np.save(os.path.join(run_dir, "spectrogram.npy"), spectrogram)
@@ -302,9 +302,7 @@ def main(argv=None):
 
     with _profiled(args.profile, device):
         if offline:
-            import h5py
-
-            with h5py.File(config["Development"]["seeg_file"], "r") as hf:
+            with hdf5.File(config["Development"]["seeg_file"], "r") as hf:
                 eeg = hf["sEEG"][:]
                 sfreq = int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
             spectrogram, audio, received, sfreq = perform_offline_decoding(

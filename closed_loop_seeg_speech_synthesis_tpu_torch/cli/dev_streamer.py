@@ -9,8 +9,8 @@ Port of ``closed_loop_seeg_speech_synthesis_tpu/cli/dev_streamer.py``:
 Micromed cadence: 32-sample packets @1024 Hz, 64 @2048 Hz
 (dev_lsl_streamer.py:16-17); wall-clock pacing with sample-counter drift
 correction; optional fake marker stream emitting a dummy word every ~3 s.
-It needs neither jax nor h5py to stream an array (``stream_eeg``); ``main``
-reads HDF5 (with h5py) and XDF recordings through ``io.loaders``.
+It needs neither jax nor h5py: ``stream_eeg`` streams an array, ``main``
+reads HDF5 and XDF recordings through ``io.loaders``.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ decodes, through kernel K1, and for exp1's proposed method K2) run on
 else the recording's names), the figures and extract_trials on the host.
 ``--device`` defaults to cuda and fails where there is no GPU, whatever the
 step; ``--device cpu`` runs the float64 path.  matplotlib is imported where
-a figure is drawn.
+a figure is drawn; without it exp4 writes its activations and skips their
+plots.
 """
 
 from __future__ import annotations
@@ -92,8 +93,14 @@ def main(argv=None):
         dest = os.path.join(temp_root, "exp4")
         os.makedirs(dest, exist_ok=True)
         np.save(os.path.join(dest, "activations.npy"), matrix)
-        exp.plot(matrix, os.path.join(dest, "activations.png"))
-        exp.plot_activation_map(matrix, os.path.join(dest, "activation_map.png"))
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            logger.info("matplotlib is not installed: activations.png and activation_map.png "
+                        "skipped")
+        else:
+            exp.plot(matrix, os.path.join(dest, "activations.png"))
+            exp.plot_activation_map(matrix, os.path.join(dest, "activation_map.png"))
         return matrix
 
     elif args.step == "figure3":

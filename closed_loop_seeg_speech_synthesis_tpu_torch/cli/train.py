@@ -16,8 +16,9 @@ CLI writes; both packages' ``load_params`` read them.
 nothing falls back to the CPU, which runs only with ``--device cpu``.
 Training runs in float32 on CUDA and float64 on the CPU.  The audio is dithered with
 N(0, 1e-4) noise (train.py:99) drawn from ``main``'s ``rng``, by default
-numpy's global generator, as the JAX CLI draws it.  h5py, sklearn
-and matplotlib are imported where files are written and plots drawn.
+numpy's global generator, as the JAX CLI draws it.  The artifacts are
+written without h5py or sklearn (``io.hdf5``, ``models.lda.estimators_pickle``);
+matplotlib is imported where the plots are drawn.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ neural/audio alignment (exp1.py:94-99).
 Runs on ``device`` (default the card, float32: every fold's decode launches
 kernel K1, every proposed fold's vocoder K2); ``device="cpu"`` runs the
 float64 path the tests hold to the JAX package.  The session comes from
-``session_dir`` (``speech1.hdf`` and ``params.h5``, read with h5py) or, where
-h5py is not installed, as a ``Session`` and the bad channels given as arrays.
+``session_dir`` (``speech1.hdf`` and ``params.h5``, read through ``io.hdf5``)
+or as a ``Session`` and the bad channels given as arrays.
 Griffin-Lim inits are the JAX package's: ``PRNGKey(k)`` for fold k through
 ``train_decode_fold``, ``fold_in(key, k)`` in the batched folds.
 """
@@ -29,6 +29,7 @@ import torch
 from scipy.io.wavfile import write as wavwrite
 from scipy.signal import decimate
 
+from ..io import hdf5
 from ..io.session import Session
 from ..ops import prng
 from ..ops.spectrogram import compute_spectrogram
@@ -89,9 +90,7 @@ class Experiment1:
 
     def _bad_channels(self):
         if self.bad_channels is None:
-            import h5py
-
-            with h5py.File(os.path.join(self.session_dir, "params.h5"), "r") as hf:
+            with hdf5.File(os.path.join(self.session_dir, "params.h5"), "r") as hf:
                 self.bad_channels = hf["bad_channels"][:]
         return self.bad_channels
 

@@ -17,8 +17,8 @@ the original audio run on the experiment's device and dtype; DTW and the
 correlations run in numpy on the host.  The cuts are drawn from ``rng`` in
 the JAX package's order, so they are the same indices.  The session, the
 decoding run, the other-task sEEG and the model come from files
-(``session_dir``, ``run_dir``, ``other_tasks``, ``params.h5``) or, where
-h5py is not installed, as objects and arrays.  Griffin-Lim inits of the
+(``session_dir``, ``run_dir``, ``other_tasks``, ``params.h5``) or as
+objects and arrays.  Griffin-Lim inits of the
 sequential twin are the JAX package's draws of ``PRNGKey(i)`` for segment
 i; the score depends only on the spectrogram.
 """

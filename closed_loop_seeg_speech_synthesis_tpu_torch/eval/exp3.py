@@ -3,8 +3,7 @@
 
 Port of ``closed_loop_seeg_speech_synthesis_tpu/eval/exp3.py`` (numpy on the
 host, with the port's ``EnergyBasedVad``).  The decoding run comes from its
-directory or, where h5py is not installed, as a ``DecodingRun`` built from
-arrays.
+directory or as a ``DecodingRun`` built from arrays.
 """
 
 from __future__ import annotations

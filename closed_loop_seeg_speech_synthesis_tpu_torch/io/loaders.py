@@ -1,9 +1,10 @@
 """Recording loaders (twin of reference ``local/data_loader.py``).
 
-Copy of ``closed_loop_seeg_speech_synthesis_tpu/io/loaders.py``, with h5py
-imported inside the HDF5 functions.  HDF5 layout: datasets ``sEEG`` (T, C),
-``Audio`` (Ta,), scalar ``sEEG_sr`` / ``Audio_sr``, optional ``ch_names``
-(bytes) and ``markers`` (data_loader.py:16-35).  XDF recordings carry a
+Copy of ``closed_loop_seeg_speech_synthesis_tpu/io/loaders.py``, reading and
+writing HDF5 through the port's own ``io.hdf5`` (no h5py).  HDF5 layout:
+datasets ``sEEG`` (T, C), ``Audio`` (Ta,), scalar ``sEEG_sr`` /
+``Audio_sr``, optional ``ch_names`` (bytes) and ``markers``
+(data_loader.py:16-35).  XDF recordings carry a
 ``Micromed`` EEG stream, an ``AudioCaptureWin`` stream and a marker stream;
 the experiment span is cut between the ``experimentStarted`` /
 ``experimentEnded`` markers by nearest-timestamp search
@@ -17,15 +18,14 @@ import os
 
 import numpy as np
 
+from . import hdf5
 from . import xdf as xdf_mod
 
 logger = logging.getLogger("io.loaders")
 
 
 def load_hdf5(path, return_markers=False):
-    import h5py
-
-    with h5py.File(path, "r") as hf:
+    with hdf5.File(path, "r") as hf:
         eeg = hf["sEEG"][:]
         audio = hf["Audio"][:].astype(np.float64)
         eeg_sr = int(np.asarray(hf["sEEG_sr"]).reshape(-1)[0])
@@ -44,9 +44,7 @@ def load_hdf5(path, return_markers=False):
 
 def save_hdf5(path, eeg, eeg_sr, audio, audio_sr, ch_names=None, markers=None):
     """Writer for the same layout (used by tests / the dev streamer)."""
-    import h5py
-
-    with h5py.File(path, "w") as hf:
+    with hdf5.File(path, "w") as hf:
         hf.create_dataset("sEEG", data=np.asarray(eeg))
         hf.create_dataset("Audio", data=np.asarray(audio))
         hf.create_dataset("sEEG_sr", data=int(eeg_sr), dtype=np.int32)

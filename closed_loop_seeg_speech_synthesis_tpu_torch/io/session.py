@@ -4,12 +4,11 @@
 Port of ``closed_loop_seeg_speech_synthesis_tpu/io/session.py``.
 ``Session``: the training recording, words on a fixed 3 s grid (2 s word +
 1 s cross), audio decimated to 16 kHz with dither; built from a session
-directory's ``speech1.hdf`` or, where h5py is not installed, from arrays
-(``Session.from_arrays``).  ``DecodingRun``: the artifacts a decode run
+directory's ``speech1.hdf`` or from arrays (``Session.from_arrays``).  ``DecodingRun``: the artifacts a decode run
 stores (audio.wav, sEEG.hdf, markers.csv, first_timestamp.npy), trial starts
 recovered from marker wall-clock minus the stream's first timestamp; or the
-same given as arrays (``DecodingRun.from_arrays``).  h5py is imported where
-a file is read.  ``make_synthetic_session`` is the numpy
+same given as arrays (``DecodingRun.from_arrays``).  HDF5 files are read
+through the port's ``io.hdf5``.  ``make_synthetic_session`` is the numpy
 half of ``examples/demo.py``'s session maker.
 """
 
@@ -20,6 +19,8 @@ import os
 
 import numpy as np
 from scipy.signal import decimate
+
+from . import hdf5
 
 logger = logging.getLogger("io.session")
 
@@ -93,11 +94,9 @@ class Session(_TrialMixin):
 
 class DecodingRun(_TrialMixin):
     """Artifacts of one decode run (data_loader.py:253-325), read from the
-    run directory or, where h5py is not installed, given as arrays
-    (``DecodingRun.from_arrays``)."""
+    run directory or given as arrays (``DecodingRun.from_arrays``)."""
 
     def __init__(self, run_dir):
-        import h5py
         from scipy.io import wavfile
 
         audio_sr, audio = wavfile.read(os.path.join(run_dir, "audio.wav"))
@@ -114,7 +113,7 @@ class DecodingRun(_TrialMixin):
                     starts.append(round(float(mono) - float(first_timestamp), 2))
                     words.append(label[6:])
 
-        with h5py.File(os.path.join(run_dir, "sEEG.hdf"), "r") as f:
+        with hdf5.File(os.path.join(run_dir, "sEEG.hdf"), "r") as f:
             eeg = f["sEEG"][...]
             eeg_sr = int(np.asarray(f["sEEG_sr"]).reshape(-1)[0])
         self._setup(run_dir, audio, audio_sr, eeg, eeg_sr, starts, words)

@@ -15,14 +15,32 @@ one class per bin per frame (``livenodes/LDASynthesis.py:19-28``).
   9-class padding, with absent slots masked.
 * predict: one ``(T, d) @ (d, 40*9)`` product, absent class slots masked to
   -inf, per-bin argmax mapped through each bin's present-class table.
+* the reference's estimator pickles (``LDAs.pkl``, the ``estimators`` blob of
+  ``params.h5``) without sklearn: ``estimators_pickle`` writes the list of
+  ``LinearDiscriminantAnalysis`` objects that ``to_sklearn_estimators``
+  builds, ``load_estimators`` reads such a pickle through a restricted
+  unpickler into ``EstimatorState`` objects.
 """
 
 from __future__ import annotations
 
+import copyreg
 import dataclasses
+import io
+import pickle
 
 import numpy as np
 import torch
+
+# The class the reference pickles, and the scikit-learn release whose
+# LinearDiscriminantAnalysis state ``estimators_pickle`` writes: the
+# constructor's defaults, in its signature's order, then ``_sklearn_version``
+# (BaseEstimator.__getstate__).
+SKLEARN_LDA = ("sklearn.discriminant_analysis", "LinearDiscriminantAnalysis")
+SKLEARN_VERSION = "1.9.0"
+_SKLEARN_LDA_DEFAULTS = (("solver", "svd"), ("shrinkage", None), ("priors", None),
+                         ("n_components", None), ("store_covariance", False), ("tol", 0.0001),
+                         ("covariance_estimator", None))
 
 
 @dataclasses.dataclass
@@ -188,27 +206,116 @@ def from_sklearn_estimators(estimators, n_classes_max: int = 9, dtype=torch.floa
                      valid=torch.as_tensor(valid, device=device))
 
 
-def to_sklearn_estimators(params: LDAParams):
-    """sklearn LinearDiscriminantAnalysis objects carrying the fitted
-    coef_/intercept_/classes_, for reference-compatible ``LDAs.pkl`` /
-    ``params.h5`` artifacts (train.py:180-196).  sklearn is imported here."""
-    from sklearn.discriminant_analysis import LinearDiscriminantAnalysis
-
+def _estimator_attributes(params: LDAParams):
+    """Per bin the fitted attributes of a sklearn estimator: classes_ (float),
+    coef_ and intercept_ (a single row, class1 - class0, for two classes:
+    sklearn's binary convention)."""
     coef = params.coef.cpu().numpy().astype(np.float64)
     intercept = params.intercept.cpu().numpy().astype(np.float64)
     classes = params.classes.cpu().numpy()
     valid = params.valid.cpu().numpy()
-    ests = []
+    out = []
     for b in range(params.n_bins):
         m = valid[b]
-        est = LinearDiscriminantAnalysis()
-        est.classes_ = classes[b][m].astype(np.float64)
+        attrs = {"classes_": classes[b][m].astype(np.float64)}
         if m.sum() == 2:
-            # sklearn binary convention: single row = class1 - class0
-            est.coef_ = (coef[b][m][1] - coef[b][m][0])[None, :]
-            est.intercept_ = np.atleast_1d(intercept[b][m][1] - intercept[b][m][0])
+            attrs["coef_"] = (coef[b][m][1] - coef[b][m][0])[None, :]
+            attrs["intercept_"] = np.atleast_1d(intercept[b][m][1] - intercept[b][m][0])
         else:
-            est.coef_ = coef[b][m]
-            est.intercept_ = intercept[b][m]
+            attrs["coef_"] = coef[b][m]
+            attrs["intercept_"] = intercept[b][m]
+        out.append(attrs)
+    return out
+
+
+def to_sklearn_estimators(params: LDAParams):
+    """sklearn LinearDiscriminantAnalysis objects carrying the fitted
+    coef_/intercept_/classes_ (train.py:180-196), for callers that want the
+    objects; the artifacts are written by ``estimators_pickle``.  sklearn is
+    imported here."""
+    from sklearn.discriminant_analysis import LinearDiscriminantAnalysis
+
+    ests = []
+    for attrs in _estimator_attributes(params):
+        est = LinearDiscriminantAnalysis()
+        est.__dict__.update(attrs)
         ests.append(est)
     return ests
+
+
+class EstimatorState:
+    """A pickled sklearn LinearDiscriminantAnalysis read without sklearn:
+    its state as attributes (``coef_``, ``intercept_``, ``classes_``, the
+    constructor's parameters, ``_sklearn_version``)."""
+
+
+class _EstimatorPickler(pickle._Pickler):
+    """The standard library's pickler, naming ``EstimatorState`` by
+    sklearn's module and qualified name, as the pickler names the class of
+    a real estimator (without importing sklearn to check that it exists)."""
+
+    def save_global(self, obj, name=None):
+        if obj is not EstimatorState:
+            return super().save_global(obj, name)
+        module, qualname = SKLEARN_LDA
+        if self.proto >= 4:
+            self.save(module)
+            self.save(qualname)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{module}\n{qualname}\n".encode("ascii"))
+        self.memoize(obj)
+
+
+def estimators_pickle(params: LDAParams) -> bytes:
+    """The pickle of ``to_sklearn_estimators(params)`` (a list of one
+    LinearDiscriminantAnalysis a bin) as ``pickle.dumps`` writes it, without
+    sklearn: each object's state is the default constructor's parameters,
+    ``classes_``, ``coef_``, ``intercept_`` and ``_sklearn_version``
+    (``SKLEARN_VERSION``); numpy pickles the arrays."""
+    states = []
+    for attrs in _estimator_attributes(params):
+        est = EstimatorState()
+        est.__dict__.update(_SKLEARN_LDA_DEFAULTS)
+        est.__dict__.update(attrs, _sklearn_version=SKLEARN_VERSION)
+        states.append(est)
+    buf = io.BytesIO()
+    _EstimatorPickler(buf, pickle.DEFAULT_PROTOCOL).dump(states)
+    return buf.getvalue()
+
+
+def _admitted_globals():
+    """The globals an estimator pickle may name: numpy's array, scalar and
+    dtype reconstructors (under numpy 1's and 2's module names) and
+    copyreg's object reconstructor."""
+    try:
+        from numpy._core import multiarray, numeric
+    except ImportError:  # numpy 1
+        from numpy.core import multiarray, numeric
+    table = {("numpy", "ndarray"): np.ndarray, ("numpy", "dtype"): np.dtype,
+             ("copyreg", "_reconstructor"): copyreg._reconstructor}
+    for core in ("numpy.core", "numpy._core"):
+        table[(f"{core}.multiarray", "_reconstruct")] = multiarray._reconstruct
+        table[(f"{core}.multiarray", "scalar")] = multiarray.scalar
+        table[(f"{core}.numeric", "_frombuffer")] = numeric._frombuffer
+    return table
+
+
+class _EstimatorUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == SKLEARN_LDA:
+            return EstimatorState
+        obj = _admitted_globals().get((module, name))
+        if obj is None:
+            raise pickle.UnpicklingError(f"{module}.{name} is not admitted in an estimator pickle "
+                                         f"(only {'.'.join(SKLEARN_LDA)} and numpy's arrays)")
+        return obj
+
+
+def load_estimators(data: bytes) -> list:
+    """The estimators of a pickle that ``estimators_pickle``, the JAX
+    package or the reference trainer wrote, as ``EstimatorState`` objects
+    (``from_sklearn_estimators`` reads them), without sklearn.  Any global
+    but sklearn's LinearDiscriminantAnalysis and numpy's reconstructors
+    raises ``pickle.UnpicklingError``."""
+    return _EstimatorUnpickler(io.BytesIO(data)).load()

@@ -13,9 +13,10 @@ persists (train.py:171-205):
 
 ``store_training`` writes the same files, so the JAX package's
 ``load_params`` and this one both read them.  ``load_params`` reads the plain
-arrays when present, the pickled blob only when they are absent.  h5py (and
-sklearn, for the estimators) are imported inside the functions that need
-them.
+arrays when present, the pickled blob only when they are absent.  Neither
+needs h5py or sklearn: the files go through ``io.hdf5``, the estimator
+pickles through ``models.lda.estimators_pickle`` / ``load_estimators`` (a
+restricted unpickler).
 
 ``from_arrays`` is the converter from the JAX package's parameters (as
 numpy arrays) to the port's.
@@ -24,11 +25,11 @@ numpy arrays) to the port's.
 from __future__ import annotations
 
 import os
-import pickle
 
 import numpy as np
 import torch
 
+from ..io import hdf5
 from ..models import lda as lda_mod
 
 
@@ -51,24 +52,22 @@ def from_arrays(lda_coef, lda_intercept, lda_classes, lda_valid, medians, select
 def store_training(session_dir: str, result, bad_channels, config=None) -> str:
     """Persist a runtime.trainer.TrainResult to the reference layout; returns
     the path of ``params.h5``."""
-    import h5py
-
     os.makedirs(session_dir, exist_ok=True)
-    estimators = lda_mod.to_sklearn_estimators(result.lda)
+    estimators = lda_mod.estimators_pickle(result.lda)
 
     with open(os.path.join(session_dir, "LDAs.pkl"), "wb") as f:
-        pickle.dump(estimators, f)
+        f.write(estimators)
 
     np.save(os.path.join(session_dir, "training_features.npy"), result.x_train)
 
     lda = result.lda
     path = os.path.join(session_dir, "params.h5")
-    with h5py.File(path, "w") as hf:
+    with hdf5.File(path, "w") as hf:
         hf.create_dataset("bad_channels", data=np.asarray(bad_channels, np.int64))
         hf.create_dataset("medians_array", data=result.medians)
-        hf.create_dataset("estimators", data=np.void(pickle.dumps(estimators)))
+        hf.create_dataset("estimators", data=np.void(estimators))
         hf.create_dataset("select", data=np.asarray(result.select, np.int64))
-        # plain-array twin of the pickled blob (the load path without sklearn)
+        # plain-array twin of the pickled blob, as the JAX package writes it
         hf.create_dataset("lda_coef", data=lda.coef.cpu().numpy().astype(np.float64))
         hf.create_dataset("lda_intercept", data=lda.intercept.cpu().numpy().astype(np.float64))
         hf.create_dataset("lda_classes", data=lda.classes.cpu().numpy())
@@ -83,9 +82,7 @@ def store_training(session_dir: str, result, bad_channels, config=None) -> str:
 
 def load_params(path: str, dtype=torch.float64, device=None) -> dict:
     """Load a ``params.h5`` (the JAX package's or the reference's)."""
-    import h5py
-
-    with h5py.File(path, "r") as hf:
+    with hdf5.File(path, "r") as hf:
         medians = np.asarray(hf["medians_array"])
         bad = np.asarray(hf["bad_channels"])
         select = np.asarray(hf["select"])
@@ -93,7 +90,6 @@ def load_params(path: str, dtype=torch.float64, device=None) -> dict:
             return from_arrays(np.asarray(hf["lda_coef"]), np.asarray(hf["lda_intercept"]),
                                np.asarray(hf["lda_classes"]), np.asarray(hf["lda_valid"]),
                                medians, select, bad, dtype, device)
-        # only files this program or the reference trainer wrote are loaded
-        estimators = pickle.loads(hf["estimators"][...].tobytes())
+        estimators = lda_mod.load_estimators(hf["estimators"][...].tobytes())
     return {"medians": medians, "bad_channels": bad.astype(int), "select": select.astype(int),
             "lda": lda_mod.from_sklearn_estimators(estimators, dtype=dtype, device=device)}

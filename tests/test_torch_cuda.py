@@ -1080,3 +1080,60 @@ def test_graph_decoder_raises_when_the_graph_fails(rs, cuda_device, monkeypatch)
     with pytest.raises(RuntimeError, match="forced replay failure"):
         d.process_packet(packet)
     assert d.spec_frames == [] and d.audio_chunks == [] and d.replays == {1: 0}
+
+
+@pytest.mark.cuda
+def test_train_and_decode_clis_on_codec_files(cuda_device, tmp_path):
+    """cli.train and cli.decode with --device cuda on files the port's own
+    HDF5 codec writes (the card's machine has neither h5py nor sklearn): the
+    train CLI's artifacts, and the decode CLI's spectrogram.npy and audio.wav
+    equal to perform_offline_decoding of the loaded model on the same sEEG,
+    with K1 and K2 launched under the CLI."""
+    import configparser
+
+    from scipy.io import wavfile
+
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import decode as cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.cli import train as train_cli
+    from closed_loop_seeg_speech_synthesis_tpu_torch.io import hdf5, loaders
+
+    sr, audio_sr, C, seconds = 1024, 48000, 16, 30
+    rs = np.random.RandomState(5)
+    eeg = rs.randn(seconds * sr, C).astype(np.float32)
+    audio = 0.01 * rs.randn(seconds * audio_sr)
+    t_a = np.arange(2 * audio_sr) / audio_sr
+    for i in range(seconds // 3):  # word-locked: a 120 Hz burst and a voiced stack
+        eeg[i * 3 * sr : i * 3 * sr + 2 * sr, : C // 2] += np.float32(1 + 0.4 * (i % 5)) * np.sin(
+            2 * np.pi * 120 * np.arange(2 * sr) / sr).astype(np.float32)[:, None]
+        f0 = 150 + 30 * (i % 5)
+        audio[i * 3 * audio_sr : i * 3 * audio_sr + 2 * audio_sr] += 0.3 * np.sin(
+            2 * np.pi * f0 * t_a)
+    rec = str(tmp_path / "speech.hdf")
+    loaders.save_hdf5(rec, eeg, sr, audio, audio_sr)
+    config = configparser.ConfigParser()
+    config["General"] = {"storage_dir": str(tmp_path / "storage"), "session": "demo"}
+    config["Training"] = {"file": rec, "overwrite_on_rerun": "True"}
+    config["Decoding"] = {"stream_name": "x", "griffin_lim_norm": "10"}
+    cfg = str(tmp_path / "experiment.ini")
+    with open(cfg, "w") as f:
+        config.write(f)
+
+    path = train_cli.main([cfg, "--device", "cuda"], rng=np.random.RandomState(0))
+    for name in ("params.h5", "LDAs.pkl", "training_features.npy", "train.ini", "train.log"):
+        assert (tmp_path / "storage" / "demo" / name).exists(), name
+    loaded = params.load_params(path, dtype=torch.float32, device=cuda_device)
+    with open(tmp_path / "storage" / "demo" / "LDAs.pkl", "rb") as f:
+        from_pickle = lda.from_sklearn_estimators(lda.load_estimators(f.read()))
+    assert torch.equal(from_pickle.valid, loaded["lda"].valid.cpu())
+
+    k1, k2 = cuda_frontend.frontend_decode_mels.launches, cuda_gl.gl_audio.launches
+    run_dir = cli.main([cfg, "--seeg_file", rec, "--run", "replay", "--device", "cuda"])
+    assert cuda_frontend.frontend_decode_mels.launches > k1 and cuda_gl.gl_audio.launches > k2
+    spec = np.load(Path(run_dir) / "spectrogram.npy")
+    _, audio_cli = wavfile.read(Path(run_dir) / "audio.wav")
+    spec_a, audio_a, _, _ = cli.perform_offline_decoding(loaded, eeg, sr, 10.0, device=cuda_device)
+    assert spec.shape[1] == 40 and np.isfinite(spec).all()
+    assert np.array_equal(spec, spec_a.cpu().numpy())
+    assert np.array_equal(audio_cli, audio_a.cpu().numpy().astype(np.int16))
+    with hdf5.File(str(Path(run_dir) / "sEEG.hdf"), "r") as hf:
+        assert np.array_equal(hf["sEEG"][()], eeg) and hf["sEEG_sr"][()] == sr
