@@ -51,15 +51,18 @@ on one NVIDIA GPU.  Run from the repository root:
    use_cuda_gl_tail=False``) the same way: K3 and K4 launch, K1 and K2 do
    not, and the output stays inside the f32 budget of the fused path.
 6b. The bf16 variants of K4 and K2 (``DecoderConfig.gl_bf16``, the JAX
-   kernels' ``bf16=True`` branch): each against its plain bf16 version on
-   the replay's mel frames and inits, K4 at B = 4, 199, 447-449 (cluster
-   and the crossing) and 179,999 (tensor cores), K2 at 199 and 179,999,
+   kernels' ``bf16=True`` branch; on the tensor cores ``gl_wgmma_kernel``,
+   whose SASS must hold HGMMA instructions, cuobjdump, while
+   ``gl_mma_kernel`` has only its float32 instantiation): each against its
+   plain bf16 version on the replay's mel frames and inits, K4 at B = 4,
+   64-65 (the cluster and the bf16 crossing), 199, 447-449 (the float32
+   one) and 179,999, K2 at 199 and 179,999,
    under the ``BF16_*`` gates (one iteration, both estimators: max |diff|
    within 1e-3 of the blocks' max, from 199 blocks on 99% of samples within
    2e-5 of it, the f32 kernel outside; K2 within 1 LSB on 99.9%; 8
    iterations: converging 99.5% within 1e-3, the quirk by attainment and
    envelope r; K2 within 1 LSB of the plain tail on K4's bf16 blocks); times
-   each at 199 and 179,999 blocks beside the f32 kernel in the same call,
+   each at 64, 199 and 179,999 blocks beside the f32 kernel in the same call,
    with the bound at the bf16 rate (989 TFLOP/s) and the DFT products as
    bf16 ``torch.matmul``; then the fused and the split replay through
    ``pipeline.offline_decode`` with ``gl_bf16=True``, counts set to 0 just
@@ -205,11 +208,16 @@ on one NVIDIA GPU.  Run from the repository root:
    parent's).  Prints each run's time by stage (spawn + init, compute,
    collectives) and each rank's launches.
 
+``python3 chip_smoke.py --bf16`` runs step 6b alone (after the build, on
+the same session, with the float32 fused and split decodes as its
+references) and ends with the card's line.
+
 Any failure exits nonzero.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits 1 and prints no result.
 """
 
+import argparse
 import concurrent.futures
 import configparser
 import contextlib
@@ -290,8 +298,9 @@ PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apa
 # (PERF.md); the persistent phase holds every key, phase 7 key 0.
 QUIRK_WITHIN_MIN, QUIRK_MAX_RUN, QUIRK_KEYS, HOP = 0.99, 3, 5, 160
 # The bf16 variants of K2 / K4 (DecoderConfig.gl_bf16): K4 in the cluster
-# regime and across its threshold, K2 at exp2's sequential twin's 199 blocks,
-# both at the replay's blocks on the tensor cores.  One iteration: a bf16
+# regime and across its bf16 threshold (cuda_gl.CLUSTER_MAX_B_BF16 = 64) and
+# its float32 one (448), K2 at exp2's sequential twin's 199 blocks, both at
+# the replay's blocks on the tensor cores.  One iteration: a bf16
 # kernel and its plain version differ only where another summation order
 # moves a frame or Z value across a bf16 rounding boundary (one bf16 step of
 # it times an inverse-DFT entry): max |diff| within BF16_ONE_MAX of the
@@ -299,7 +308,7 @@ QUIRK_WITHIN_MIN, QUIRK_MAX_RUN, QUIRK_KEYS, HOP = 0.99, 3, 5, 160
 # blocks on >= BF16_ONE_SHARE of the samples within BF16_ONE_ATOL of it.
 # 8 iterations, converging: tests/test_torch_gl_bf16.py's gate; under the
 # quirk, test_gl_bf16_quality's (attainment <= 1.1x, envelope r > 0.9).
-BF16_K4_BLOCKS, BF16_K2_BLOCKS = (4, 199, 447, 448, 449), (199,)
+BF16_K4_BLOCKS, BF16_K2_BLOCKS = (4, 64, 65, 199, 447, 448, 449), (199,)
 BF16_ONE_MAX, BF16_ONE_ATOL, BF16_ONE_SHARE = 1e-3, 2e-5, 0.99
 BF16_CONV_ATOL, BF16_CONV_MIN, BF16_ATTAIN, BF16_R = 1e-3, 0.995, 1.1, 0.9
 
@@ -326,31 +335,33 @@ def bound(fp32_flops, nbytes, tf32x3_flops=0.0, int32_ops=0.0, bf16_flops=0.0):
 def regime_threshold(cuda_gl, cluster_max_b):
     """Force the Griffin-Lim regime: launches of B <= cluster_max_b blocks
     take the cluster kernel, larger ones the tensor cores."""
-    saved, cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B, cluster_max_b
+    saved = cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16
+    cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B_BF16 = cluster_max_b
     try:
         yield
     finally:
-        cuda_gl.CLUSTER_MAX_B = saved
+        cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16 = saved
 
 
 def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False, bf16=False):
     """Bound of K4 (or, with ``tail``, K2) on B blocks in the regime its
     launch picks: both DFT products in 3xTF32 on the tensor cores above
-    CLUSTER_MAX_B, else fp32 FMA; with ``bf16`` at the bf16 tensor-core rate
-    in either regime (one pass on bf16 operands).  The target magnitudes,
+    CLUSTER_MAX_B, else fp32 FMA; with ``bf16`` (threshold
+    CLUSTER_MAX_B_BF16) at the bf16 tensor-core rate in either regime (one
+    pass on bf16 operands).  The target magnitudes,
     the Nyquist bin and K2's overlap-add and low-pass in fp32 FMA.  Bytes:
     the mel frames and inits read once, the blocks (K4) or int16 audio (K2)
     written once, and the constants (bf16: the DFT operands as bf16)."""
     frames, kin = 2 * B, 128 if phase_bug else 256
     dft = 2.0 * frames * iterations * 256 * (256 + kin)
     other = 2.0 * (frames * NM * 129 + frames * iterations * 2 * 256)
-    mma = cuda_gl.regime(B) == "mma"
+    mma = cuda_gl.regime(B, bf16) == "mma"
     # the operands the regime reads: the packed hi/lo DFTs or the f32 ones
     consts = sum(t.numel() * 4 for t in (ops.gl_f32[:1] + ops.gl_f32[3:] + ops.gl_tf32 if mma
                                          else ops.gl_f32))
-    if bf16:
+    if bf16:  # the wgmma kernel reads the bf16 image, the cluster kernel the rounded f32 operands
         consts = sum(t.numel() * t.element_size() for t in ops.gl_f32[:1] + ops.gl_f32[3:]
-                     + ops.gl_bf16[2:])
+                     + (ops.gl_bf16[2:] if mma else ops.gl_bf16[:2]))
     nbytes = (B + 1) * NM * 4 + B * 480 * 4 + consts
     if tail:
         S, n_pow = ops.lp.dim, ops.n_pow
@@ -676,6 +687,23 @@ def blocks_attainment(torch, re, log_mels, gl_ops):
     return ((mag - target).norm() / target.norm()).item()
 
 
+def sass_counts(_build, name, mnemonic):
+    """{kernel function (mangled): number of ``mnemonic`` instructions} in the
+    SASS of the built csrc/<name>.cu (cuobjdump beside nvcc)."""
+    lib = _build.BUILD_DIR / _build.build_info[name]["library"]
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and mnemonic in line:
+            counts[fn] += 1
+    return counts
+
+
 def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_counts):
     """K2's and K4's bf16 variants against their plain bf16 versions on the
     replay's mel frames and inits, under the BF16_* gates; the fused and the
@@ -683,15 +711,26 @@ def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_cou
     (spectrogram, audio), fused and split), each driven with the counts set
     to 0 just before it; the times beside the float32 kernels' in this call.
     Returns the figures of the two kernels lines."""
-    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_gl
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, cuda_gl
     from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline
 
     ops, B_gl, NM = dec.gl_audio_ops, rand.shape[0], lm.shape[1]
     k4, k2 = {}, {}
     say(f"== bf16 variants of K4 / K2 (DecoderConfig.gl_bf16) vs their plain bf16 versions")
+    hgmma = sass_counts(_build, "gl_audio", "HGMMA")
+    wgmma = [v for f, v in hgmma.items() if "gl_wgmma_kernel" in f]
+    mma = [v for f, v in hgmma.items() if "gl_mma_kernel" in f]
+    say(f"  SASS (cuobjdump -sass): HGMMA instructions in the two gl_wgmma_kernel instantiations "
+        f"{wgmma}, in gl_mma_kernel's {mma}")
+    check(len(wgmma) == 2 and min(wgmma) > 0 and mma == [0],
+          "gl_wgmma_kernel issues wgmma (HGMMA) in both estimators; gl_mma_kernel has one "
+          "instantiation, float32")
+    for fig in (k4, k2):
+        fig["kernel"] = "gl_wgmma_kernel"
+        fig["hgmma_instructions"] = wgmma
     for B in BF16_K4_BLOCKS + (B_gl,):
         l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
-        label = f"K4 bf16, B = {B} ({cuda_gl.regime(B)})"
+        label = f"K4 bf16, B = {B} ({cuda_gl.regime(B, True)})"
         for bug in (False, True):
             k = cuda_gl.gl_blocks(l, r, ops, 1, bug, bf16=True)
             p = cuda_gl.gl_blocks_plain(l, r, ops, 1, bug, bf16=True)
@@ -727,7 +766,7 @@ def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_cou
             k4.update(converging_within=within, quirk_attainment=(att_k, att_f), quirk_r=r_q)
     for B in BF16_K2_BLOCKS + (B_gl,):
         l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
-        label = f"K2 bf16, B = {B} ({cuda_gl.regime(B)})"
+        label = f"K2 bf16, B = {B} ({cuda_gl.regime(B, True)})"
         for bug in (False, True):
             d = (cuda_gl.gl_audio(l, r, ops, GL_NORM, 1, bug, bf16=True).long()
                  - cuda_gl.gl_audio_plain(l, r, ops, GL_NORM, 1, bug, bf16=True).long()).abs()
@@ -763,20 +802,23 @@ def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_cou
     for name, fig, tail in (("gl_blocks", k4, False), ("gl_audio", k2, True)):
         kernel, plain = getattr(cuda_gl, name), getattr(cuda_gl, name + "_plain")
         args = (GL_NORM,) if tail else ()
-        for B in (BF16_K2_BLOCKS[0], B_gl):
+        for B in (cuda_gl.CLUSTER_MAX_B_BF16, BF16_K2_BLOCKS[0], B_gl):
             l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
             t = {"ms": cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, True, bf16=True)),
                  "f32_ms": cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, True)),
                  "plain_ms": cuda_ms(torch, lambda: plain(l, r, ops, *args, 8, True, bf16=True)),
                  "bound": gl_bound(cuda_gl, B, NM, 8, True, ops, tail=tail, bf16=True),
-                 "regime": cuda_gl.regime(B)}
+                 "regime": cuda_gl.regime(B, True)}
             say(f"    {name} bf16, B = {B} ({t['regime']}): {t['ms']:.4f} ms, f32 kernel "
                 f"{t['f32_ms']:.4f} ms, plain bf16 {t['plain_ms']:.3f} ms, bound "
                 f"{t['bound'][0]:.4f} ms ({t['bound'][1]}, products at 989 TFLOP/s) [{card}]")
             if B == B_gl:
+                t["ms_converging"] = cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, False,
+                                                                   bf16=True))
+                say(f"    {name} bf16, B = {B}, converging estimator: {t['ms_converging']:.4f} ms")
                 fig.update(t)
             else:
-                fig["cluster"] = t
+                fig[f"B{B}"] = t
     # for reference the DFT products alone as bf16 torch.matmul (library_ms)
     g = torch.Generator(device=lm.device).manual_seed(1)
     frames16 = torch.randn((2 * B_gl, 256), generator=g, device=lm.device).to(torch.bfloat16)
@@ -2066,8 +2108,13 @@ def cli_phase(torch, dev, card, arrs, train_eeg, train_audio, exp1_r, zero_count
     return out
 
 
-def main():
+def main(argv=None):
     import torch
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
+    parser.add_argument("--bf16", action="store_true",
+                        help="run only step 6b, the bf16 variants of K2/K4 and the bf16 replays")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU only",
@@ -2105,6 +2152,16 @@ def main():
     n_frames = len(framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, SR,
                                                 T + cfg.prefill))
     say(f"session: {T} samples x {C} ch @ {SR} Hz ({MINUTES} min), {n_frames} frames")
+    if args.bf16:  # step 6b alone, against this session's float32 decodes
+        zero_counts, read_counts = launch_counters(torch)
+        split = dict(use_cuda_epilogue=False, use_cuda_gl_tail=False)
+        refs = tuple(pipeline.offline_decode(dec, c, eeg)
+                     for c in (cfg, dataclasses.replace(cfg, **split)))
+        bf16_phase(torch, card, dec, cfg, eeg, refs[0][0].contiguous(),
+                   gl.default_rand_init(n_frames - 1, 0, 0, torch.float32, dev), refs,
+                   zero_counts, read_counts)
+        say(card)
+        return 0
 
     # ---- K1: kernel vs plain at the main path's shapes --------------------
     say("== K1 frontend_decode_mels vs plain")

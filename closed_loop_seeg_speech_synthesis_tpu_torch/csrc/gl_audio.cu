@@ -11,7 +11,8 @@
 //     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:141
 //     _gl_kernel (entry gl_blocks_pallas).
 //   Both take bf16 = 1 for the kernels' bf16=True branch (DecoderConfig.gl_bf16;
-//   pallas_gl._gl_loop with mm_t = bfloat16), below.
+//   pallas_gl._gl_loop with mm_t = bfloat16), below.  Tensor-core helpers:
+//   tf32_mma.cuh (mma.sync, 3xTF32) and wgmma.cuh (wgmma, mbarrier, bulk copies).
 //
 // Work.  Each iteration of each 480-sample block windows its two frames
 // (samples [0, 256) and [160, 416)), takes their forward 256-point real DFT
@@ -63,21 +64,56 @@
 //     Each iteration the phase-corrected bins and the output samples are
 //     exchanged through distributed shared memory, with a cluster barrier
 //     after each product; no operand is read from L2 after the first.
-//   * bf16 (both regimes, a template parameter of each kernel): the 128
-//     clean-bin DFT products take bf16 operands (round to nearest even, as
-//     JAX's astype(bfloat16)) and accumulate in fp32: the windowed frames
+//   * bf16 (DecoderConfig.gl_bf16, the JAX kernels' bf16=True branch): the
+//     128 clean-bin DFT products take bf16 operands (round to nearest even,
+//     as JAX's astype(bfloat16)) and accumulate in fp32: the windowed frames
 //     before the forward product, zr (and zi with the converging estimator)
 //     before the inverse, and the four DFT matrices, which the host rounds
 //     once.  Unrounded: exp(logmel) @ Minv, the Nyquist bin (from the
 //     unrounded frames) and its inverse row, the phase step and everything
-//     after.  A product of two bf16 values is exact in fp32, so only the
-//     order of the sums differs from JAX.  gl_mma_kernel issues one
-//     mma.sync.m16n8k16 bf16 per k-step of 16 where 3xTF32 issues three
-//     m16n8k8 per k-step of 8: 6x fewer tensor-core instructions, at the
-//     bf16 rate (989 TFLOP/s, bound 0.57 ms for the replay's products), and a
-//     quarter of the operand bytes (bf16, no lo part).  Each k-step still
-//     goes to a fresh accumulator added in fp32.  gl_cluster_kernel keeps its
-//     fp32 FMA on the rounded operands.
+//     after.  A product of two bf16 values is exact in fp32.  Above
+//     CLUSTER_MAX_B_BF16 blocks (ops/cuda_gl.regime) gl_wgmma_kernel; at or
+//     below it gl_cluster_kernel<true>, its fp32 FMA on the rounded operands.
+//     Bound at the replay (180,000 blocks, 8 iterations, exp(angle)): the
+//     products, 5.7e11 FLOP at the bf16 tensor-core rate (989 TFLOP/s),
+//     0.57 ms, plus the fp32 target magnitudes and Nyquist bins, 0.67 ms; the
+//     0.69 GB of inits and blocks take 0.21 ms.  gl_wgmma_kernel keeps every
+//     operand on chip.  One persistent CTA an SM, two warpgroups each walking
+//     its own tiles of 32 blocks (64 frames, the M of wgmma m64n256k16),
+//     holds the bf16 forward operand [cos | sin] as one 128 KB image in
+//     shared memory (128-byte swizzle, ops/wgmma_layout.py), loaded once by
+//     bulk copies (TMA) counted on an mbarrier.  The inverse reads the same
+//     image through MN-major descriptors: make_rdft's I_cos[k] = w_k cos /
+//     256 and I_sin[k] = -w_k sin / 256 (w_0 = 1, else 2) are the forward
+//     columns transposed times powers of two, exact in f32 and bf16, so Z is
+//     scaled by them before its rounding and the inverse's own 128 KB, which
+//     would not fit beside the forward's, is never needed.  Frames, Z and
+//     output samples stay in registers.  The forward's accumulators hold a
+//     bin's cos and sin columns in one thread, so the phase step runs on
+//     them; Z, scaled and rounded, is the inverse's register A operand (the
+//     m64 accumulator fragment is the m64k16 A fragment); the inverse's
+//     accumulators hold both frames of the thread's block (rows g, g + 8) at
+//     samples n and n +- 160 (columns j, j +- 20), so the overlap-add is
+//     thread-local and its result, rounded, is the next forward's A operand.
+//     Each product sums its 16 k-steps (8 under exp(angle), whose zi is 0)
+//     in one fp32 accumulator: the operands' bf16 rounding (2^-9) dwarfs the
+//     tensor cores' truncating adder (tests/test_torch_cuda.py::
+//     test_gl_bf16_kernel_tracks_float64; gl_kernel_probe.py's "grouped"
+//     variant, a fresh accumulator every 4 k-steps, is slower).  A tile's
+//     target magnitudes (33 log-mel rows: a block's second frame is the
+//     next one's first) are computed once in fp32 into shared memory; the
+//     next tile's inits and rows are prefetched into L2
+//     (cp.async.bulk.prefetch; a staging buffer for them would not fit).
+//     What bounds it now is the fp32 phase step on the CUDA cores, not the
+//     products (gl_kernel_probe.py's clock64 stamps): under exp(angle) it
+//     takes the JAX kernels' own atan2 (Cephes) with fast reciprocals, which
+//     cut the phase step from 77% of an iteration's cycles (libdevice's
+//     atan2f) to 60% (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  Resources (nvcc -Xptxas -v, sm_90a): 255
+//     registers a thread, 88 / 228 bytes of spill stores (exp(angle) /
+//     converging; ptxas serializes the converging instantiation's wgmma for
+//     want of registers); 171,080 bytes of dynamic shared memory a CTA (the
+//     image 131,072, 2 x 33 x 136 target-magnitude floats, the window and
+//     the Nyquist column and row, the barrier, up to 1,024 of alignment).
 // The tail of gl_audio:
 //   ola: chunk b = (G[b][0:160] + G[b-1][160:320] + G[b-2][320:480]) times
 //     the window-sum reciprocal (rows 0 and 1 have partial sums), and the
@@ -94,6 +130,7 @@
 #include <stdint.h>
 
 #include "tf32_mma.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -123,6 +160,40 @@ __device__ __forceinline__ void phase_step(float xr, float xi, float sp, bool dc
   }
 }
 
+// atan2(y, x) as the JAX kernels compute it (pallas_gl._atan2 / _atan_01:
+// Cephes' atanf polynomial on [0, 1] after the reduction at tan(pi/8), ~1e-7
+// relative), its two divisions as fast reciprocals
+__device__ __forceinline__ float atan2_cephes(float y, float x) {
+  const float ay = fabsf(y), ax = fabsf(x), mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  const float r = __fdividef(mn, mx > 0.f ? mx : 1.f);
+  const bool reduce = r > 0.4142135623730951f;  // tan(pi/8)
+  const float v = reduce ? __fdividef(r - 1.f, r + 1.f) : r, z = v * v;
+  float p = 8.05374449538e-2f;
+  p = fmaf(p, z, -1.38776856032e-1f);
+  p = fmaf(p, z, 1.99777106478e-1f);
+  p = fmaf(p, z, -3.33329491539e-1f);
+  float a = fmaf(v * z, p, v);
+  if (reduce) a += 0.7853981633974483f;
+  if (ay > ax) a = 1.5707963267948966f - a;
+  if (x < 0.f) a = PI_F - a;
+  if (mx == 0.f) a = 0.f;
+  return y < 0.f ? -a : a;
+}
+
+// phase_step with the exp(angle) estimator's atan2 in fewer instructions
+// (atan2_cephes; gl_kernel_probe.py times the "atan2f" variant, libdevice's,
+// beside it); the unit phasor as phase_step
+template <bool BUG>
+__device__ __forceinline__ void phase_step_fast(float xr, float xi, float sp, bool dc, float& zr,
+                                                float& zi) {
+  if (BUG) {
+    zr = sp * expf(dc ? (xr < 0.f ? PI_F : 0.f) : atan2_cephes(xi, xr));
+    zi = 0.f;
+  } else {
+    phase_step(xr, xi, sp, dc, 0, zr, zi);
+  }
+}
+
 // The Nyquist bin is exactly real: angle 0 or pi.
 __device__ __forceinline__ float nyquist_phase(float x, float sp, int phase_bug) {
   return phase_bug ? sp * expf(x < 0.f ? PI_F : 0.f) : sp * (x < 0.f ? -1.f : 1.f);
@@ -139,43 +210,31 @@ constexpr int SS = NBIN + 4;       // target-magnitude row stride (129 used)
 constexpr int NT = 4;              // n-tiles of 8 columns per warp
 constexpr int MTL = MF / 16;       // m-tiles of 16 frames
 constexpr int STAGES = 4;          // cp.async ring depth per warp
-// A k-step is 8 deep in 3xTF32 (m16n8k8), 16 in bf16 (m16n8k16); a lane's
-// operand slots per k-step: one float4 per n-tile in 3xTF32 (hi and lo of
-// two rows), one per pair of n-tiles in bf16 (two registers of two bf16 each)
-template <bool BF16> constexpr int KSTEPS = BF16 ? FFT / 16 : FFT / 8;
-template <bool BF16> constexpr int SLOTS = BF16 ? NT / 2 : NT;
+constexpr int KSTEPS = FFT / 8;    // k-steps of 8 (m16n8k8)
 static_assert(MTHREADS == FFT, "one thread per window sample");
 
-// The operand of a product is (ksteps, SLOTS, 32 lanes) float4s, exactly
-// each lane's B fragments, so a lane copies and reads only its own ring
-// slots (no warp barrier).  3xTF32: slot nt holds (hi[k][n], hi[k+4][n],
-// lo[k][n], lo[k+4][n]) with k = 8 ks + lane%4 and n the tile's column
-// lane/4.  bf16: slot p holds n-tiles 2p and 2p+1, each as the registers
-// {B[k][n], B[k+1][n]} and {B[k+8][n], B[k+9][n]} with k = 16 ks + 2 (lane%4).
-// mma_prefetch issues a product's first STAGES-1 k-slabs; it runs ahead of
-// the barrier before the product, once the previous product has read the ring.
-template <bool BF16>
+// The operand of a product is (KSTEPS, NT, 32 lanes) float4s, exactly each
+// lane's B fragments, so a lane copies and reads only its own ring slots (no
+// warp barrier): slot nt holds (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n])
+// with k = 8 ks + lane%4 and n the tile's column lane/4.  mma_prefetch issues
+// a product's first STAGES-1 k-slabs; it runs ahead of the barrier before the
+// product, once the previous product has read the ring.
 __device__ __forceinline__ void mma_prefetch(const float4* __restrict__ bpk, float4* ring,
                                              int lane) {
-  constexpr int SL = SLOTS<BF16>;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
 #pragma unroll
-    for (int j = 0; j < SL; ++j)
-      cp_async16(ring + (s * SL + j) * 32 + lane, bpk + (s * SL + j) * 32 + lane);
+    for (int j = 0; j < NT; ++j)
+      cp_async16(ring + (s * NT + j) * 32 + lane, bpk + (s * NT + j) * 32 + lane);
     cp_async_commit();
   }
 }
 
-// acc[mt][nt] = a[16 mt .. 16 mt + 16, 0 .. depth ksteps) x this warp's
-// packed operand, n-tile nt, after mma_prefetch<BF16>(bpk, ring, lane).  In
-// bf16 the A fragments are the f32 values in shared memory rounded to bf16
-// (nearest even) as they are loaded.
-template <bool BF16>
+// acc[mt][nt] = a[16 mt .. 16 mt + 16, 0 .. 8 ksteps) x this warp's packed
+// operand, n-tile nt, after mma_prefetch(bpk, ring, lane).
 __device__ __forceinline__ void mma_product(const float* __restrict__ a,
                                             const float4* __restrict__ bpk, float4* ring,
                                             int ksteps, float (&acc)[MTL][NT][4], int lane) {
-  constexpr int SL = SLOTS<BF16>;
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < MTL; ++mt)
@@ -188,58 +247,34 @@ __device__ __forceinline__ void mma_product(const float* __restrict__ a,
     const int nx = ks + STAGES - 1;  // refill the slot that k-step ks-1 used
     if (nx < ksteps)
 #pragma unroll
-      for (int j = 0; j < SL; ++j)
-        cp_async16(ring + ((nx % STAGES) * SL + j) * 32 + lane, bpk + (nx * SL + j) * 32 + lane);
+      for (int j = 0; j < NT; ++j)
+        cp_async16(ring + ((nx % STAGES) * NT + j) * 32 + lane, bpk + (nx * NT + j) * 32 + lane);
     cp_async_commit();
-    float4 b[SL];
+    float4 b[NT];
 #pragma unroll
-    for (int j = 0; j < SL; ++j) b[j] = ring[((ks % STAGES) * SL + j) * 32 + lane];
-    if constexpr (BF16) {
-      const float* ak = a + g * AS + 16 * ks + 2 * q;
+    for (int j = 0; j < NT; ++j) b[j] = ring[((ks % STAGES) * NT + j) * 32 + lane];
+    const float* ak = a + g * AS + 8 * ks + q;
 #pragma unroll
-      for (int mt = 0; mt < MTL; ++mt) {
-        const float* r = ak + 16 * mt * AS;
-        const float2 v0 = *reinterpret_cast<const float2*>(r);
-        const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * AS);
-        const float2 v2 = *reinterpret_cast<const float2*>(r + 8);
-        const float2 v3 = *reinterpret_cast<const float2*>(r + 8 * AS + 8);
-        const uint32_t af[4] = {bf16x2(v0.x, v0.y), bf16x2(v1.x, v1.y), bf16x2(v2.x, v2.y),
-                                bf16x2(v3.x, v3.y)};
-        // one pass a k-step, into a fresh accumulator added to acc in fp32
+    for (int mt = 0; mt < MTL; ++mt) {
+      const float* r = ak + 16 * mt * AS;
+      const float v[4] = {r[0], r[8 * AS], r[4], r[8 * AS + 4]};
+      uint32_t hi[4], lo[4];  // the mma reads lo's top 10 mantissa bits
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float4 bp = b[nt >> 1];
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(c, af, __float_as_uint(nt & 1 ? bp.z : bp.x),
-                   __float_as_uint(nt & 1 ? bp.w : bp.y));
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
-        }
+      for (int i = 0; i < 4; ++i) {
+        hi[i] = tf32_hi(v[i]);
+        lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
       }
-    } else {
-      const float* ak = a + g * AS + 8 * ks + q;
+      // the tensor cores add into their accumulator rounding toward zero:
+      // each k-step sums into a fresh one, added to acc rounding to nearest
 #pragma unroll
-      for (int mt = 0; mt < MTL; ++mt) {
-        const float* r = ak + 16 * mt * AS;
-        const float v[4] = {r[0], r[8 * AS], r[4], r[8 * AS + 4]};
-        uint32_t hi[4], lo[4];  // the mma reads lo's top 10 mantissa bits
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t bh0 = __float_as_uint(b[nt].x), bh1 = __float_as_uint(b[nt].y);
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(c, lo, bh0, bh1);
+        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(c, hi, bh0, bh1);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          hi[i] = tf32_hi(v[i]);
-          lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
-        }
-        // the tensor cores add into their accumulator rounding toward zero:
-        // each k-step sums into a fresh one, added to acc rounding to nearest
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint32_t bh0 = __float_as_uint(b[nt].x), bh1 = __float_as_uint(b[nt].y);
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(c, lo, bh0, bh1);
-          mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-          mma_tf32(c, hi, bh0, bh1);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
-        }
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
       }
     }
   }
@@ -248,11 +283,8 @@ __device__ __forceinline__ void mma_product(const float* __restrict__ a,
 constexpr size_t MMA_SMEM = (size_t)(4 * MWARPS * STAGES * NT * 32 + MF * AS + MF * SS + 3 * FFT +
                                      2 * MF) * sizeof(float);
 
-// BF16: the DFT products in one bf16 pass (frames and Z rounded to bf16 as
-// they are loaded, fpk / ipk the bf16-rounded operands' m16n8k16 fragments);
-// else 3xTF32.  The target magnitudes, the Nyquist bin (from the unrounded
-// frames), the phase step and the overlap-add are fp32 either way.
-template <bool BF16>
+// The DFT products in 3xTF32 (fpk / ipk the operands' hi/lo fragments); the
+// target magnitudes, the Nyquist bin, the phase step and the overlap-add fp32.
 __global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
     const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
     const float4* __restrict__ fpk, const float4* __restrict__ ipk,
@@ -324,16 +356,15 @@ __global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
   __syncthreads();
   for (int i = t; i < MF * FFT; i += MTHREADS) a[(i / FFT) * AS + i % FFT] *= w[i % FFT];
   __syncthreads();
-  constexpr int KS = KSTEPS<BF16>;
   float acc[MTL][NT][4];
   float4* wring = ring + warp * STAGES * NT * 32;
-  const float4* wfpk = fpk + (size_t)warp * KS * SLOTS<BF16> * 32;
-  const float4* wipk = ipk + (size_t)warp * KS * SLOTS<BF16> * 32;
-  mma_prefetch<BF16>(wfpk, wring, lane);
+  const float4* wfpk = fpk + (size_t)warp * KSTEPS * NT * 32;
+  const float4* wipk = ipk + (size_t)warp * KSTEPS * NT * 32;
+  mma_prefetch(wfpk, wring, lane);
   for (int it = 0; it < iterations; ++it) {
     // forward: bins [16 warp, 16 warp + 16), cos columns in n-tiles 0-1, sin in 2-3
-    mma_product<BF16>(a, wfpk, wring, KS, acc, lane);
-    mma_prefetch<BF16>(wipk, wring, lane);
+    mma_product(a, wfpk, wring, KSTEPS, acc, lane);
+    mma_prefetch(wipk, wring, lane);
     {  // Nyquist bin: 4 lanes per frame
       const int f = t >> 2, part = t & 3;
       float s = 0.f;
@@ -361,8 +392,8 @@ __global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
     if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);
     __syncthreads();
     // inverse: output samples [32 warp, 32 warp + 32); the sin rows vanish under phase_bug
-    mma_product<BF16>(a, wipk, wring, phase_bug ? KS / 2 : KS, acc, lane);
-    if (it + 1 < iterations) mma_prefetch<BF16>(wfpk, wring, lane);
+    mma_product(a, wipk, wring, phase_bug ? KSTEPS / 2 : KSTEPS, acc, lane);
+    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);
     __syncthreads();
 #pragma unroll
     for (int mt = 0; mt < MTL; ++mt)
@@ -559,6 +590,251 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
   }
 }
 
+// ---- large B, bf16: wgmma on operands resident in shared memory -------------
+
+constexpr int WB = 32;               // audio blocks a warpgroup tile: 64 frames, the M of wgmma
+constexpr int WROWS = WB + 1;        // log-mel rows a tile reads (frame 1 of block b is b + 1's frame 0)
+constexpr int WGS = 2;               // warpgroups a CTA, each walking its own tiles
+constexpr int WTHREADS = 128 * WGS;
+constexpr int SPS = NBIN + 8;        // target-magnitude row stride: 129 used; float2 loads of 4 rows hit 32 banks
+constexpr int MEL_CHUNK = 128;       // mel bins of exp(logmel) staged at a time
+constexpr int IMAGE_BYTES = FFT * FFT * 2;  // the forward [cos | sin] operand in bf16
+constexpr int KBLOCK_BYTES = 64 * FFT * 2;  // one 64-sample K block of every column of the image
+constexpr int COPY_BYTES = 16384;    // one bulk copy of the image
+constexpr int KSTEPS16 = FFT / 16;   // wgmma k-steps of a product over 256
+constexpr size_t WGMMA_SMEM =
+    1024 + IMAGE_BYTES + (size_t)(WGS * WROWS * SPS + 3 * FFT) * sizeof(float) + sizeof(uint64_t);
+static_assert(MEL_CHUNK <= SPS, "exp(logmel) is staged in the target-magnitude rows");
+static_assert(WGMMA_SMEM <= 232448, "one CTA an SM");
+
+// barrier of one warpgroup (named barrier 1 + wgi, 128 threads)
+__device__ __forceinline__ void wg_sync(int wgi) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+}
+
+// A thread's frames, fp32 in the accumulator layout (f[4j + 2h + e]: frame h
+// of its block, sample 8j + 2q + e), into the forward product's A operand
+// (bf16) and their Nyquist bins xn (fp32, unrounded; summed over the quad)
+__device__ __forceinline__ void pack_frames(const float (&f)[128], const float* wn, int q,
+                                            uint32_t (&a)[KSTEPS16][4], float (&xn)[2]) {
+  xn[0] = xn[1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < FFT / 8; ++j) {
+    const float2 c = *reinterpret_cast<const float2*>(wn + 8 * j + 2 * q);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) xn[h] = fmaf(f[4 * j + 2 * h + 1], c.y, fmaf(f[4 * j + 2 * h], c.x, xn[h]));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    xn[h] += __shfl_xor_sync(0xffffffffu, xn[h], 1);
+    xn[h] += __shfl_xor_sync(0xffffffffu, xn[h], 2);
+  }
+#pragma unroll
+  for (int s = 0; s < KSTEPS16; ++s)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[s][r] = wg::bf16x2(f[8 * s + 2 * r], f[8 * s + 2 * r + 1]);
+}
+
+// d = A x B over the KS k-steps of A's register fragments, B the image
+// through `desc`: K-major (TRANS_B = 0: the forward operand, k-step s in K
+// block s / 4, 32 bytes a k-step into its rows) or MN-major (TRANS_B = 1:
+// the operand transposed, k-step s at rows 16 s).  One fp32 accumulator over
+// the whole K: the operands' bf16 rounding (2^-9) dwarfs the truncation of
+// the tensor cores' adder (gl_kernel_probe.py's "grouped" variant adds a
+// fresh accumulator every 4 k-steps in fp32 instead).
+template <int TRANS_B, int KS>
+__device__ __forceinline__ void product(float (&d)[128], const uint32_t (&a)[KS][4],
+                                        uint64_t desc) {
+  wg::fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+    wg::mma_rs<TRANS_B>(
+        d, a[s],
+        wg::desc_advance(desc, TRANS_B ? s * 16 * 128 : (s >> 2) * KBLOCK_BYTES + (s & 3) * 32),
+        s > 0);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(d);
+}
+
+// [lo, hi) bytes of a global array of `total` bytes into L2, cut to 16-byte bounds
+__device__ __forceinline__ void prefetch_bytes(const void* base, size_t lo, size_t hi,
+                                               size_t total) {
+  lo &= ~size_t(15);
+  hi = (hi + 15 < total ? hi + 15 : total) & ~size_t(15);
+  if (hi > lo) wg::bulk_prefetch_l2(static_cast<const uint8_t*>(base) + lo, (uint32_t)(hi - lo));
+}
+
+// BUG: the exp(angle) estimator (phase_bug), else the unit phasor.  image:
+// the forward operand's shared-memory image (ops/wgmma_layout.py), bf16.
+template <bool BUG>
+__global__ void __launch_bounds__(WTHREADS, 1) gl_wgmma_kernel(
+    const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
+    const uint8_t* __restrict__ image, const float* __restrict__ fnyq,
+    const float* __restrict__ inyq, const float* __restrict__ win, float* __restrict__ G, int B,
+    int NM, int iterations) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* img = smem_raw + ((1024 - (wg::smem_addr(smem_raw) & 1023)) & 1023);  // 1,024-aligned
+  float* specs = reinterpret_cast<float*>(img + IMAGE_BYTES);  // (WGS, WROWS, SPS)
+  float* w = specs + WGS * WROWS * SPS;  // (FFT) window
+  float* wn = w + FFT;                   // (FFT) forward Nyquist column
+  float* wi = wn + FFT;                  // (FFT) inverse Nyquist row
+  uint64_t* bar = reinterpret_cast<uint64_t*>(wi + FFT);
+  const int t = threadIdx.x, wgi = t >> 7, tw = t & 127, warp = tw >> 5;
+  const int lane = t & 31, g = lane >> 2, q = lane & 3;
+  if (iterations == 0) {
+    for (size_t i = (size_t)blockIdx.x * WTHREADS + t; i < (size_t)B * BLK;
+         i += (size_t)gridDim.x * WTHREADS)
+      G[i] = rnd[i];
+    return;
+  }
+  if (t == 0) {  // the image, once a CTA, by the TMA unit
+    wg::mbar_init(bar, 1);
+    wg::mbar_arrive_expect_tx(bar, IMAGE_BYTES);
+    for (int c = 0; c < IMAGE_BYTES; c += COPY_BYTES)
+      wg::bulk_copy(img + c, image + c, COPY_BYTES, bar);
+  }
+  for (int i = t; i < FFT; i += WTHREADS) {
+    w[i] = win[i];
+    wn[i] = fnyq[i];
+    wi[i] = inyq[i];
+  }
+  __syncthreads();
+  wg::mbar_wait(bar, 0);
+  float* spec = specs + wgi * WROWS * SPS;  // this warpgroup's target magnitudes (WROWS, 129)
+  const uint64_t fdesc = wg::desc_sw128(img, 16, 1024);            // forward: K-major
+  const uint64_t idesc = wg::desc_sw128(img, KBLOCK_BYTES, 1024);  // inverse: transposed, MN-major
+  const int bl = 8 * warp + g;  // the thread's block in a tile: its frames are rows g, g + 8 of its warp
+  const int tiles = (B + WB - 1) / WB;
+  const size_t lm_bytes = (size_t)(B + 1) * NM * sizeof(float);
+  float d[128];                 // accumulators: X, then Y
+  uint32_t a[KSTEPS16][4];      // the frames, bf16: the forward's A operand
+  float xn[2];                  // their Nyquist bins
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  for (int tile = blockIdx.x * WGS + wgi; tile < tiles; tile += gridDim.x * WGS) {
+    const int b0 = tile * WB, b = b0 + bl, next = tile + gridDim.x * WGS;
+    if (tw == 0 && next < tiles) {  // the next tile's inits and log-mel rows into L2
+      const size_t nb0 = (size_t)next * WB, nb1 = nb0 + WB < (size_t)B ? nb0 + WB : (size_t)B;
+      prefetch_bytes(rnd, nb0 * BLK * 4, nb1 * BLK * 4, (size_t)B * BLK * 4);
+      prefetch_bytes(lm, nb0 * NM * 4, (nb1 + 1) * NM * 4, lm_bytes);
+    }
+    float f[128];  // the inits, in flight while the target magnitudes are computed
+#pragma unroll
+    for (int j = 0; j < FFT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 v = make_float2(0.f, 0.f);
+        if (b < B)
+          v = __ldg(reinterpret_cast<const float2*>(rnd + (size_t)b * BLK + HOP * h + 8 * j + 2 * q));
+        f[4 * j + 2 * h] = v.x;
+        f[4 * j + 2 * h + 1] = v.y;
+      }
+    // target magnitudes exp(logmel) @ Minv of the tile's WROWS rows, fp32:
+    // thread tw owns bin tw of every row, threads < WROWS also row tw's
+    // Nyquist bin; exp(logmel) staged in spec as (mel, row), MEL_CHUNK at a time
+    wg_sync(wgi);  // the previous tile's phase steps are done with spec
+    float sk[WROWS], sn = 0.f;
+#pragma unroll
+    for (int r = 0; r < WROWS; ++r) sk[r] = 0.f;
+    for (int m0 = 0; m0 < NM; m0 += MEL_CHUNK) {
+      const int mc = min(MEL_CHUNK, NM - m0);
+      for (int i = tw; i < WROWS * mc; i += 128) {
+        const int r = i / mc, m = i % mc;
+        spec[m * WROWS + r] = b0 + r <= B ? expf(lm[(size_t)(b0 + r) * NM + m0 + m]) : 0.f;
+      }
+      wg_sync(wgi);
+      for (int m = 0; m < mc; ++m) {
+        const float* ex = spec + m * WROWS;
+        const float mv = __ldg(minv + (m0 + m) * (NBIN + 1) + tw);
+#pragma unroll
+        for (int r = 0; r < WROWS; ++r) sk[r] = fmaf(ex[r], mv, sk[r]);
+        if (tw < WROWS) sn = fmaf(ex[tw], __ldg(minv + (m0 + m) * (NBIN + 1) + NBIN), sn);
+      }
+      wg_sync(wgi);
+    }
+#pragma unroll
+    for (int r = 0; r < WROWS; ++r) spec[r * SPS + tw] = isfinite(sk[r]) ? sk[r] : 0.f;
+    if (tw < WROWS) spec[tw * SPS + NBIN] = isfinite(sn) ? sn : 0.f;
+#pragma unroll
+    for (int j = 0; j < FFT / 8; ++j) {  // the windowed frames
+      const float2 c = *reinterpret_cast<const float2*>(w + 8 * j + 2 * q);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f[4 * j + 2 * h] *= c.x;
+        f[4 * j + 2 * h + 1] *= c.y;
+      }
+    }
+    pack_frames(f, wn, q, a, xn);
+    wg_sync(wgi);  // spec written
+    for (int it = 0; it < iterations; ++it) {
+      product<0>(d, a, fdesc);  // forward: X = frames x [cos | sin]
+      // phase step on the accumulators: bin k = 8j + 2q + e of frame h has its
+      // cos column in d[4j + 2h + e] and its sin column in d[4(j + 16) + 2h + e].
+      // Z times the inverse's weights (1 at DC, else 2, over 256: powers of
+      // two, exact) is the inverse's A operand in the same places, bf16
+      float zn[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) zn[h] = nyquist_phase(xn[h], spec[(bl + h) * SPS + NBIN], BUG);
+      uint32_t z[BUG ? KSTEPS16 / 2 : KSTEPS16][4];
+#pragma unroll
+      for (int s = 0; s < KSTEPS16 / 2; ++s)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 2 * s + (r >> 1), h = r & 1, k = 8 * j + 2 * q;
+          const float2 sp = *reinterpret_cast<const float2*>(spec + (bl + h) * SPS + k);
+          float zr0, zi0, zr1, zi1;
+          phase_step_fast<BUG>(d[4 * j + 2 * h], -d[4 * (j + 16) + 2 * h], sp.x, k == 0, zr0,
+                               zi0);
+          phase_step_fast<BUG>(d[4 * j + 2 * h + 1], -d[4 * (j + 16) + 2 * h + 1], sp.y, false,
+                               zr1, zi1);
+          const float c0 = k == 0 ? 1.f / FFT : 2.f / FFT, c1 = 2.f / FFT;
+          z[s][r] = wg::bf16x2(zr0 * c0, zr1 * c1);
+          if constexpr (!BUG) z[KSTEPS16 / 2 + s][r] = wg::bf16x2(-zi0 * c0, -zi1 * c1);
+        }
+      // inverse: Y = Z x [I_cos; I_sin], the image read transposed (I_cos =
+      // weights x F_cos^T, I_sin = -weights x F_sin^T); under the quirk zi = 0
+      // and its k-steps are skipped
+      product<1>(d, z, idesc);
+#pragma unroll
+      for (int j = 0; j < FFT / 8; ++j) {  // + the Nyquist row, times the window: frame h's samples
+        const float2 c = *reinterpret_cast<const float2*>(w + 8 * j + 2 * q);
+        const float2 r = *reinterpret_cast<const float2*>(wi + 8 * j + 2 * q);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          d[4 * j + 2 * h] = (d[4 * j + 2 * h] + zn[h] * r.x) * c.x;
+          d[4 * j + 2 * h + 1] = (d[4 * j + 2 * h + 1] + zn[h] * r.y) * c.y;
+        }
+      }
+      // overlap-add within the block (thread-local: sample n and n -+ 160
+      // are columns j and j -+ 20): the next windowed frames, or after the
+      // last iteration the block itself (samples [416, 480) are 0)
+      if (it + 1 < iterations) {
+#pragma unroll
+        for (int j = 0; j < FFT / 8; ++j) {
+          const float2 c = *reinterpret_cast<const float2*>(w + 8 * j + 2 * q);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ce = e ? c.y : c.x;
+            f[4 * j + e] = (d[4 * j + e] + (j >= 20 ? d[4 * (j - 20) + 2 + e] : 0.f)) * ce;
+            f[4 * j + 2 + e] = ((j < 12 ? d[4 * (j + 20) + e] : 0.f) + d[4 * j + 2 + e]) * ce;
+          }
+        }
+        pack_frames(f, wn, q, a, xn);
+      } else if (b < B) {
+#pragma unroll
+        for (int j = 0; j < BLK / 8; ++j) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = (j < 32 ? d[4 * j + e] : 0.f) + (j >= 20 && j < 52 ? d[4 * (j - 20) + 2 + e] : 0.f);
+          *reinterpret_cast<float2*>(G + (size_t)b * BLK + 8 * j + 2 * q) = make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(HOP) ola_kernel(
     const float* __restrict__ G, const float* __restrict__ winv, const float* __restrict__ pmatT,
     float* __restrict__ CH, float* __restrict__ Q, int S) {
@@ -605,64 +881,93 @@ __global__ void __launch_bounds__(HOP) lowpass_kernel(
   out[(size_t)b * HOP + n] = (short)(int)v;  // C conversion truncates toward zero
 }
 
-// Griffin-Lim of B blocks into G: a cluster of 8 CTAs per 4 blocks when
-// use_cluster, else the tensor-core kernel, 32 blocks a CTA; the bf16 variant
-// of either when BF16 (fm, im, fpk, ipk are then the bf16 operands).
+// The cluster kernel on B blocks, 8 CTAs per 4 blocks; its bf16 variant when
+// BF16 (fm, im the operands rounded to bf16).
 template <bool BF16>
-cudaError_t launch_gl(const float* lm, const float* rnd, const float* minv, const float* fm,
-                      const float* im, const float4* fpk, const float4* ipk, const float* fnyq,
-                      const float* inyq, const float* win, float* G, int B, int NM,
-                      int iterations, int phase_bug, int use_cluster, cudaStream_t stream) {
+cudaError_t launch_cluster(const float* lm, const float* rnd, const float* minv, const float* fm,
+                           const float* im, const float* fnyq, const float* inyq, const float* win,
+                           float* G, int B, int NM, int iterations, int phase_bug,
+                           cudaStream_t stream) {
   cudaError_t err;
-  if (use_cluster) {
-    const size_t smem = cluster_smem(NM);
-    if ((err = cudaFuncSetAttribute(gl_cluster_kernel<BF16>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return err;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CL;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(CL * ((B + CB - 1) / CB));
-    cfg.blockDim = dim3(CTHREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel<BF16>, lm, rnd, minv, fm, im, fnyq,
-                                  inyq, win, G, B, NM, iterations, phase_bug)) != cudaSuccess)
-      return err;
-    return cudaGetLastError();
-  }
-  if ((err = cudaFuncSetAttribute(gl_mma_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)MMA_SMEM)) != cudaSuccess)
+  const size_t smem = cluster_smem(NM);
+  if ((err = cudaFuncSetAttribute(gl_cluster_kernel<BF16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
     return err;
-  gl_mma_kernel<BF16><<<(B + MB - 1) / MB, MTHREADS, MMA_SMEM, stream>>>(
-      lm, rnd, minv, fpk, ipk, fnyq, inyq, win, G, B, NM, iterations, phase_bug);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * ((B + CB - 1) / CB));
+  cfg.blockDim = dim3(CTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel<BF16>, lm, rnd, minv, fm, im, fnyq, inyq,
+                                win, G, B, NM, iterations, phase_bug)) != cudaSuccess)
+    return err;
   return cudaGetLastError();
 }
 
+// The bf16 wgmma kernel on B blocks: one persistent CTA an SM (fewer when
+// there are fewer tiles), its warpgroups walking tiles of 32 blocks.
+template <bool BUG>
+cudaError_t launch_wgmma(const float* lm, const float* rnd, const float* minv,
+                         const uint8_t* image, const float* fnyq, const float* inyq,
+                         const float* win, float* G, int B, int NM, int iterations,
+                         cudaStream_t stream) {
+  cudaError_t err;
+  int dev, sms;
+  if ((err = cudaFuncSetAttribute(gl_wgmma_kernel<BUG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)WGMMA_SMEM)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int pairs = ((B + WB - 1) / WB + WGS - 1) / WGS;
+  gl_wgmma_kernel<BUG><<<sms < pairs ? sms : pairs, WTHREADS, WGMMA_SMEM, stream>>>(
+      lm, rnd, minv, image, fnyq, inyq, win, G, B, NM, iterations);
+  return cudaGetLastError();
+}
+
+// Griffin-Lim of B blocks into G: the cluster kernel when use_cluster, else
+// the tensor-core kernel (float32: gl_mma_kernel, 32 blocks a CTA; bf16:
+// gl_wgmma_kernel).
 cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
                              const float* fm, const float* im, const float* fpk, const float* ipk,
                              const float* fnyq, const float* inyq, const float* win, float* G,
                              int B, int NM, int iterations, int phase_bug, int use_cluster,
                              int bf16, cudaStream_t stream) {
-  const float4* f4 = reinterpret_cast<const float4*>(fpk);
-  const float4* i4 = reinterpret_cast<const float4*>(ipk);
-  return bf16 ? launch_gl<true>(lm, rnd, minv, fm, im, f4, i4, fnyq, inyq, win, G, B, NM,
-                                iterations, phase_bug, use_cluster, stream)
-              : launch_gl<false>(lm, rnd, minv, fm, im, f4, i4, fnyq, inyq, win, G, B, NM,
-                                 iterations, phase_bug, use_cluster, stream);
+  if (use_cluster)
+    return bf16 ? launch_cluster<true>(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
+                                       iterations, phase_bug, stream)
+                : launch_cluster<false>(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
+                                        iterations, phase_bug, stream);
+  if (bf16) {
+    const uint8_t* image = reinterpret_cast<const uint8_t*>(fpk);
+    return phase_bug ? launch_wgmma<true>(lm, rnd, minv, image, fnyq, inyq, win, G, B, NM,
+                                          iterations, stream)
+                     : launch_wgmma<false>(lm, rnd, minv, image, fnyq, inyq, win, G, B, NM,
+                                           iterations, stream);
+  }
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(gl_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)MMA_SMEM)) != cudaSuccess)
+    return err;
+  gl_mma_kernel<<<(B + MB - 1) / MB, MTHREADS, MMA_SMEM, stream>>>(
+      lm, rnd, minv, reinterpret_cast<const float4*>(fpk), reinterpret_cast<const float4*>(ipk),
+      fnyq, inyq, win, G, B, NM, iterations, phase_bug);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 = 0: fm / im the f32 DFT operands, fpk / ipk their 3xTF32 fragments;
-// bf16 = 1: fm / im the operands rounded to bf16 (as f32), fpk / ipk their
-// m16n8k16 bf16 fragments (ops/cuda_gl.make_gl_audio_ops builds both sets).
+// bf16 = 1: fm / im the operands rounded to bf16 (as f32, the cluster
+// kernel's), fpk the forward operand's shared-memory image in bf16 (the
+// wgmma kernel's), ipk unused (ops/cuda_gl.make_gl_audio_ops builds both sets).
 extern "C" int gl_blocks(const float* lm, const float* rnd, const float* minv, const float* fm,
                          const float* im, const float* fnyq, const float* inyq, const float* win,
                          const float* fpk, const float* ipk, float* G, int B, int NM,

@@ -1,5 +1,5 @@
 // Tensor-core helpers for sm_90a: mma.sync.m16n8k8 TF32 with hi/lo operand
-// splits (3xTF32), mma.sync.m16n8k16 bf16 (one pass), and cp.async copies.
+// splits (3xTF32), the bf16 rounding of a value, and cp.async copies.
 // With a = a_hi + a_lo and b = b_hi + b_lo, a*b ~ a_lo b_hi + a_hi b_lo +
 // a_hi b_hi in fp32 (the dropped a_lo b_lo is ~2^-22 relative), so a product
 // keeps fp32 accuracy.  The tensor cores add into their accumulator rounding
@@ -11,14 +11,6 @@
 //   A (16 x 8, row-major):  a0 = A[g][q], a1 = A[g+8][q], a2 = A[g][q+4], a3 = A[g+8][q+4]
 //   B (8 x 8, k x n):       b0 = B[q][g], b1 = B[q+4][g]
 //   C (16 x 8):             c0 = C[g][2q], c1 = C[g][2q+1], c2 = C[g+8][2q], c3 = C[g+8][2q+1]
-// Fragment layout of m16n8k16 bf16 (.row.col), two bf16 a register, the
-// lower-indexed one in the low 16 bits:
-//   A (16 x 16): {a0, a1} = A[g][2q..2q+1], {a2, a3} = A[g+8][2q..2q+1],
-//                {a4, a5} = A[g][2q+8..2q+9], {a6, a7} = A[g+8][2q+8..2q+9]
-//   B (16 x 8):  {b0, b1} = B[2q..2q+1][g], {b2, b3} = B[2q+8..2q+9][g]
-//   C (16 x 8):  as m16n8k8's
-// The product of two bf16 values is exact in fp32, so a bf16 product differs
-// from an fp32 one on the rounded operands only in the order of its sums.
 
 #pragma once
 
@@ -50,21 +42,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 // x rounded to bf16 (nearest, ties to even) and back: astype(bfloat16) in JAX
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// {lo, hi} rounded to bf16 (nearest even), lo in the low 16 bits: one A register
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // acc += A B for one k-step in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi in

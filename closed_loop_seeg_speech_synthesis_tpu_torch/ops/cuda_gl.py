@@ -12,7 +12,8 @@ source of both is ``csrc/gl_audio.cu``; ``gl_audio_plain`` and
 the low-pass boundary states from the same 16-term truncated power sum.
 
 The Griffin-Lim launch has two regimes, picked by the number of blocks B:
-up to ``CLUSTER_MAX_B`` blocks (the online step's 1-4) a thread-block
+up to ``CLUSTER_MAX_B`` blocks (the online step's 1-4; bf16:
+``CLUSTER_MAX_B_BF16``) a thread-block
 cluster of 8 CTAs per 4 blocks computes the DFTs in fp32 FMA from the f32
 operands held in shared memory; above it (replay) a tensor-core kernel
 computes them in 3xTF32 from the operands' hi/lo split, which
@@ -22,9 +23,11 @@ computes them in 3xTF32 from the operands' hi/lo split, which
 branch (``pallas_gl._gl_loop`` with ``mm_t = bfloat16``): the 128 clean-bin
 DFT products take bf16 operands and accumulate in float32; everything else
 stays float32.  Its plain version is ``_gl_loop_plain``, float32 whatever
-the constants' dtype.  On the card both regimes have a bf16 variant: one
-``mma.sync.m16n8k16`` bf16 pass on the tensor cores, or the cluster's fp32
-FMA on bf16-rounded operands (``gl_bf16``).  The wrappers count its
+the constants' dtype.  On the card both regimes have a bf16 variant: above
+``CLUSTER_MAX_B_BF16`` the ``wgmma`` kernel, whose two products read one
+shared-memory image of the bf16 forward operand (``wgmma_layout``; the
+inverse is that operand transposed, times powers of two), or the cluster's
+fp32 FMA on bf16-rounded operands (``gl_bf16``).  The wrappers count its
 launches in ``launches_bf16``, apart from the float32 ones.
 """
 
@@ -35,13 +38,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _build, tf32
+from . import _build, tf32, wgmma_layout
 from .griffinlim import BLOCK_SAMPLES, FFT_SIZE, HOP, StreamingGLOps, streaming_gl_blocks, to_int16
 from .iir import BlockedIIR, StateSpace, blocked_operators, make_blocked_iir
 
 # Largest B that the cluster kernel takes; above it the tensor-core kernel
-# (on an H100 the two cross between 448 and 512 blocks: PERF.md).
+# (on an H100 the two cross between 448 and 512 blocks in float32; in bf16,
+# where the wgmma kernel takes about as long at any B up to a wave, between
+# 64 and 128: PERF.md).
 CLUSTER_MAX_B = 448
+CLUSTER_MAX_B_BF16 = 64
 _MMA_WARPS = 8  # warps of a tensor-core CTA, each owning 4 n-tiles of 8 columns
 
 
@@ -59,8 +65,9 @@ class GLAudioOps:
     gl_tf32: tuple        # forward and inverse DFT operands split hi/lo for 3xTF32,
                           # in mma fragment order (_pack_fragments)
     gl_bf16: tuple        # the same two rounded to bf16, as float32 (the cluster
-                          # kernel's and the plain version's), then their bf16
-                          # m16n8k16 fragments (_pack_fragments_bf16)
+                          # kernel's and the plain version's), then the forward
+                          # one's bf16 shared-memory image (the wgmma kernel's
+                          # operand for both products: wgmma_layout.sw128_image)
     tail_f32: tuple       # K2's tail: winv, Pmat^T, apow, Cpow, Tmat[:, 0]
 
     @property
@@ -98,12 +105,6 @@ def _pack_fragments(m: torch.Tensor, forward: bool) -> torch.Tensor:
     return tf32.pack_b_fragments(m, fragment_columns(forward))
 
 
-def _pack_fragments_bf16(m: torch.Tensor, forward: bool) -> torch.Tensor:
-    """(256, 256) float32 operand -> its bf16 B fragments (warp, k-step of 16,
-    pair of n-tiles, lane, 8), the n-tiles of ``fragment_columns``."""
-    return tf32.pack_b_fragments_bf16(m, fragment_columns(forward))
-
-
 def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float64,
                       device=None, n_pow: int = 16) -> GLAudioOps:
     """Host-side (float64) construction.  ``n_pow`` = 16 puts the truncation of
@@ -122,8 +123,7 @@ def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float
     return GLAudioOps(gl=gl, lp=lp, apow=apow, winv=winv, gl_f32=gl_f32,
                       gl_tf32=(_pack_fragments(gl_f32[1], True), _pack_fragments(gl_f32[2], False)),
                       gl_bf16=(tf32.bf16_round(gl_f32[1]), tf32.bf16_round(gl_f32[2]),
-                               _pack_fragments_bf16(gl_f32[1], True),
-                               _pack_fragments_bf16(gl_f32[2], False)),
+                               wgmma_layout.sw128_image(gl_f32[1])),
                       tail_f32=(_f32(winv), _f32(lp.Pmat.T), _f32(apow), _f32(lp.Cpow),
                                 _f32(lp.Tmat[:, 0])))
 
@@ -151,7 +151,7 @@ def _check_inputs(what: str, dev: torch.device, log_mels: torch.Tensor,
 
 
 def _gl_loop_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
-                   iterations: int, phase_bug: bool) -> torch.Tensor:
+                   iterations: int, phase_bug: bool, dtype=torch.float32) -> torch.Tensor:
     """Griffin-Lim blocks (B, 480) of the JAX kernels' bf16 branch, in
     float32: ``pallas_gl._gl_loop`` with ``mm_t = bfloat16`` in its split
     form.  Rounded to bf16 (nearest even): the windowed frames before the
@@ -159,18 +159,20 @@ def _gl_loop_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudio
     with the converging estimator, zi) before the inverse product, and those
     DFT matrices (``ops.gl_bf16``).  Not rounded: exp(logmel) @ Minv, the
     Nyquist bin (from the unrounded frames) and its inverse row, the phase
-    step, the overlap-add."""
-    f32, Km = torch.float32, FFT_SIZE // 2
-    minv, _, _, fnyq, inyq, win = ops.gl_f32
-    fwd, inv = ops.gl_bf16[:2]
-    e = torch.exp(log_mels.to(f32))
+    step, the overlap-add.  ``dtype=torch.float64`` evaluates the same
+    rounded operands in float64 (the kernels' error budget)."""
+    dt, Km = dtype, FFT_SIZE // 2
+    minv, _, _, fnyq, inyq, win = (t.to(dt) for t in ops.gl_f32)
+    fwd, inv = (t.to(dt) for t in ops.gl_bf16[:2])
+    rnd = lambda x: tf32.bf16_round(x).to(dt)
+    e = torch.exp(log_mels.to(dt))
     spec_all = e @ minv                                          # (B+1, 129)
     spec_all = torch.where(torch.isfinite(spec_all), spec_all, torch.zeros_like(spec_all))
-    zero = torch.zeros((), dtype=f32, device=e.device)
-    pi = torch.tensor(np.pi, dtype=f32, device=e.device)
+    zero = torch.zeros((), dtype=dt, device=e.device)
+    pi = torch.tensor(np.pi, dtype=dt, device=e.device)
 
     def one_frame(fr, spec):
-        x = tf32.bf16_round(fr) @ fwd                            # (B, [cos | sin])
+        x = rnd(fr) @ fwd                                        # (B, [cos | sin])
         xr, xi = x[:, :Km], -x[:, Km:]
         xrn = (fr * fnyq).sum(dim=1, keepdim=True)
         sp, spn = spec[:, :Km], spec[:, Km:]
@@ -179,19 +181,19 @@ def _gl_loop_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudio
             ang = torch.cat([torch.where(xr[:, :1] < 0, pi, zero), ang[:, 1:]], dim=1)
             zr = sp * torch.exp(ang)
             zrn = spn * torch.exp(torch.where(xrn < 0, pi, zero))
-            t = tf32.bf16_round(zr) @ inv[:Km]
+            t = rnd(zr) @ inv[:Km]
         else:
             r = torch.sqrt(xr * xr + xi * xi)
             safe = r > 0
             rinv = torch.where(safe, 1.0 / torch.where(safe, r, torch.ones_like(r)), zero)
             zr = sp * torch.where(safe, xr * rinv, torch.ones_like(r))
             zi = sp * (xi * rinv)
-            zrn = spn * torch.where(xrn < 0, -1.0, 1.0).to(f32)
-            t = tf32.bf16_round(zr) @ inv[:Km] + tf32.bf16_round(zi) @ inv[Km:]
+            zrn = spn * torch.where(xrn < 0, -1.0, 1.0).to(dt)
+            t = rnd(zr) @ inv[:Km] + rnd(zi) @ inv[Km:]
         return (t + zrn * inyq) * win
 
     pad = torch.nn.functional.pad
-    wav = rand_init.to(f32)
+    wav = rand_init.to(dt)
     for _ in range(iterations):
         t0 = one_frame(wav[:, :FFT_SIZE] * win, spec_all[:-1])
         t1 = one_frame(wav[:, HOP : HOP + FFT_SIZE] * win, spec_all[1:])
@@ -211,22 +213,27 @@ def gl_blocks_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudi
     return streaming_gl_blocks(log_mels.to(dt), rand_init.to(dt), ops.gl, iterations, phase_bug)
 
 
-def regime(B: int) -> str:
-    """Which Griffin-Lim kernel a launch of B blocks runs; the wrappers pass
-    the choice to launch_gl_blocks in csrc/gl_audio.cu.  Reads CLUSTER_MAX_B
-    at each call, so setting it forces a regime (0: always the tensor cores)."""
-    return "cluster" if B <= CLUSTER_MAX_B else "mma"
+def regime(B: int, bf16: bool = False) -> str:
+    """Which Griffin-Lim kernel a launch of B blocks runs (float32, or with
+    ``bf16`` the bf16 variants); the wrappers pass the choice to
+    launch_gl_blocks in csrc/gl_audio.cu.  Reads CLUSTER_MAX_B (bf16:
+    CLUSTER_MAX_B_BF16) at each call, so setting it forces a regime (0:
+    always the tensor cores)."""
+    return "cluster" if B <= (CLUSTER_MAX_B_BF16 if bf16 else CLUSTER_MAX_B) else "mma"
 
 
 def _kernel_operands(ops: GLAudioOps, bf16: bool) -> tuple:
     """The Griffin-Lim launch's constants, in the C entries' order: Minv, the
     forward and inverse DFT operands, the Nyquist column and row, the
-    window, then the two operands' fragments; in bf16 the operands rounded
-    and their bf16 fragments, else f32 and 3xTF32."""
+    window, then the tensor-core kernel's two operands: in f32 the 3xTF32
+    fragments of both; in bf16 the operands rounded (the cluster kernel's)
+    and the forward one's image in both places (the wgmma kernel reads the
+    first)."""
     if not bf16:
         return (*ops.gl_f32, *ops.gl_tf32)
     minv, _, _, fnyq, inyq, win = ops.gl_f32
-    return (minv, *ops.gl_bf16[:2], fnyq, inyq, win, *ops.gl_bf16[2:])
+    fwd, inv, image = ops.gl_bf16
+    return (minv, fwd, inv, fnyq, inyq, win, image, image)
 
 
 def _count(wrapper, bf16: bool) -> None:
@@ -242,7 +249,7 @@ def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     blocks (B, 480) before the overlap-add; block b uses frames b and b+1.
     A CPU tensor runs the plain version; a CUDA tensor launches
     ``csrc/gl_audio.cu`` (float32; with ``bf16`` its bf16 variant) in the
-    regime ``regime(B)`` names, or raises."""
+    regime ``regime(B, bf16)`` names, or raises."""
     if log_mels.device.type == "cpu":
         return gl_blocks_plain(log_mels, rand_init, ops, iterations, phase_bug, bf16)
     dev = log_mels.device
@@ -256,7 +263,7 @@ def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 11, 6)
     ptrs = (log_mels, rand_init, *_kernel_operands(ops, bf16), G)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, int(iterations), int(bool(phase_bug)),
-             int(regime(B) == "cluster"), int(bool(bf16)),
+             int(regime(B, bf16) == "cluster"), int(bool(bf16)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_blocks")
     _count(gl_blocks, bf16)
@@ -300,7 +307,7 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
              bf16: bool = False) -> torch.Tensor:
     """log_mels (B+1, n_mel), rand_init (B, 480) -> int16 audio (B*160,).
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/gl_audio.cu`` (float32, Griffin-Lim in the regime ``regime(B)``
+    ``csrc/gl_audio.cu`` (float32, Griffin-Lim in the regime ``regime(B, bf16)``
     names; with ``bf16`` its bf16 variant) or raises."""
     if log_mels.device.type == "cpu":
         return gl_audio_plain(log_mels, rand_init, ops, norm, iterations, phase_bug, bf16)
@@ -323,7 +330,7 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     fn = _build.bind(_build.load("gl_audio"), "gl_audio", 19, 8, 1)
     ptrs = (log_mels, rand_init, *_kernel_operands(ops, bf16), *ops.tail_f32, G, CH, Q, out)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, S, ops.n_pow, int(iterations),
-             int(bool(phase_bug)), int(regime(B) == "cluster"), int(bool(bf16)),
+             int(bool(phase_bug)), int(regime(B, bf16) == "cluster"), int(bool(bf16)),
              float(norm * 1.01), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_audio")
     _count(gl_audio, bf16)

@@ -1,11 +1,10 @@
 """Host side of ``csrc/tf32_mma.cuh``: the TF32 hi/lo split of a float32
 operand and its packing into ``mma.sync.m16n8k8`` B fragments, which the
 tensor-core kernels (``gl_audio.cu``'s Griffin-Lim, ``frontend_decode.cu``'s
-LDA epilogue) stream in 3xTF32; and the bf16 rounding of an operand and its
-packing into ``mma.sync.m16n8k16`` bf16 B fragments (``gl_audio.cu``'s bf16
-variant).  Torch on any device; the TF32 rounding is integer arithmetic and
-the bf16 one torch's round to nearest even, so the CPU and the card give the
-same bits.
+LDA epilogue) stream in 3xTF32; and the bf16 rounding of an operand
+(``gl_audio.cu``'s bf16 variants).  Torch on any device; the TF32 rounding
+is integer arithmetic and the bf16 one torch's round to nearest even, so the
+CPU and the card give the same bits.
 """
 
 from __future__ import annotations
@@ -58,28 +57,3 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """float32 -> the nearest bf16 value (ties to even), as float32: JAX's
     ``astype(bfloat16)`` and ``__float2bfloat16_rn`` on the card."""
     return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
-
-
-def pack_b_fragments_bf16(m: torch.Tensor, cols: np.ndarray) -> torch.Tensor:
-    """(K, N) float32 operand -> its bf16 m16n8k16 B fragments, a bfloat16
-    tensor (*cols.shape[:-1], K / 16 k-steps, cols.shape[-1] / 2 pairs of
-    n-tiles, 32 lanes, 8) on m's device.  Lane l of k-step s and pair p holds
-    n-tiles 2p and 2p + 1, each as (B[k][n], B[k+1][n], B[k+8][n],
-    B[k+9][n]) with k = 16 s + 2 (l % 4) and n = cols[..., t] + l // 4: in
-    memory, the lane's two 32-bit B registers of each n-tile, the lower k in
-    the low half."""
-    cols = np.ascontiguousarray(cols, np.int64)
-    K, N = m.shape
-    index = _fragment_index_bf16(K, N, cols.tobytes(), cols.shape, m.device)
-    return m.to(torch.float32).to(torch.bfloat16).reshape(-1)[index]
-
-
-@functools.lru_cache(maxsize=16)
-def _fragment_index_bf16(K: int, N: int, cols: bytes, shape: tuple, device) -> torch.Tensor:
-    """Flat indices into the (K, N) operand in pack_b_fragments_bf16's order."""
-    lane = torch.arange(32)
-    k = (16 * torch.arange(K // 16)[:, None, None, None] + 2 * (lane % 4))   # (s, 1, 1, lane)
-    c = torch.tensor(np.frombuffer(cols, np.int64).reshape(shape))
-    n = c.reshape(*shape[:-1], 1, shape[-1] // 2, 2, 1) + lane // 4          # (..., 1, p, 2, lane)
-    idx = torch.stack([k * N + n, (k + 1) * N + n, (k + 8) * N + n, (k + 9) * N + n], dim=-1)
-    return idx.transpose(-3, -2).reshape(*idx.shape[:-5], K // 16, shape[-1] // 2, 32, 8).to(device)

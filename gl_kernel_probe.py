@@ -9,12 +9,20 @@ one NVIDIA GPU.  Run from the repository root:
    the tensor-core kernel on the same blocks (converging estimator), and a
    variant of the tensor-core kernel that sums every k-step's products in
    one tensor-core accumulator (the design adds each k-step's sum in fp32).
+   In bf16 (one iteration, both estimators, against the bf16 branch in
+   float64): the plain bf16 version, the wgmma kernel (one fp32 accumulator
+   over each product's 16 k-steps), its "grouped" variant (a fresh
+   accumulator every 4 k-steps, added in fp32) and its "atan2f" variant
+   (libdevice's atan2f in the exp(angle) phase step).
 2. The regime threshold: both kernels timed at B = 4 .. 4,224 blocks
-   (``cuda_gl.CLUSTER_MAX_B`` is where they cross), and the tensor-core
-   kernel at 180,000 blocks (30 minutes) with both estimators.
+   (``cuda_gl.CLUSTER_MAX_B`` is where they cross), in float32 and in bf16,
+   and the tensor-core kernels at 180,000 blocks (30 minutes) with both
+   estimators, the wgmma kernel beside its "grouped" and "atan2f" variants.
 3. Where each kernel's time goes: a copy of the source with clock64 stamps
    at its phase boundaries (CTA 0, thread 0), the tensor-core kernel at one
-   wave (4,224 blocks), the cluster kernel at the online step's B = 4.
+   wave (4,224 blocks), the cluster kernel at the online step's B = 4, the
+   bf16 wgmma kernel at 180,000 blocks (the last tile of CTA 0's first
+   warpgroup; its set-up is the tiles before it).
 
 The variants are copies of the source edited here (``variants``; its
 anchors are held to the source by tests/test_torch_gl_split.py) and built
@@ -37,28 +45,67 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import probe_tools  # noqa: E402
 
 SRC = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu"
-HEADER = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/tf32_mma.cuh"  # included by SRC
-ONE_ACC = ('''          float c[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(c, lo, bh0, bh1);
-          mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-          mma_tf32(c, hi, bh0, bh1);
+HEADERS = ("closed_loop_seeg_speech_synthesis_tpu_torch/csrc/tf32_mma.cuh",  # included by SRC
+           "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/wgmma.cuh")
+ONE_ACC = ('''        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(c, lo, bh0, bh1);
+        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(c, hi, bh0, bh1);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];''', '''          mma_tf32(acc[mt][nt], lo, bh0, bh1);
-          mma_tf32(acc[mt][nt], hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-          mma_tf32(acc[mt][nt], hi, bh0, bh1);''')
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];''', '''        mma_tf32(acc[mt][nt], lo, bh0, bh1);
+        mma_tf32(acc[mt][nt], hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(acc[mt][nt], hi, bh0, bh1);''')
+# gl_wgmma_kernel's exp(angle) phase step with libdevice's atan2f for the JAX
+# kernels' Cephes atan2 with fast reciprocals
+ATAN2F = (" : atan2_cephes(xi, xr));", " : atan2f(xi, xr));")
+# gl_wgmma_kernel's products (bf16, one fp32 accumulator over the 16 k-steps)
+# -> a fresh accumulator every 4 k-steps, added to the sum in fp32
+GROUPED = ('''  wg::fence();
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+    wg::mma_rs<TRANS_B>(
+        d, a[s],
+        wg::desc_advance(desc, TRANS_B ? s * 16 * 128 : (s >> 2) * KBLOCK_BYTES + (s & 3) * 32),
+        s > 0);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(d);''', '''  float part[128];
+#pragma unroll
+  for (int g4 = 0; g4 < KS / 4; ++g4) {
+    wg::fence();
+#pragma unroll
+    for (int s = 4 * g4; s < 4 * g4 + 4; ++s)
+      wg::mma_rs<TRANS_B>(
+          part, a[s],
+          wg::desc_advance(desc, TRANS_B ? s * 16 * 128 : (s >> 2) * KBLOCK_BYTES + (s & 3) * 32),
+          s > 4 * g4);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = g4 ? d[i] + part[i] : part[i];
+  }''')
 # (text the stamp follows, stamp) in each kernel; slot = 8 * iteration + stamp
 MMA_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n", 0),
-              ("    mma_prefetch<BF16>(wipk, wring, lane);\n", 1),
+              ("    mma_prefetch(wipk, wring, lane);\n", 1),
               ("      if (part == 0) xn[f] = s;\n    }\n    __syncthreads();\n", 2),
               ("    if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);\n"
                "    __syncthreads();\n", 3),
-              ("    if (it + 1 < iterations) mma_prefetch<BF16>(wfpk, wring, lane);\n", 4),
+              ("    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);\n", 4),
               ("          a[f * AS + n] = (acc[mt][nt][j] + zn[f] * wi[n]) * w[n];\n        }\n"
                "    __syncthreads();\n", 5),
               ("          G[(size_t)(b0 + bl) * BLK + s] = v;\n        }\n      }\n    }\n"
                "    __syncthreads();\n", 6)]
 MMA_PHASES = ["forward product", "Nyquist + barrier", "phase step + barrier", "inverse product",
               "barrier + epilogue + barrier", "overlap-add + barrier"]
+WGMMA_STAMPS = [("    for (int it = 0; it < iterations; ++it) {\n", 0),
+                ("      product<0>(d, a, fdesc);  // forward: X = frames x [cos | sin]\n", 1),
+                ("          if constexpr (!BUG) z[KSTEPS16 / 2 + s][r] = wg::bf16x2(-zi0 * c0, -zi1 * c1);\n"
+                 "        }\n", 2),
+                ("      product<1>(d, z, idesc);\n", 3),
+                ("          *reinterpret_cast<float2*>(G + (size_t)b * BLK + 8 * j + 2 * q) = "
+                 "make_float2(v[0], v[1]);\n        }\n      }\n", 4)]
+WGMMA_PHASES = ["forward product", "phase step", "inverse product", "epilogue + overlap-add"]
 CLUSTER_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n    __syncthreads();\n", 0),
                   ("      frm[i] = BF16 ? bf16_round(v) : v;\n    }\n    __syncthreads();\n", 1),
                   ("      if (lane == 0) xn[f] = sn;\n    }\n    __syncthreads();\n", 2),
@@ -85,33 +132,43 @@ def stamped(src, kernel, stamps):
 
 
 def variants(src):
-    """The probe's copies of gl_audio.cu: "one_acc" sums every k-step in one
-    tensor-core accumulator; "stamps" records clock64 at the phase
-    boundaries of both Griffin-Lim kernels and adds ``probe_stamps_read``."""
+    """The probe's copies of gl_audio.cu: "one_acc" sums every k-step of
+    gl_mma_kernel in one tensor-core accumulator; "grouped" gives
+    gl_wgmma_kernel's products a fresh accumulator every 4 k-steps, added in
+    fp32; "atan2f" gives its exp(angle) phase step libdevice's atan2f;
+    "stamps" records clock64 at the phase boundaries of the three
+    Griffin-Lim kernels and adds ``probe_stamps_read``."""
     one_acc = probe_tools.swap(src, *ONE_ACC)
+    grouped = probe_tools.swap(src, *GROUPED)
+    libdevice = probe_tools.swap(src, *ATAN2F)
     prelude = ("namespace {\n__device__ long long probe_stamps[%d];\n#define STAMP(i) do { if "
                "(blockIdx.x == 0 && threadIdx.x == 0) probe_stamps[(i)] = clock64(); } while (0)\n"
                % SLOTS)
-    timed = stamped(stamped(src.replace("namespace {\n", prelude, 1), "gl_mma_kernel", MMA_STAMPS),
-                    "gl_cluster_kernel", CLUSTER_STAMPS)
-    return {"one_acc": one_acc, "stamps": timed + probe_tools.reader("probe_stamps", "probe_stamps_read")}
+    timed = src.replace("namespace {\n", prelude, 1)
+    for kernel, stamps in (("gl_mma_kernel", MMA_STAMPS), ("gl_cluster_kernel", CLUSTER_STAMPS),
+                           ("gl_wgmma_kernel", WGMMA_STAMPS)):
+        timed = stamped(timed, kernel, stamps)
+    return {"one_acc": one_acc, "grouped": grouped, "atan2f": libdevice,
+            "stamps": timed + probe_tools.reader("probe_stamps", "probe_stamps_read")}
 
 
 @contextlib.contextmanager
 def regime_threshold(cuda_gl, cluster_max_b):
     """Launches of B <= cluster_max_b blocks take the cluster kernel."""
-    saved, cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B, cluster_max_b
+    saved = cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16
+    cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B_BF16 = cluster_max_b
     try:
         yield
     finally:
-        cuda_gl.CLUSTER_MAX_B = saved
+        cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16 = saved
 
 
 def build_variants(src):
     """name -> library of each copy in ``variants(src)``, built together,
-    each beside the package's tensor-core header."""
-    header = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), HEADER)).read()
-    return probe_tools.build_all({name: {"gl_audio.cu": text, "tf32_mma.cuh": header}
+    each beside the package's tensor-core headers."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    headers = {os.path.basename(h): open(os.path.join(root, h)).read() for h in HEADERS}
+    return probe_tools.build_all({name: {"gl_audio.cu": text, **headers}
                                   for name, text in variants(src).items()})
 
 
@@ -183,42 +240,73 @@ def main():
             line.append(f"{name} {e.max().item():.3e} / {torch.quantile(e, 0.999).item():.3e}")
         use("kernel")
         print(f"  B = {B}: " + "; ".join(line), flush=True)
+    print("== bf16, 1 iteration, against the bf16 branch in float64 (max and 99.9th percentile "
+          "of |error|)", flush=True)
+    lm, rand = frames(4224)
+    for bug in (False, True):
+        ref = cuda_gl._gl_loop_plain(lm, rand, ops, 1, bug, torch.float64)
+        line = []
+        for name in ("plain bf16", "wgmma", "wgmma, grouped", "wgmma, atan2f"):
+            use(name.split(", ")[1] if ", " in name else "kernel")
+            with regime_threshold(cuda_gl, 0):
+                out = (cuda_gl.gl_blocks_plain(lm, rand, ops, 1, bug, bf16=True) if "plain" in name
+                       else cuda_gl.gl_blocks(lm, rand, ops, 1, bug, bf16=True))
+            e = (out.double() - ref).abs().reshape(-1)
+            line.append(f"{name} {e.max().item():.3e} / {torch.quantile(e, 0.999).item():.3e}")
+        use("kernel")
+        print(f"  B = 4224, phase_bug={bug}: " + "; ".join(line), flush=True)
 
     print(f"== time a launch, phase_bug, 8 iterations (CUDA events) [{card}]", flush=True)
-    for B in (4, 64, 256, 384, 448, 512, 640, 1024, 4224):
+    for B in (4, 64, 128, 136, 192, 256, 384, 448, 512, 640, 1024, 4224):
         lm, rand = frames(B)
         n = 200 if B <= 1024 else 20
         with regime_threshold(cuda_gl, big):
             t_c = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True), n)
         with regime_threshold(cuda_gl, 0):
             t_m = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True), n)
-        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, tensor cores {t_m * 1e3:.2f} us, "
-              f"picked: {cuda_gl.regime(B)}", flush=True)
+        with regime_threshold(cuda_gl, big):
+            t_c16 = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True), n)
+        with regime_threshold(cuda_gl, 0):
+            t_w16 = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True), n)
+        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, tensor cores {t_m * 1e3:.2f} us; bf16: "
+              f"cluster {t_c16 * 1e3:.2f} us, wgmma {t_w16 * 1e3:.2f} us; picked: "
+              f"{cuda_gl.regime(B)}, bf16 {cuda_gl.regime(B, True)}", flush=True)
     lm, rand = frames(180_000)
     for bug in (True, False):
+        t16 = {}
+        for name in ("kernel", "grouped", "atan2f"):
+            use(name)
+            t16[name] = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, bug, bf16=True), 5)
+        use("kernel")
         print(f"  B = 180000, phase_bug={bug}: tensor cores "
-              f"{ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, bug), 5):.3f} ms", flush=True)
+              f"{ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, bug), 5):.3f} ms; bf16 wgmma "
+              f"{t16['kernel']:.3f} ms, grouped {t16['grouped']:.3f} ms, atan2f "
+              f"{t16['atan2f']:.3f} ms", flush=True)
 
     print("== cycles by phase (clock64, CTA 0, mean over iterations 0-6)", flush=True)
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                            capture_output=True, text=True).stdout.strip()
     use("stamps")
-    for label, B, cmax, phases in (("tensor cores, 4224 blocks", 4224, 0, MMA_PHASES),
-                                   ("cluster, 4 blocks", 4, big, CLUSTER_PHASES)):
+    for label, B, cmax, bf16, phases in (
+            ("tensor cores, 4224 blocks", 4224, 0, False, MMA_PHASES),
+            ("cluster, 4 blocks", 4, big, False, CLUSTER_PHASES),
+            ("bf16 wgmma, 180000 blocks (CTA 0's last tile)", 180_000, 0, True, WGMMA_PHASES)):
         lm, rand = frames(B)
         with regime_threshold(cuda_gl, cmax):
             for _ in range(3):
-                cuda_gl.gl_blocks(lm, rand, ops, 8, True)
+                cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=bf16)
         torch.cuda.synchronize()
         buf = (ctypes.c_longlong * SLOTS)()
         libs["stamps"].probe_stamps_read(buf)
         st = np.array(buf[:], np.float64)
-        it = st[: 8 * 8].reshape(8, 8)[:, :7]
+        n = len(phases) + 1  # stamps an iteration
+        it = st[: 8 * 8].reshape(8, 8)[:, :n]
         per_it = np.diff(it[:, 0]).mean()
         parts = np.diff(it, axis=1)[:7].mean(axis=0)
-        print(f"  {label}: launch {st[6 + 8 * 7] - st[127]:.0f} cycles, set-up {it[0, 0] - st[127]:.0f}, "
-              f"an iteration {per_it:.0f}: " + ", ".join(f"{p} {v:.0f} ({100 * v / per_it:.1f}%)"
-                                                       for p, v in zip(phases, parts)), flush=True)
+        print(f"  {label}: launch {st[n - 1 + 8 * 7] - st[127]:.0f} cycles, set-up "
+              f"{it[0, 0] - st[127]:.0f}, an iteration {per_it:.0f}: "
+              + ", ".join(f"{p} {v:.0f} ({100 * v / per_it:.1f}%)" for p, v in zip(phases, parts)),
+              flush=True)
     use("kernel")
     print(f"  SM clock during the run: {clock}")
     print(card)

@@ -275,9 +275,10 @@ def test_gl_blocks_regimes_agree(rs, cuda_device, monkeypatch, B):
 
 
 # The bf16 variants (DecoderConfig.gl_bf16): the online step's 1-4 blocks,
-# the cluster regime (exp2's sequential twin: 199) and both sides of its
-# threshold, a ragged 1,001 on the tensor cores
-BF16_BLOCKS = [1, 2, 4, 199, _T - 1, _T, _T + 1, 1001]
+# both sides of the bf16 threshold, exp2's sequential twin's 199 and the
+# float32 threshold, a ragged 1,001 on the tensor cores
+_T16 = cuda_gl.CLUSTER_MAX_B_BF16
+BF16_BLOCKS = [1, 2, 4, _T16 - 1, _T16, _T16 + 1, 199, _T - 1, _T, _T + 1, 1001]
 BF16_RUNS = [(0, True), (1, False), (1, True), (8, False), (8, True)]
 
 
@@ -372,18 +373,45 @@ def test_gl_audio_bf16_kernel_matches_plain(rs, cuda_device, B, iterations, phas
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [4, 1001])
 def test_gl_blocks_bf16_regimes_agree(rs, cuda_device, monkeypatch, B):
-    """The bf16 variants of the tensor-core kernel (CLUSTER_MAX_B = 0) and
-    the cluster kernel (CLUSTER_MAX_B = B) on the same blocks: identical
-    without iterations, within ``_bf16_blocks_ok``'s one-iteration gate of
-    each other after one."""
+    """The bf16 variants of the tensor-core kernel (CLUSTER_MAX_B_BF16 = 0)
+    and the cluster kernel (CLUSTER_MAX_B_BF16 = B) on the same blocks:
+    identical without iterations, within ``_bf16_blocks_ok``'s one-iteration
+    gate of each other after one."""
     lm, rand = _gl_inputs(rs, B, cuda_device)
     ops = _gl_ops(cuda_device)
     for iterations in (0, 1):
-        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
+        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", 0)
         mma = cuda_gl.gl_blocks(lm, rand, ops, iterations, False, bf16=True)
-        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", B)
+        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", B)
         cluster = cuda_gl.gl_blocks(lm, rand, ops, iterations, False, bf16=True)
         _bf16_blocks_ok(mma, cluster, None, lm, rand, ops, iterations, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase_bug", [False, True])
+@pytest.mark.parametrize("B", [4224, 179_999])
+def test_gl_bf16_kernel_tracks_float64(rs, cuda_device, B, phase_bug):
+    """The error budget of the wgmma kernel's bf16 products (one fp32
+    accumulator over each product's 16 k-steps, the inverse read from the
+    forward operand's image transposed): one iteration against the bf16
+    branch evaluated in float64 on the same bf16-rounded operands
+    (``_gl_loop_plain(..., torch.float64)``); the kernel's max and p99.9
+    |error| at most twice the plain bf16 version's (float32)."""
+    lm, rand = _gl_inputs(rs, B, cuda_device)
+    ops = _gl_ops(cuda_device)
+    assert cuda_gl.regime(B, bf16=True) == "mma"
+    ref = cuda_gl._gl_loop_plain(lm, rand, ops, 1, phase_bug, torch.float64)
+
+    def errors(out):
+        e = (out.double() - ref).abs().flatten().sort().values
+        return e[-1].item(), e[int(0.999 * (e.numel() - 1))].item()
+
+    (max_k, p999_k), (max_p, p999_p) = (
+        errors(cuda_gl.gl_blocks(lm, rand, ops, 1, phase_bug, bf16=True)),
+        errors(cuda_gl.gl_blocks_plain(lm, rand, ops, 1, phase_bug, bf16=True)))
+    print(f"B = {B}, phase_bug={phase_bug}: |error| against float64, kernel max {max_k:.3e} "
+          f"p99.9 {p999_k:.3e}; plain bf16 max {max_p:.3e} p99.9 {p999_p:.3e}")
+    assert max_k <= 2 * max_p and p999_k <= 2 * p999_p, (max_k, p999_k, max_p, p999_p)
 
 
 @pytest.mark.cuda
@@ -501,13 +529,52 @@ def test_gl_wrappers_reject_misaligned_inits(rs, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_wgmma_helpers_match_matmul(cuda_device, mode):
+    """csrc/wgmma.cuh through tests/wgmma_check.cu: one warpgroup's bf16
+    product of A (64 x 256) and M (256 x 256) from M's shared-memory image
+    (ops/wgmma_layout), loaded by bulk copies: mode 0 A M with A from
+    registers; 1 A M^T, the image read MN-major; 2 A M with A from its own
+    image; 3 bf16(A M) M^T, the accumulators as the next register A operand.
+    Against float64 products of the bf16 values: within 1e-5 of the largest
+    |entry| (an fp32 accumulation over 256), mode 3 within 2e-3 (its
+    intermediate rounded to bf16 where float64 rounds it, a flip moving an
+    entry by one bf16 step)."""
+    import ctypes
+    from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, wgmma_layout
+
+    root = Path(__file__).resolve().parents[1]
+    probe_tools = _load_script(root / "probe_tools.py")
+    lib = probe_tools.build("wgmma_check", {
+        "wgmma_check.cu": (root / "tests" / "wgmma_check.cu").read_text(),
+        "wgmma.cuh": (_build.CSRC / "wgmma.cuh").read_text()})
+    fn = lib.wgmma_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    g = torch.Generator().manual_seed(mode)
+    a = torch.randn((64, 256), generator=g).to(torch.bfloat16).float().to(cuda_device)
+    m = torch.randn((256, 256), generator=g).to(torch.bfloat16).float().to(cuda_device)
+    img_m, img_a = wgmma_layout.sw128_image(m), wgmma_layout.sw128_image(a.T.contiguous())
+    out = torch.empty((64, 256), dtype=torch.float32, device=cuda_device)
+    err = fn(a.data_ptr(), img_m.data_ptr(), img_a.data_ptr(), out.data_ptr(), mode,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    a64, m64 = a.double(), m.double()
+    ref = {0: a64 @ m64, 1: a64 @ m64.T, 2: a64 @ m64,
+           3: (a64 @ m64).float().to(torch.bfloat16).double() @ m64.T}[mode]
+    rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= (2e-3 if mode == 3 else 1e-5), rel
+
+
+@pytest.mark.cuda
 def test_gl_kernel_probe_variants_build(cuda_device):
     """gl_kernel_probe.py's edited copies of csrc/gl_audio.cu compile with the
     package's nvcc flags (tests/test_torch_gl_split.py holds their anchors)."""
     root = Path(__file__).resolve().parents[1]
     probe = _load_script(root / "gl_kernel_probe.py")
     libs = probe.build_variants((root / probe.SRC).read_text())
-    assert hasattr(libs["one_acc"], "gl_blocks") and hasattr(libs["stamps"], "probe_stamps_read")
+    assert all(hasattr(libs[v], "gl_blocks") for v in ("one_acc", "grouped", "atan2f"))
+    assert hasattr(libs["stamps"], "probe_stamps_read")
 
 
 def _load_script(path):

@@ -12,8 +12,9 @@ fails the same one-iteration gates by two to five orders of magnitude, so
 they tell a bf16 port from an f32 one.  Over 8 iterations the converging
 estimator keeps almost every sample within 1e-3; the exp(angle) quirk is
 chaotic in any precision and is quality-gated as the JAX test gates it.
-Also: the bf16 operands and their m16n8k16 fragments, the wrappers on CPU
-tensors, and ``DecoderConfig(gl_bf16=True)`` through ``offline_decode``.
+Also: the bf16 operands and the wgmma kernel's shared-memory image of them,
+the wrappers on CPU tensors, and ``DecoderConfig(gl_bf16=True)`` through
+``offline_decode``.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as t_fd
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir as t_iir
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import wgmma_layout
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import params as t_params
 from closed_loop_seeg_speech_synthesis_tpu_torch.runtime import pipeline as t_pipe
 
@@ -167,10 +169,11 @@ def test_gl_audio_bf16_one_iteration_matches_pallas(ops, walk, phase_bug):
 def test_bf16_operands_are_the_jax_kernels(ops, forward):
     """``GLAudioOps.gl_bf16``: the forward [cos | sin] and inverse [cos; sin]
     operands rounded to bf16 are the bytes the JAX kernel casts
-    (``_split_nyquist`` then ``astype(bfloat16)``), and their m16n8k16
-    fragments unpack to them: lane l of k-step s, pair p holds n-tiles 2p,
-    2p + 1 as (B[k][n], B[k+1][n], B[k+8][n], B[k+9][n]), k = 16 s + 2 (l % 4),
-    n = fragment_columns + l // 4."""
+    (``_split_nyquist`` then ``astype(bfloat16)``), and the wgmma kernel's
+    one shared-memory image unpacks to both: to the forward operand as it
+    is, and read transposed, row k times the inverse's weight (1/256 at DC,
+    else 2/256; negated for the sin rows), to the inverse.  The weights are
+    powers of two, so they commute with the bf16 rounding."""
     _, _, fcos, fsin, _, icos, isin, _ = _split_nyquist(j_gl.make_streaming_gl_ops(
         dtype=jnp.float32))
     parts = (fcos, fsin) if forward else (icos, isin)
@@ -178,20 +181,16 @@ def test_bf16_operands_are_the_jax_kernels(ops, forward):
                          axis=1 if forward else 0)
     rounded = ops.gl_bf16[0 if forward else 1]
     assert rounded.dtype == torch.float32 and np.array_equal(rounded.numpy(), ref)
-    packed = ops.gl_bf16[2 if forward else 3]
-    cols = cuda_gl.fragment_columns(forward)
-    assert packed.dtype == torch.bfloat16 and tuple(packed.shape) == (8, 16, 2, 32, 8)
-    pk = packed.float().numpy()
-    got = np.full((256, 256), np.nan, np.float32)
-    lane = np.arange(32)
-    for w in range(8):
-        for s in range(16):
-            for p in range(2):
-                for t in range(2):
-                    k, n = 16 * s + 2 * (lane % 4), cols[w, 2 * p + t] + lane // 4
-                    vals = pk[w, s, p, :, 4 * t : 4 * t + 4]
-                    got[k, n], got[k + 1, n], got[k + 8, n], got[k + 9, n] = vals.T
-    assert np.array_equal(got, ref)
+    image = ops.gl_bf16[2]
+    assert image.dtype == torch.bfloat16 and tuple(image.shape) == (256 * 256,)
+    fwd = wgmma_layout.unpack_image(image, 256, 256).float().numpy()
+    if forward:
+        got = fwd
+    else:
+        weights = np.full((128, 1), 2.0 / 256, np.float32)
+        weights[0] = 1.0 / 256
+        got = np.concatenate([weights * fwd[:, :128].T, -weights * fwd[:, 128:].T])
+    assert got.dtype == np.float32 and np.array_equal(got, ref)
 
 
 def test_wrappers_run_the_plain_bf16_version_on_cpu(ops, walk):

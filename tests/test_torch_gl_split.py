@@ -9,7 +9,8 @@ explicit mantissa bits and hi + lo is the f32 operand within 2^-22
 relative; a 3xTF32 product of frames with the packed parts (the frames split
 in the same way, a_lo*b_lo dropped) is the float64 product to the f32 level.
 Also the text anchors by which gl_kernel_probe.py builds its variants of the
-kernel source.
+kernel source (the float32 tensor-core kernel with one accumulator, the bf16
+wgmma kernel with a fresh accumulator every 4 k-steps, the clock64 stamps).
 """
 
 import importlib.util
@@ -121,6 +122,23 @@ def test_regime_by_number_of_blocks(B, expected):
     assert cuda_gl.regime(B) == expected
 
 
+@pytest.mark.parametrize("B,expected", [(1, "cluster"), (cuda_gl.CLUSTER_MAX_B_BF16, "cluster"),
+                                        (cuda_gl.CLUSTER_MAX_B_BF16 + 1, "mma"),
+                                        (cuda_gl.CLUSTER_MAX_B, "mma"), (180_000, "mma")])
+def test_bf16_regime_by_number_of_blocks(B, expected):
+    """The bf16 variants cross lower (the wgmma kernel takes about as long at
+    any B up to a wave); the float32 threshold does not apply to them."""
+    assert cuda_gl.CLUSTER_MAX_B_BF16 < cuda_gl.CLUSTER_MAX_B
+    assert cuda_gl.regime(B, bf16=True) == expected
+
+
+def test_bf16_regime_threshold_is_read_at_each_call(monkeypatch):
+    monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", 0)
+    assert cuda_gl.regime(1, bf16=True) == "mma" and cuda_gl.regime(1) == "cluster"
+    monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", 10**9)
+    assert cuda_gl.regime(180_000, bf16=True) == "cluster" and cuda_gl.regime(180_000) == "mma"
+
+
 def test_regime_threshold_is_read_at_each_call(monkeypatch):
     monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
     assert cuda_gl.regime(1) == "mma"
@@ -147,14 +165,33 @@ def test_probe_one_accumulator_variant_matches_the_source(probe):
     assert one_acc != src and one_acc.replace(probe.ONE_ACC[1], probe.ONE_ACC[0]) == src
 
 
-@pytest.mark.parametrize("kernel", ["gl_mma_kernel", "gl_cluster_kernel"])
+def test_probe_grouped_variant_matches_the_source(probe):
+    """The variant differs from csrc/gl_audio.cu only in the wgmma kernel's
+    products: a fresh accumulator every 4 k-steps, added in fp32."""
+    src = (ROOT / probe.SRC).read_text()
+    grouped = probe.variants(src)["grouped"]
+    assert grouped != src and grouped.replace(probe.GROUPED[1], probe.GROUPED[0]) == src
+    assert "wg::mma_rs<TRANS_B>(\n          part, a[s]," in grouped
+
+
+def test_probe_atan2f_variant_matches_the_source(probe):
+    """The variant differs from csrc/gl_audio.cu only in the wgmma kernel's
+    exp(angle) phase step: libdevice's atan2f for the Cephes atan2."""
+    src = (ROOT / probe.SRC).read_text()
+    libdevice = probe.variants(src)["atan2f"]
+    assert libdevice != src and libdevice.replace(probe.ATAN2F[1], probe.ATAN2F[0]) == src
+    assert src.count("atan2_cephes(xi, xr)") == 1
+
+
+@pytest.mark.parametrize("kernel", ["gl_mma_kernel", "gl_cluster_kernel", "gl_wgmma_kernel"])
 def test_probe_stamps_every_phase_of_the_kernel(probe, kernel):
     """Each Griffin-Lim kernel of csrc/gl_audio.cu gets its launch stamp and
-    one stamp after each of its seven phase anchors, inside its own body."""
+    one stamp after each of its phase anchors, inside its own body."""
     timed = probe.variants((ROOT / probe.SRC).read_text())["stamps"]
     start = timed.index(f" {kernel}(")
     body = timed[start : timed.index("\n}\n", start)]
-    stamps = probe.MMA_STAMPS if kernel == "gl_mma_kernel" else probe.CLUSTER_STAMPS
+    stamps = {"gl_mma_kernel": probe.MMA_STAMPS, "gl_cluster_kernel": probe.CLUSTER_STAMPS,
+              "gl_wgmma_kernel": probe.WGMMA_STAMPS}[kernel]
     assert body.count("STAMP(127);") == 1
     for _, k in stamps:
         assert body.count(f"STAMP(8 * it + {k});") == 1
@@ -167,3 +204,5 @@ def test_probe_refuses_a_source_without_its_anchors(probe):
         probe.variants(src.replace(probe.ONE_ACC[0], ""))
     with pytest.raises(ValueError, match="anchor"):
         probe.variants(src.replace(probe.CLUSTER_STAMPS[0][0], "  {\n"))
+    with pytest.raises(ValueError, match="anchor"):
+        probe.variants(src.replace(probe.GROUPED[0], ""))
