@@ -32,6 +32,7 @@ import torch
 from . import cuda_prng
 from . import mel as mel_ops
 from .stft import RDFT, blackman, hann_periodic, make_rdft
+from ..runtime.tracing import span
 
 FFT_SIZE = 256
 HOP = 160
@@ -139,9 +140,10 @@ def default_rand_init(num_blocks: int, first_block_index: int = 0, seed=0,
     first_block_index, dtype)``: the inits (num_blocks, 480) of blocks
     first_block_index .. first_block_index + num_blocks - 1 (see
     ``block_rand``), so ``default_rand_init(k, i)`` equals
-    ``default_rand_init(i + k)[i:]``."""
-    ids = torch.arange(first_block_index, first_block_index + num_blocks, device=device)
-    return block_rand(ids, seed, dtype)
+    ``default_rand_init(i + k)[i:]``.  Traced as ``seeg.inits``."""
+    with span("seeg.inits"):
+        ids = torch.arange(first_block_index, first_block_index + num_blocks, device=device)
+        return block_rand(ids, seed, dtype)
 
 
 def offline_griffin_lim(spectrogram, rand_init=None, win_length: float = 0.05,

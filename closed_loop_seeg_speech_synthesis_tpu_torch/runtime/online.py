@@ -9,9 +9,11 @@ is moved to the decoder's device once and decoded by one run of
 that run recorded as a CUDA graph); decoded spectrogram frames and int16
 audio chunks come back to the host, and the audio goes to the sink through
 the bounded-drop queue.  Per-packet latency is traced for the closed loop's
-p99 < 10 ms budget.  ``PersistentOnlineDecoder`` decodes a whole session
-as one device dispatch: on the card, one launch of a CUDA graph whose
-device-side while loop runs the step once per packet.
+p99 < 10 ms budget (``StageTracer`` marks), and the host's parts of a
+packet are spans in the profiler's trace (``seeg.online.*``).
+``PersistentOnlineDecoder`` decodes a whole session as one device dispatch:
+on the card, one launch of a CUDA graph whose device-side while loop runs
+the step once per packet.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..ops.prng import is_key
 from . import pipeline
 from .audio import BufferSink
 from .streams import StreamInlet
-from .tracing import StageTracer
+from .tracing import StageTracer, span
 
 logger = logging.getLogger("runtime.online")
 
@@ -198,7 +200,7 @@ class OnlineDecoder:
         self.device = dec_params.device
         self.bad_channels = np.asarray(bad_channels, int)
         self.sink = sink or BufferSink()
-        self.tracer = tracer or StageTracer(enabled=True)
+        self.tracer = tracer or StageTracer()
         self.step = pipeline.make_online_step(dec_params, cfg, rand_source)
         self.n_rand_rows = None if is_key(rand_source) else len(rand_source)
         self.carry = pipeline.init_online_carry(dec_params, cfg)
@@ -279,24 +281,36 @@ class OnlineDecoder:
             lane.turn = 0
         self.spec_frames, self.audio_chunks, self.received = [], [], []
 
+    def _launch(self, lane: _Lane):
+        """One run of the lane's program (``seeg.online.dispatch``: the H2D
+        copy, the run or graph replay, the D2H copy and the event record);
+        marks ``launched``."""
+        with span("seeg.online.dispatch"):
+            out = lane.launch()
+        self.tracer.mark("launched")
+        return out
+
     def _emit(self, out, event=None):
         """Read step outputs (single or K-stacked) back to the host and hand
         the audio to the sink.  ``out`` holds the outputs on the device or,
         from a run, the views of its host slot; ``event`` is the slot's copy,
-        waited for first.  Leading axes beyond the slot axis are flattened:
-        steps are in order and slots are in order within a step, so the
-        valid rows in sequence are the decoded stream.  The rows are copied
-        out of the slot, which the next runs overwrite."""
+        waited for first (``seeg.online.wait``).  Leading axes beyond the
+        slot axis are flattened: steps are in order and slots are in order
+        within a step, so the valid rows in sequence are the decoded stream.
+        The rows are copied out of the slot, which the next runs overwrite
+        (with the valid rows and the sink, ``seeg.online.emit``)."""
         if event is not None:
-            event.synchronize()
-        spec = out["spec"].cpu().numpy().copy()
-        sv = out["spec_valid"].cpu().numpy().reshape(-1)
-        spec = spec.reshape(-1, spec.shape[-1])
-        audio = out["audio"].cpu().numpy().copy()
-        av = out["audio_valid"].cpu().numpy().reshape(-1)
-        audio = audio.reshape(-1, audio.shape[-1])
-        self.tracer.mark("step_done")
-        self._emit_rows(spec, sv, audio, av)
+            with span("seeg.online.wait"):
+                event.synchronize()
+        with span("seeg.online.emit"):
+            spec = out["spec"].cpu().numpy().copy()
+            sv = out["spec_valid"].cpu().numpy().reshape(-1)
+            spec = spec.reshape(-1, spec.shape[-1])
+            audio = out["audio"].cpu().numpy().copy()
+            av = out["audio_valid"].cpu().numpy().reshape(-1)
+            audio = audio.reshape(-1, audio.shape[-1])
+            self.tracer.mark("step_done")
+            self._emit_rows(spec, sv, audio, av)
 
     def _emit_rows(self, spec, sv, audio, av):
         """Append the valid rows of one step's host outputs and write the
@@ -313,7 +327,7 @@ class OnlineDecoder:
         self.tracer.mark("audio_out")
 
     def _dispatch(self, lane: _Lane):
-        out = lane.launch()
+        out = self._launch(lane)
         if self.pipelined:
             # emit the PREVIOUS outputs, computed while this packet arrived;
             # leave these in flight
@@ -353,7 +367,8 @@ class OnlineDecoder:
             one = self._lanes[1]
             for row in chunk.stage[chunk.turn].numpy()[: self._staged]:
                 one.stage[one.turn].numpy()[...] = row
-                self._emit(*one.launch())
+                self.tracer.mark("packet_in")
+                self._emit(*self._launch(one))
             self._staged = 0
 
     def run_stream(self, stream, stop_event: threading.Event | None = None,
@@ -383,11 +398,23 @@ class OnlineDecoder:
         received = np.vstack(self.received) if self.received else np.zeros((0, 0))
         return spectrogram, audio, received
 
-    def latency_report(self):
-        p = self.tracer.percentiles("packet_in", "step_done")
-        logger.info("per-packet latency: p50=%.3fms p95=%.3fms p99=%.3fms",
-                    p[50] * 1e3, p[95] * 1e3, p[99] * 1e3)
-        return p
+    def latency_report(self) -> dict:
+        """Log and return the percentiles (s) of each interval between the
+        stage marks, ``packet_in`` -> ``launched`` -> ``step_done`` ->
+        ``audio_out``, and of the whole, ``packet_in`` -> ``audio_out``
+        (the persistent decoder has no ``launched``: its report leaves out
+        the intervals through it).  Keys are ``"<start>-><end>"``."""
+        marked = [s for s in ("packet_in", "launched", "step_done", "audio_out")
+                  if self.tracer.events.get(s)]
+        pairs = list(zip(marked, marked[1:]))
+        if len(pairs) > 1:
+            pairs.append((marked[0], marked[-1]))
+        report = {}
+        for a, b in pairs:
+            p = report[f"{a}->{b}"] = self.tracer.percentiles(a, b)
+            logger.info("per-packet %s->%s: p50=%.3fms p95=%.3fms p99=%.3fms",
+                        a, b, p[50] * 1e3, p[95] * 1e3, p[99] * 1e3)
+        return report
 
 
 class PersistentOnlineDecoder(OnlineDecoder):
@@ -553,7 +580,8 @@ class PersistentOnlineDecoder(OnlineDecoder):
                     break
                 self.tracer.mark("step_done")
                 if emit:
-                    self._emit_rows(*(np.array(o[slot]) for o in loop.outputs))
+                    with span("seeg.online.emit"):
+                        self._emit_rows(*(np.array(o[slot]) for o in loop.outputs))
                 loop.release(seq)
             clean = True
         finally:

@@ -48,6 +48,7 @@ from ..ops.cuda_frontend import (FrontendOps, epilogue_constants, frontend_decod
                                  frontend_logpower, make_frontend_ops, pack_lda_weights)
 from ..ops.cuda_gl import GLAudioOps, gl_audio, gl_blocks, gl_blocks_plain, make_gl_audio_ops
 from ..ops.prng import is_key
+from .tracing import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -261,27 +262,29 @@ def _vocode(params: DecoderParams, cfg: DecoderConfig, mel_frames: torch.Tensor,
             rand_init) -> torch.Tensor:
     """``offline_decode``'s back half: mel frames (N, n_mel) and inits
     (N-1, 480) -> int16 audio ((N-1)*160,), through K2 (or K4) in float32
-    on CUDA, their bf16 variants with ``cfg.gl_bf16``."""
-    dev, dt = params.device, cfg.dtype
-    rand_init = torch.as_tensor(rand_init).to(device=dev, dtype=dt)
-    on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
+    on CUDA, their bf16 variants with ``cfg.gl_bf16``.  Traced as
+    ``seeg.vocode``."""
+    with span("seeg.vocode"):
+        dev, dt = params.device, cfg.dtype
+        rand_init = torch.as_tensor(rand_init).to(device=dev, dtype=dt)
+        on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
 
-    use_k2 = cfg.use_cuda_gl and on_cuda_f32
-    if use_k2 and cfg.use_cuda_gl_tail:
-        # K2: GL iterations + overlap-add + low-pass + int16
-        return gl_audio(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
-                        float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug, cfg.gl_bf16)
-    if use_k2:
-        # K4: GL iterations only; the tail below is plain
-        re = gl_blocks(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
-                       cfg.gl_iterations, cfg.phase_bug, cfg.gl_bf16)
-    else:
-        re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
-                                    cfg.gl_iterations, cfg.phase_bug)
-    raw = gl.overlap_add_stream(re, params.gl_ops)
-    lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
-                            raw.new_zeros((params.lowpass_op_batch.dim, 1)))
-    return gl.to_int16(lp[:, 0], cfg.gl_norm)
+        use_k2 = cfg.use_cuda_gl and on_cuda_f32
+        if use_k2 and cfg.use_cuda_gl_tail:
+            # K2: GL iterations + overlap-add + low-pass + int16
+            return gl_audio(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
+                            float(cfg.gl_norm), cfg.gl_iterations, cfg.phase_bug, cfg.gl_bf16)
+        if use_k2:
+            # K4: GL iterations only; the tail below is plain
+            re = gl_blocks(mel_frames.contiguous(), rand_init.contiguous(), params.gl_audio_ops,
+                           cfg.gl_iterations, cfg.phase_bug, cfg.gl_bf16)
+        else:
+            re = gl.streaming_gl_blocks(mel_frames, rand_init, params.gl_ops,
+                                        cfg.gl_iterations, cfg.phase_bug)
+        raw = gl.overlap_add_stream(re, params.gl_ops)
+        lp, _ = iir.iir_blocked(params.lowpass_op_batch, raw[:, None],
+                                raw.new_zeros((params.lowpass_op_batch.dim, 1)))
+        return gl.to_int16(lp[:, 0], cfg.gl_norm)
 
 
 @dataclasses.dataclass
@@ -302,26 +305,28 @@ class MelPlan:
 
 
 def mel_plan(params: DecoderParams, cfg: DecoderConfig, n_samples: int) -> MelPlan:
-    """The ``MelPlan`` of ``n_samples``-sample inputs decoded with ``params``."""
-    dev, dt = params.device, cfg.dtype
-    ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr,
-                                        n_samples + cfg.prefill)
-    pw = framing.periodic_window_matrix(ends, cfg.win)
-    on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
-    use_k1 = (cfg.use_cuda_frontend and on_cuda_f32 and params.frontend_ops is not None
-              and pw is not None)
-    plan = MelPlan(n_samples=n_samples, n_frames=len(ends), ends=ends, window=None)
-    if use_k1 and cfg.use_cuda_epilogue:
-        consts = epilogue_constants(params.lda_coef_full, params.lda.intercept,
-                                    params.lda.valid, params.lda.classes, params.medians,
-                                    params.gauss_kernel, cfg.n_channels, cfg.model_order)
-        plan.k1 = consts + (pack_lda_weights(consts[0], cfg.n_channels, cfg.model_order + 1),)
-    elif use_k1:
-        plan.k3 = True
-    elif pw is not None:
-        S, Ls, P, origin = pw
-        plan.window = (torch.as_tensor(S, dtype=dt, device=dev), Ls, P, origin)
-    return plan
+    """The ``MelPlan`` of ``n_samples``-sample inputs decoded with ``params``
+    (traced as ``seeg.frontend.plan``)."""
+    with span("seeg.frontend.plan"):
+        dev, dt = params.device, cfg.dtype
+        ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr,
+                                            n_samples + cfg.prefill)
+        pw = framing.periodic_window_matrix(ends, cfg.win)
+        on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
+        use_k1 = (cfg.use_cuda_frontend and on_cuda_f32 and params.frontend_ops is not None
+                  and pw is not None)
+        plan = MelPlan(n_samples=n_samples, n_frames=len(ends), ends=ends, window=None)
+        if use_k1 and cfg.use_cuda_epilogue:
+            consts = epilogue_constants(params.lda_coef_full, params.lda.intercept,
+                                        params.lda.valid, params.lda.classes, params.medians,
+                                        params.gauss_kernel, cfg.n_channels, cfg.model_order)
+            plan.k1 = consts + (pack_lda_weights(consts[0], cfg.n_channels, cfg.model_order + 1),)
+        elif use_k1:
+            plan.k3 = True
+        elif pw is not None:
+            S, Ls, P, origin = pw
+            plan.window = (torch.as_tensor(S, dtype=dt, device=dev), Ls, P, origin)
+        return plan
 
 
 def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg,
@@ -329,26 +334,28 @@ def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg,
     """``offline_decode``'s front half: raw eeg (T, n_channels) -> the
     dequantized, smoothed logMel frames (N, n_mel), through K1 (or K3) in
     float32 on CUDA.  exp1's chance runs and exp2's chance segments stop
-    here.  ``plan``: ``mel_plan(params, cfg, T)``, built here when None."""
-    dev, dt = params.device, cfg.dtype
-    x = torch.as_tensor(eeg).to(device=dev, dtype=dt)
-    T = x.shape[0]
-    if plan is None:
-        plan = mel_plan(params, cfg, T)
-    elif plan.n_samples != T:
-        raise ValueError(f"mel plan built for {plan.n_samples} samples, input has {T}")
-    n_frames = plan.n_frames
+    here.  ``plan``: ``mel_plan(params, cfg, T)``, built here when None.
+    Traced as ``seeg.frontend``."""
+    with span("seeg.frontend"):
+        dev, dt = params.device, cfg.dtype
+        x = torch.as_tensor(eeg).to(device=dev, dtype=dt)
+        T = x.shape[0]
+        if plan is None:
+            plan = mel_plan(params, cfg, T)
+        elif plan.n_samples != T:
+            raise ValueError(f"mel plan built for {plan.n_samples} samples, input has {T}")
+        n_frames = plan.n_frames
 
-    if plan.k1 is not None:
-        # K1: eeg -> mel frames (filter chain, log-power, context stack, LDA,
-        # dequantization, smoothing)
-        *consts, packed = plan.k1
-        return frontend_decode_mels(params.frontend_ops, x.contiguous(),
-                                    _initial_state(params, x).contiguous(), *consts,
-                                    n_frames, cfg.model_order, cfg.step_size, packed=packed)
-    stacked = framing.stack_context(_logpower(params, cfg, x, plan), cfg.model_order,
-                                    cfg.step_size, zero_pad=True)
-    return _frames_to_mel(params, stacked)
+        if plan.k1 is not None:
+            # K1: eeg -> mel frames (filter chain, log-power, context stack, LDA,
+            # dequantization, smoothing)
+            *consts, packed = plan.k1
+            return frontend_decode_mels(params.frontend_ops, x.contiguous(),
+                                        _initial_state(params, x).contiguous(), *consts,
+                                        n_frames, cfg.model_order, cfg.step_size, packed=packed)
+        stacked = framing.stack_context(_logpower(params, cfg, x, plan), cfg.model_order,
+                                        cfg.step_size, zero_pad=True)
+        return _frames_to_mel(params, stacked)
 
 
 def _logpower(params: DecoderParams, cfg: DecoderConfig, x: torch.Tensor,

@@ -1,11 +1,12 @@
 """General utilities: channel selection, audio coercion, wall-clock
-benchmarking, pipeline tracing, platform checks.
+benchmarking, platform checks.
 
 Port of ``closed_loop_seeg_speech_synthesis_tpu/utils/__init__.py``, the
 framework's utility surface (mirroring the reference's ``local/utils.py``):
-the host-side file helpers of ``io.utils`` and the tracing machinery of
-``runtime.tracing`` re-exported, plus ``check_if_python_shell_is_x64`` and
-``dtw_warping``.  ``honor_platform_env`` (a JAX backend knob) is left out.
+the host-side file helpers of ``io.utils`` re-exported, plus
+``check_if_python_shell_is_x64`` and ``dtw_warping``.  ``honor_platform_env``
+(a JAX backend knob) and the JAX package's re-exports of its tracing flag
+are left out: the port's tracing is ``runtime.tracing``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ import logging
 import struct
 
 from ..io.utils import benchmark, in_offline_mode, select_channels, squeeze_audio_to_float64  # noqa: F401
-from ..runtime.tracing import StageTracer, activate_timing, timing_active  # noqa: F401
 
 logger = logging.getLogger("utils")
 

@@ -428,7 +428,7 @@ def test_decode_cli_exact_host_vocoder(decode_ws, tmp_path):
 
 def test_decode_cli_profile_writes_a_trace(decode_ws, tmp_path):
     """--profile DIR --device cpu decodes as without it and writes a Chrome
-    trace of the decode into DIR."""
+    trace of the decode into DIR, with the replay's seeg.* spans in it."""
     import json
 
     cfg, seeg, _ = decode_ws
@@ -441,3 +441,5 @@ def test_decode_cli_profile_writes_a_trace(decode_ws, tmp_path):
     with open(prof / "trace.json") as f:
         trace = json.load(f)
     assert len(trace["traceEvents"]) > 0
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"seeg.frontend", "seeg.vocode"} <= spans
