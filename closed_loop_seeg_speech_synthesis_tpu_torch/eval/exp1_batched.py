@@ -85,8 +85,8 @@ class FoldRunner:
         self.wlen = framing.offline_window_len(0.05, eeg_sr, starts)
         self.tr_ends = torch.as_tensor(starts + self.wlen, device=device)
         # decode-grid framing of the held-out sEEG
-        self.n_frames = len(framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms,
-                                                         eeg_sr, test_len + cfg.prefill))
+        self.n_frames = framing.frame_count(cfg.frame_len_ms, cfg.frame_shift_ms, eeg_sr,
+                                            test_len + cfg.prefill)
         self.n_stacked = (cfg.model_order + 1) * n_channels
 
     def _train_features(self, eeg):

@@ -5,6 +5,8 @@ Host half: numpy copy of ``closed_loop_seeg_speech_synthesis_tpu/ops/framing.py`
 ``streaming_frame_ends``, ``shift_table``, ``periodic_window_matrix`` and the
 training grid's ``offline_window_starts`` / ``offline_window_len``); the
 schedules are bit-identical (tests/test_torch_host_builders.py).
+``frame_count`` and ``periodic_window`` give the streaming grid's frame count
+and periodic window plan without its array of frame ends.
 
 Frame k ends at ``round_half_even(fsize + k * shift_samples)`` on the
 reference's absolute-time grid (FrameBuffer.py:177), computed in exact
@@ -44,10 +46,13 @@ def _exact_shift(shift_ms: float, sr: float) -> Fraction:
 def exact_frame_ends(frame_ms: float, shift_ms: float, sr: float, n: int) -> np.ndarray:
     """The first ``n`` frame ends on the exact streaming grid:
     e_k = N_k + tie(k), N_k = fsize + (k*p)//q, x.5 ties round to even."""
-    fsize = frame_size(frame_ms, sr)
     shift = _exact_shift(shift_ms, sr)
-    p, q = shift.numerator, shift.denominator
-    k = np.arange(n, dtype=np.int64)
+    return _frame_ends_at(frame_size(frame_ms, sr), shift.numerator, shift.denominator,
+                          np.arange(n, dtype=np.int64))
+
+
+def _frame_ends_at(fsize: int, p: int, q: int, k: np.ndarray) -> np.ndarray:
+    """e_k at the frame indices ``k`` (int64) for the shift p/q."""
     N = fsize + (k * p) // q
     rem = (k * p) % q
     up = (2 * rem > q) | ((2 * rem == q) & (N % 2 == 1))
@@ -64,6 +69,23 @@ def streaming_frame_ends(frame_ms: float, shift_ms: float, sr: float, total_len:
     n_max = int((total_len - fsize) / shift) + 2
     ends = exact_frame_ends(frame_ms, shift_ms, sr, n_max)
     return ends[ends <= total_len]
+
+
+def frame_count(frame_ms: float, shift_ms: float, sr: float, total_len: int) -> int:
+    """``len(streaming_frame_ends(frame_ms, shift_ms, sr, total_len))`` without
+    the array.  The ends never decrease and lie within half a sample of
+    fsize + k * shift, so frames k <= lo end before ``total_len`` and frames
+    k >= hi after it: only the ~2 / shift frames between are evaluated."""
+    fsize = frame_size(frame_ms, sr)
+    if total_len < fsize:
+        return 0
+    shift = _exact_shift(shift_ms, sr)
+    p, q = shift.numerator, shift.denominator
+    n_max = int((total_len - fsize) / shift) + 2
+    lo = max(0, (total_len - fsize - 1) * q // p)
+    hi = min(n_max, -(-(total_len - fsize + 1) * q // p))
+    k = np.arange(lo, hi, dtype=np.int64)
+    return lo + int(np.count_nonzero(_frame_ends_at(fsize, p, q, k) <= total_len))
 
 
 def shift_table(frame_ms: float, shift_ms: float, sr: float, check_horizon: int = 64) -> np.ndarray:
@@ -83,6 +105,9 @@ def shift_table(frame_ms: float, shift_ms: float, sr: float, check_horizon: int 
         f"with period {q} or {2*q}")
 
 
+MAX_WINDOW_PERIOD = 4096  # the longest period the periodic window plan takes
+
+
 def periodic_window_matrix(ends: np.ndarray, win: int):
     """(S (P, 2*Ls), Ls, P, origin) 0/1 window-selection matrix of a periodic
     schedule (e_{i+P} = e_i + Ls), or None if the schedule is not usable."""
@@ -90,20 +115,42 @@ def periodic_window_matrix(ends: np.ndarray, win: int):
     if len(ends) < 2:
         return None
     d = np.diff(ends)
-    for P in range(1, min(len(d), 4096) + 1):
+    for P in range(1, min(len(d), MAX_WINDOW_PERIOD) + 1):
         cand = d[:P]
         reps = np.tile(cand, len(d) // P + 1)[: len(d)]
         if np.array_equal(reps, d):
             Ls = int(cand.sum())
             if win > Ls:
                 return None
-            S = np.zeros((P, 2 * Ls), dtype=np.float64)
             origin = int(ends[0]) - win
-            for i in range(P):
-                lo = int(ends[i]) - win - origin
-                S[i, lo : lo + win] = 1.0
-            return S, Ls, P, origin
+            return window_matrix(ends[:P], win, Ls, origin), Ls, P, origin
     return None
+
+
+def window_matrix(ends: np.ndarray, win: int, Ls: int, origin: int) -> np.ndarray:
+    """S (P, 2*Ls) of ``periodic_window_matrix`` from the period's P frame ends."""
+    S = np.zeros((len(ends), 2 * Ls), dtype=np.float64)
+    for i, e in enumerate(ends):
+        lo = int(e) - win - origin
+        S[i, lo : lo + win] = 1.0
+    return S
+
+
+def periodic_window(frame_ms: float, sr: float, win: int, table: np.ndarray):
+    """(Ls, P, origin) of ``periodic_window_matrix(streaming_frame_ends(...), win)``
+    (its S: ``window_matrix(exact_frame_ends(..., P), win, Ls, origin)``), or
+    None where that is None, from the grid's ``shift_table`` alone, for grids
+    of at least 2 len(table) frames.  The diffs repeat with the table's
+    period Q, so their smallest period P divides Q, and a prefix of 2 Q - 1
+    or more diffs has no smaller one (Fine and Wilf): P is the smallest
+    divisor of Q under which the table repeats."""
+    Q = len(table)
+    P = next(P for P in range(1, Q + 1)
+             if Q % P == 0 and np.array_equal(table, np.tile(table[:P], Q // P)))
+    Ls = int(table[:P].sum())
+    if P > MAX_WINDOW_PERIOD or win > Ls:
+        return None
+    return Ls, P, frame_size(frame_ms, sr) - win  # the first frame ends at fsize
 
 
 def offline_window_starts(win_s: float, shift_s: float, sr: float, total_len: int) -> np.ndarray:

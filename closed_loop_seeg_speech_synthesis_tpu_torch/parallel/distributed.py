@@ -80,8 +80,8 @@ def global_mesh(model_axis: int = 1):
 
 
 def _n_frames(cfg: pipeline.DecoderConfig, n_samples: int) -> int:
-    return len(framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr,
-                                            n_samples + cfg.prefill))
+    return framing.frame_count(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr,
+                               n_samples + cfg.prefill)
 
 
 def distributed_replay(mesh, cfg: pipeline.DecoderConfig, params: pipeline.DecoderParams,

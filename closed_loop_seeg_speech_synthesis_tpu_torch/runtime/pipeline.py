@@ -138,10 +138,16 @@ class DecoderParams:
                                       # is also the online step's
     lowpass_op_batch: iir.BlockedIIR  # output low-pass at block 4096 (plain path)
     shift_table: torch.Tensor         # (period,) int32 frame shifts
+    shift_table_host: np.ndarray      # the same on the host (``mel_plan``'s period)
     frontend_ops: Optional[FrontendOps]
     device: torch.device
     smooth_pos: Optional[torch.Tensor] = None    # (n_mel, 5) reflect positions
     smooth_table: Optional[torch.Tensor] = None  # (n_mel, K^5) exact lattice (f64)
+    # K1's epilogue constants and packed LDA fragments, built with the params
+    # where K1 runs: ((n_channels, model_order), MelPlan.k1).  Not an
+    # argument, so ``dataclasses.replace`` (exp1's retrained folds) drops it
+    # and ``mel_plan`` builds the new LDA's per call.
+    k1: Optional[tuple] = dataclasses.field(default=None, init=False, repr=False)
 
 
 def build_decoder_params(cfg: DecoderConfig, lda_params: lda_mod.LDAParams,
@@ -169,7 +175,7 @@ def build_decoder_params(cfg: DecoderConfig, lda_params: lda_mod.LDAParams,
     coef = lda_params.coef.detach().cpu().numpy().astype(np.float64)
     coef_full = np.zeros(coef.shape[:2] + (cfg.n_stacked,), np.float64)
     coef_full[:, :, sel] = coef
-    return DecoderParams(
+    params = DecoderParams(
         filt_op=filt_op,
         filt_op_pkt=iir.make_blocked_iir(combined, cfg.packet_size, dt, device),
         filt_zi_scale=to(warm.zi_scale),
@@ -184,10 +190,14 @@ def build_decoder_params(cfg: DecoderConfig, lda_params: lda_mod.LDAParams,
         gl_audio_ops=make_gl_audio_ops(gl_ops, lowpass_ss, dt, device),
         lowpass_op_batch=iir.make_blocked_iir(lowpass_ss, 4096, dt, device),
         shift_table=torch.as_tensor(table, dtype=torch.int32, device=device),
+        shift_table_host=table,
         frontend_ops=frontend_ops,
         device=device,
         **(_exact_smooth_fields(medians, dt, device) if exact_smooth else {}),
     )
+    if cfg.use_cuda_epilogue and _runs_k1(params, cfg):
+        params.k1 = ((cfg.n_channels, cfg.model_order), _k1_constants(params, cfg))
+    return params
 
 
 def _exact_smooth_fields(medians, dt, device) -> dict:
@@ -287,10 +297,30 @@ def _vocode(params: DecoderParams, cfg: DecoderConfig, mel_frames: torch.Tensor,
         return gl.to_int16(lp[:, 0], cfg.gl_norm)
 
 
+def _runs_k1(params: DecoderParams, cfg: DecoderConfig) -> bool:
+    """K1 (or K3) can run for cfg: the front-end kernels on, float32 on CUDA,
+    and a frame schedule that the kernel takes.  ``mel_plan`` also asks for
+    a periodic grid."""
+    return (cfg.use_cuda_frontend and params.device.type == "cuda"
+            and cfg.dtype == torch.float32 and params.frontend_ops is not None)
+
+
+def _k1_constants(params: DecoderParams, cfg: DecoderConfig) -> tuple:
+    """``MelPlan.k1`` for cfg's channels and model order: the ones built with
+    the params where they are for those, else built here (small launches on
+    the params' device)."""
+    if params.k1 is not None and params.k1[0] == (cfg.n_channels, cfg.model_order):
+        return params.k1[1]
+    consts = epilogue_constants(params.lda_coef_full, params.lda.intercept, params.lda.valid,
+                                params.lda.classes, params.medians, params.gauss_kernel,
+                                cfg.n_channels, cfg.model_order)
+    return consts + (pack_lda_weights(consts[0], cfg.n_channels, cfg.model_order + 1),)
+
+
 @dataclasses.dataclass
 class MelPlan:
     """What ``_mel_frames`` needs besides the sEEG that depends only on the
-    model and the input length: the frame grid, its periodic window plan,
+    model and the input length: the frame count, the periodic window plan,
     and for K1 the epilogue's constants and its packed 3xTF32 LDA
     fragments.  A caller that decodes many inputs of one length with one
     model (exp2's chance segments) builds it once (``mel_plan``), as the JAX
@@ -298,7 +328,8 @@ class MelPlan:
 
     n_samples: int                  # T, the input length it was built for
     n_frames: int
-    ends: np.ndarray                # (n_frames,) frame ends
+    ends: Optional[np.ndarray]      # (n_frames,) frame ends, only where read: the plain
+                                    # path on a grid with no periodic window plan
     window: Optional[tuple]         # plain path on a periodic grid: (S (P, 2 Ls), Ls, P, origin)
     k1: Optional[tuple] = None      # (W5, bm, med_slot, smoothM, packed W5) where K1 runs
     k3: bool = False                # K3 runs (K1 without its epilogue)
@@ -306,27 +337,46 @@ class MelPlan:
 
 def mel_plan(params: DecoderParams, cfg: DecoderConfig, n_samples: int) -> MelPlan:
     """The ``MelPlan`` of ``n_samples``-sample inputs decoded with ``params``
-    (traced as ``seeg.frontend.plan``)."""
+    (traced as ``seeg.frontend.plan``), in time proportional to the grid's
+    period: the frame count from the few frames around the input's end
+    (``framing.frame_count``), the window plan from the params' shift table
+    (``framing.periodic_window``).  Below two table periods of frames the
+    frame ends' own period may look shorter, so there the plan searches
+    them (``framing.periodic_window_matrix``, as before) and counts it in
+    ``mel_plan.searched``.  Equal, field for field, to the plan built from
+    the whole array of frame ends, which it builds only for ``ends``."""
     with span("seeg.frontend.plan"):
         dev, dt = params.device, cfg.dtype
-        ends = framing.streaming_frame_ends(cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr,
-                                            n_samples + cfg.prefill)
-        pw = framing.periodic_window_matrix(ends, cfg.win)
-        on_cuda_f32 = dev.type == "cuda" and dt == torch.float32
-        use_k1 = (cfg.use_cuda_frontend and on_cuda_f32 and params.frontend_ops is not None
-                  and pw is not None)
-        plan = MelPlan(n_samples=n_samples, n_frames=len(ends), ends=ends, window=None)
+        grid = (cfg.frame_len_ms, cfg.frame_shift_ms, cfg.sr)
+        total = n_samples + cfg.prefill
+        n_frames = framing.frame_count(*grid, total)
+        table = params.shift_table_host
+        ends = S = None
+        if 0 < len(table) and 2 * len(table) <= n_frames:
+            pw = framing.periodic_window(cfg.frame_len_ms, cfg.sr, cfg.win, table)
+        else:
+            mel_plan.searched += 1
+            ends = framing.streaming_frame_ends(*grid, total)
+            pw = framing.periodic_window_matrix(ends, cfg.win)
+            if pw is not None:
+                S, *pw = pw
+        use_k1 = _runs_k1(params, cfg) and pw is not None
+        plan = MelPlan(n_samples=n_samples, n_frames=n_frames, ends=None, window=None)
         if use_k1 and cfg.use_cuda_epilogue:
-            consts = epilogue_constants(params.lda_coef_full, params.lda.intercept,
-                                        params.lda.valid, params.lda.classes, params.medians,
-                                        params.gauss_kernel, cfg.n_channels, cfg.model_order)
-            plan.k1 = consts + (pack_lda_weights(consts[0], cfg.n_channels, cfg.model_order + 1),)
+            plan.k1 = _k1_constants(params, cfg)
         elif use_k1:
             plan.k3 = True
         elif pw is not None:
-            S, Ls, P, origin = pw
+            Ls, P, origin = pw
+            if S is None:
+                S = framing.window_matrix(framing.exact_frame_ends(*grid, P), cfg.win, Ls, origin)
             plan.window = (torch.as_tensor(S, dtype=dt, device=dev), Ls, P, origin)
+        else:
+            plan.ends = framing.streaming_frame_ends(*grid, total) if ends is None else ends
         return plan
+
+
+mel_plan.searched = 0
 
 
 def _mel_frames(params: DecoderParams, cfg: DecoderConfig, eeg,
@@ -451,7 +501,7 @@ def make_online_step(params: DecoderParams, cfg: DecoderConfig, rand_source=0):
     if period == 0:
         raise ValueError("decoder params carry an empty shift table; rebuild them with "
                          "build_decoder_params (the exact grid is periodic at every rate)")
-    n_slots = max_frames_per_packet(P, table.cpu().numpy())
+    n_slots = max_frames_per_packet(P, params.shift_table_host)
     stack_len = cfg.model_order * cfg.step_size + 1
     slots = torch.arange(n_slots, device=dev)
     taps = torch.arange(0, stack_len, cfg.step_size, device=dev)

@@ -867,6 +867,43 @@ def test_exp2_chance_segment_kernels_match_plain(rs, cuda_device, iterations, ph
     assert off <= (0 if iterations == 0 else 0.001 * B * 160), off
 
 
+@pytest.mark.cuda
+def test_replay_builds_no_k1_constants_and_decodes_as_before(rs, cuda_device, monkeypatch):
+    """``offline_decode`` of a 60-s, 128-channel session at 1024 Hz: the params
+    carry K1's constants, so the replay's ``mel_plan`` calls neither
+    ``epilogue_constants`` nor ``pack_lda_weights`` and searches no frame
+    ends; the spectrogram and audio equal, bit for bit, those decoded with
+    the plan built as before (the frame ends searched, the constants built
+    per call)."""
+    cfg, dec = _decoder(rs, cuda_device, 1024.0, 128)
+    x = torch.as_tensor(rs.randn(60 * 1024, 128), dtype=torch.float32, device=cuda_device)
+    assert dec.k1 is not None and dec.k1[0] == (128, cfg.model_order)
+    ends = framing.streaming_frame_ends(50, 10, 1024.0, x.shape[0] + cfg.prefill)
+    assert framing.periodic_window_matrix(ends, cfg.win) is not None
+    consts = cuda_frontend.epilogue_constants(dec.lda_coef_full, dec.lda.intercept, dec.lda.valid,
+                                              dec.lda.classes, dec.medians, dec.gauss_kernel,
+                                              128, cfg.model_order)
+    old = pipeline.MelPlan(n_samples=x.shape[0], n_frames=len(ends), ends=ends, window=None,
+                           k1=consts + (cuda_frontend.pack_lda_weights(consts[0], 128,
+                                                                       cfg.model_order + 1),))
+    mel_old = pipeline._mel_frames(dec, cfg, x, old)
+    audio_old = pipeline._vocode(dec, cfg, mel_old,
+                                 gl.default_rand_init(len(ends) - 1, 0, 0, torch.float32,
+                                                      cuda_device))
+    calls = []
+    for name in ("epilogue_constants", "pack_lda_weights"):
+        real = getattr(pipeline, name)
+        monkeypatch.setattr(pipeline, name,
+                            lambda *a, _real=real, _name=name: calls.append(_name) or _real(*a))
+    searched = pipeline.mel_plan.searched
+    launches = cuda_frontend.frontend_decode_mels.launches
+    spec, audio = pipeline.offline_decode(dec, cfg, x)
+    torch.cuda.synchronize()
+    assert calls == [] and pipeline.mel_plan.searched == searched
+    assert cuda_frontend.frontend_decode_mels.launches == launches + 1
+    assert torch.equal(spec, mel_old) and torch.equal(audio, audio_old)
+
+
 def _persistent_session(dec, packets, timeout=120.0):
     """One session of the persistent loop over ``packets``; a watchdog sets
     the loop's abort word after ``timeout`` s, so a fault fails the test
