@@ -14,11 +14,12 @@ on one NVIDIA GPU.  Run from the repository root:
    the kernels stream in slabs); K2 (mel frames -> int16 audio) and K4 (mel frames ->
    Griffin-Lim blocks) without iterations, with the converging phase
    estimator and with the reference's exp(angle) estimator (quality-gated,
-   it is chaotic); K4's two regimes (the tensor-core kernel above
+   it is chaotic); K4's two regimes (the FFT kernel above
    ``cuda_gl.CLUSTER_MAX_B`` blocks, the thread-block cluster at or below)
    against each other on the session's first 2,048 blocks.  Each kernel's
    bound (the least time for its work: fp32 FMA at 67 TFLOP/s, 3xTF32 at
-   495/3 TFLOP/s, bytes at 3.35 TB/s) is computed from its shapes, and the
+   495/3 TFLOP/s, bytes at 3.35 TB/s; the FFT kernel's DFTs at the FFT's
+   5 N log2 N operations) is computed from its shapes, and the
    8 iterations' DFT products at 30 min are timed as fp32 ``torch.matmul``
    (TF32 off) for reference, as are K1's and K3's products (the Toeplitz
    Tmat u and Pmat u per period, K1's LDA).  For K1 and K3 it also prints
@@ -52,11 +53,11 @@ on one NVIDIA GPU.  Run from the repository root:
    not, and the output stays inside the f32 budget of the fused path.
 6b. The bf16 variants of K4 and K2 (``DecoderConfig.gl_bf16``, the JAX
    kernels' ``bf16=True`` branch; on the tensor cores ``gl_wgmma_kernel``,
-   whose SASS must hold HGMMA instructions, cuobjdump, while
-   ``gl_mma_kernel`` has only its float32 instantiation): each against its
+   whose SASS must hold HGMMA instructions, cuobjdump, while the float32
+   ``gl_fft_kernel`` holds none): each against its
    plain bf16 version on the replay's mel frames and inits, K4 at B = 4,
-   64-65 (the cluster and the bf16 crossing), 199, 447-449 (the float32
-   one) and 179,999, K2 at 199 and 179,999,
+   64-65 (the cluster and the bf16 crossing), 199, 447-449 and 179,999, K2
+   at 199 and 179,999,
    under the ``BF16_*`` gates (one iteration, both estimators: max |diff|
    within 1e-3 of the blocks' max, from 199 blocks on 99% of samples within
    2e-5 of it, the f32 kernel outside; K2 within 1 LSB on 99.9%; 8
@@ -127,7 +128,7 @@ on one NVIDIA GPU.  Run from the repository root:
    ``perform_offline_decoding`` on the same arrays, sEEG.hdf read back
    equal; (c) ``--vocoder exact-host`` (audio byte-equal to
    ``ops/host_vocoder`` on the same spectrogram and inits) and ``--profile``
-   (the trace names ``gl_mma_kernel`` and K1's kernels); (d) decodes with
+   (the trace names ``gl_fft_kernel`` and K1's kernels); (d) decodes with
    the committed h5py-written fixtures (the JAX package's params.h5, the
    reference's blob-only one, a gzip-chunked recording), equal to the
    arrays' decode; (e) ``cli.dev_streamer.main`` streaming 20 s in real time
@@ -298,9 +299,9 @@ PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apa
 # (PERF.md); the persistent phase holds every key, phase 7 key 0.
 QUIRK_WITHIN_MIN, QUIRK_MAX_RUN, QUIRK_KEYS, HOP = 0.99, 3, 5, 160
 # The bf16 variants of K2 / K4 (DecoderConfig.gl_bf16): K4 in the cluster
-# regime and across its bf16 threshold (cuda_gl.CLUSTER_MAX_B_BF16 = 64) and
-# its float32 one (448), K2 at exp2's sequential twin's 199 blocks, both at
-# the replay's blocks on the tensor cores.  One iteration: a bf16
+# regime and across its bf16 threshold (cuda_gl.CLUSTER_MAX_B_BF16 = 64), at
+# 447-449, K2 at exp2's sequential twin's 199 blocks, both at
+# the replay's blocks on the wgmma kernel.  One iteration: a bf16
 # kernel and its plain version differ only where another summation order
 # moves a frame or Z value across a bf16 rounding boundary (one bf16 step of
 # it times an inverse-DFT entry): max |diff| within BF16_ONE_MAX of the
@@ -334,7 +335,7 @@ def bound(fp32_flops, nbytes, tf32x3_flops=0.0, int32_ops=0.0, bf16_flops=0.0):
 @contextlib.contextmanager
 def regime_threshold(cuda_gl, cluster_max_b):
     """Force the Griffin-Lim regime: launches of B <= cluster_max_b blocks
-    take the cluster kernel, larger ones the tensor cores."""
+    take the cluster kernel, larger ones the large-B kernel."""
     saved = cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16
     cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B_BF16 = cluster_max_b
     try:
@@ -345,23 +346,27 @@ def regime_threshold(cuda_gl, cluster_max_b):
 
 def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False, bf16=False):
     """Bound of K4 (or, with ``tail``, K2) on B blocks in the regime its
-    launch picks: both DFT products in 3xTF32 on the tensor cores above
-    CLUSTER_MAX_B, else fp32 FMA; with ``bf16`` (threshold
-    CLUSTER_MAX_B_BF16) at the bf16 tensor-core rate in either regime (one
-    pass on bf16 operands).  The target magnitudes,
+    launch picks, all in fp32 FMA: the dense DFT products in the cluster
+    regime, two 256-point complex FFTs (5 N log2 N operations each) a block
+    and iteration above CLUSTER_MAX_B; with ``bf16`` (threshold
+    CLUSTER_MAX_B_BF16) the products at the bf16 tensor-core rate in either
+    regime (one pass on bf16 operands).  The target magnitudes,
     the Nyquist bin and K2's overlap-add and low-pass in fp32 FMA.  Bytes:
     the mel frames and inits read once, the blocks (K4) or int16 audio (K2)
     written once, and the constants (bf16: the DFT operands as bf16)."""
     frames, kin = 2 * B, 128 if phase_bug else 256
-    dft = 2.0 * frames * iterations * 256 * (256 + kin)
+    large = cuda_gl.regime(B, bf16) != "cluster"
+    if large and not bf16:
+        dft = 2.0 * B * iterations * 5 * 256 * 8
+    else:
+        dft = 2.0 * frames * iterations * 256 * (256 + kin)
     other = 2.0 * (frames * NM * 129 + frames * iterations * 2 * 256)
-    mma = cuda_gl.regime(B, bf16) == "mma"
-    # the operands the regime reads: the packed hi/lo DFTs or the f32 ones
-    consts = sum(t.numel() * 4 for t in (ops.gl_f32[:1] + ops.gl_f32[3:] + ops.gl_tf32 if mma
-                                         else ops.gl_f32))
+    # the operands the regime reads: the twiddle table or the f32 DFTs
+    consts = sum(t.numel() * 4 for t in (ops.gl_f32[:1] + ops.gl_f32[3:] + (ops.gl_twiddles,)
+                                         if large else ops.gl_f32))
     if bf16:  # the wgmma kernel reads the bf16 image, the cluster kernel the rounded f32 operands
         consts = sum(t.numel() * t.element_size() for t in ops.gl_f32[:1] + ops.gl_f32[3:]
-                     + (ops.gl_bf16[2:] if mma else ops.gl_bf16[:2]))
+                     + (ops.gl_bf16[2:] if large else ops.gl_bf16[:2]))
     nbytes = (B + 1) * NM * 4 + B * 480 * 4 + consts
     if tail:
         S, n_pow = ops.lp.dim, ops.n_pow
@@ -371,7 +376,7 @@ def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False, bf16=False)
         nbytes += B * 480 * 4
     if bf16:
         return bound(other, nbytes, bf16_flops=dft)
-    return bound(other, nbytes, dft) if mma else bound(other + dft, nbytes)
+    return bound(other + dft, nbytes)
 
 
 def frontend_bound(fops, T, C, n_frames, W5=None):
@@ -719,12 +724,12 @@ def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_cou
     say(f"== bf16 variants of K4 / K2 (DecoderConfig.gl_bf16) vs their plain bf16 versions")
     hgmma = sass_counts(_build, "gl_audio", "HGMMA")
     wgmma = [v for f, v in hgmma.items() if "gl_wgmma_kernel" in f]
-    mma = [v for f, v in hgmma.items() if "gl_mma_kernel" in f]
+    fft = [v for f, v in hgmma.items() if "gl_fft_kernel" in f]
     say(f"  SASS (cuobjdump -sass): HGMMA instructions in the two gl_wgmma_kernel instantiations "
-        f"{wgmma}, in gl_mma_kernel's {mma}")
-    check(len(wgmma) == 2 and min(wgmma) > 0 and mma == [0],
-          "gl_wgmma_kernel issues wgmma (HGMMA) in both estimators; gl_mma_kernel has one "
-          "instantiation, float32")
+        f"{wgmma}, in the two gl_fft_kernel ones {fft}")
+    check(len(wgmma) == 2 and min(wgmma) > 0 and fft == [0, 0],
+          "gl_wgmma_kernel issues wgmma (HGMMA) in both estimators; gl_fft_kernel, float32, "
+          "none")
     for fig in (k4, k2):
         fig["kernel"] = "gl_wgmma_kernel"
         fig["hgmma_instructions"] = wgmma
@@ -1288,7 +1293,7 @@ def exp2_phase(torch, dev, card, zero_counts, read_counts, runs=EXP2_RUNS):
     fig.update(segment_f32_vs_f64_flips=flips, segment_r_f32=float(r32), segment_r_f64=float(r64))
 
     # K1 at a segment's shapes, the plan built once (the batched path), and
-    # K2 on its frames: B = nf - 1 blocks, the cluster regime
+    # K2 on its frames: B = nf - 1 blocks, the FFT regime
     x = torch.as_tensor(seg, dtype=torch.float32, device=dev).contiguous()
     plan = pipeline.mel_plan(dec32, cfg32, T)
     *consts, packed = plan.k1
@@ -1304,11 +1309,11 @@ def exp2_phase(torch, dev, card, zero_counts, read_counts, runs=EXP2_RUNS):
           "K1 at a segment: shape, finite")
     check(agree >= AGREE_MIN and flips_k < FLIP_MAX, "K1 at a segment: agreement and label flips")
     B = plan.n_frames - 1
-    check(cuda_gl.regime(B) == "cluster", f"K2 at a segment's B = {B} takes the cluster regime")
+    check(cuda_gl.regime(B) == "fft", f"K2 at a segment's B = {B} takes the FFT regime")
     rand = gl.default_rand_init(B, 0, 0, torch.float32, dev)
     k2_args = (mel_k.contiguous(), rand, dec32.gl_audio_ops, GL_NORM, 8, True)
     k2_err = k2_agreement(cuda_gl, mel_k.contiguous(), rand, dec32.gl_audio_ops,
-                          "at a chance segment's shapes (cluster regime)")
+                          "at a chance segment's shapes (FFT regime)")
     per = lambda fn, reps: cuda_ms(torch, lambda: [fn() for _ in range(reps)]) / reps
     out["k1"] = {"max_abs_err": k1_err,
                  "ms": per(lambda: cuda_frontend.frontend_decode_mels(*k1_args, packed=packed),
@@ -1994,11 +1999,11 @@ def cli_phase(torch, dev, card, arrs, train_eeg, train_audio, exp1_r, zero_count
                                 "--profile", prof]))
         with open(os.path.join(prof, "trace.json")) as f:
             trace = f.read()
-        names = ("gl_mma_kernel", "chunk_scan_kernel", "carry_scan_kernel", "features_kernel",
+        names = ("gl_fft_kernel", "chunk_scan_kernel", "carry_scan_kernel", "features_kernel",
                  "lda_epilogue_kernel")
         say(f"  --profile: trace.json {len(trace) / 1e6:.1f} MB, kernels named: "
             f"{[n for n in names if n in trace]}")
-        check(all(n in trace for n in names), "--profile's trace names gl_mma_kernel and K1's "
+        check(all(n in trace for n in names), "--profile's trace names gl_fft_kernel and K1's "
                                                "four kernels")
 
         # (d) files that h5py wrote: the committed fixtures
@@ -2336,9 +2341,9 @@ def main(argv=None):
     say(f"  time at {MINUTES} min: kernel {k4_ms:.3f} ms (PR 3: 41.32), plain {k4_plain_ms:.3f} ms, "
         f"bound {k4_bound[0]:.3f} ms ({k4_bound[1]}) [{card}]")
 
-    # the two regimes on the same blocks: the tensor-core kernel (threshold 0)
+    # the two regimes on the same blocks: the FFT kernel (threshold 0)
     # against the cluster kernel (threshold REGIME_BLOCKS)
-    say(f"== K4 regimes on the session's first {REGIME_BLOCKS} blocks: tensor cores (3xTF32) vs "
+    say(f"== K4 regimes on the session's first {REGIME_BLOCKS} blocks: FFT (fp32) vs "
         f"cluster (fp32)")
     lm_r = lm[: REGIME_BLOCKS + 1].contiguous()
 

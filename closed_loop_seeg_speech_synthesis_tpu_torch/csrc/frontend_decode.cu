@@ -60,8 +60,7 @@
 //      the host in fragment order, slab by slab
 //      (cuda_frontend.pack_lda_weights), and each
 //      warp streams its 6 n-tiles of k-slabs from L2 through a 4-stage
-//      cp.async ring, as gl_mma_kernel (gl_audio.cu) streams its DFT
-//      matrices.  Then the first-max over the 9 slots (strict >: ties keep
+//      cp.async ring.  Then the first-max over the 9 slots (strict >: ties keep
 //      the first slot; bm holds -1e30 on invalid slots), the median select
 //      and the smoothing, in fp32.
 // Between launches 3 and 4 the (Kp P, C) features pass through device memory

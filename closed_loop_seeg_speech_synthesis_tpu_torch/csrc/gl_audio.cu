@@ -11,49 +11,63 @@
 //     Replaces closed_loop_seeg_speech_synthesis_tpu/ops/pallas_gl.py:141
 //     _gl_kernel (entry gl_blocks_pallas).
 //   Both take bf16 = 1 for the kernels' bf16=True branch (DecoderConfig.gl_bf16;
-//   pallas_gl._gl_loop with mm_t = bfloat16), below.  Tensor-core helpers:
-//   tf32_mma.cuh (mma.sync, 3xTF32) and wgmma.cuh (wgmma, mbarrier, bulk copies).
+//   pallas_gl._gl_loop with mm_t = bfloat16), below.  Helpers: tf32_mma.cuh
+//   (cp.async, the bf16 rounding) and wgmma.cuh (wgmma, mbarrier, bulk copies).
 //
 // Work.  Each iteration of each 480-sample block windows its two frames
-// (samples [0, 256) and [160, 416)), takes their forward 256-point real DFT
-// as a (2, 256) x (256, 256) product with make_rdft's [cos | sin] matrix
-// without the Nyquist bin (pallas_gl._split_nyquist), the Nyquist bin as a
-// +-1 dot product, the phase step per bin (exp(angle) with DC/Nyquist forced
-// to 0 or pi, phase_bug=1; or the unit phasor), the inverse as a (2, K) x
-// (K, 256) product (K = 128 under exp(angle), whose imaginary part is 0,
-// else 256) plus the Nyquist row, windows it and overlaps the two frames
-// into the block; the target magnitude is exp(logmel) @ Minv with
-// non-finite values scrubbed to 0.  The DFT operands are make_rdft's f32
-// bytes: a 256-entry cos table indexed by n*k mod 256 differs from them in
-// ~900 elements per matrix (the f64 angle 2*pi*n*k/256 is rounded before
-// the cos), and the exp(angle) iteration is chaotic, so another operand is
-// another result.
+// (samples [0, 256) and [160, 416)), takes their forward 256-point real DFT,
+// the phase step per bin (exp(angle) with DC/Nyquist forced to 0 or pi,
+// phase_bug=1; or the unit phasor), the inverse real DFT (under exp(angle)
+// the spectrum's imaginary part is 0), windows it and overlaps the two
+// frames into the block; the target magnitude is exp(logmel) @ Minv with
+// non-finite values scrubbed to 0.  The cluster kernel takes the DFTs as
+// products with make_rdft's f32 [cos | sin] matrices without the Nyquist
+// bin (pallas_gl._split_nyquist), the Nyquist bin as a +-1 dot product and
+// (K = 128 under exp(angle), else 256) inverse rows plus the Nyquist row;
+// the large-B float32 kernel as FFTs.  The exp(angle) iteration is chaotic:
+// another operand, or another order of summation, is another trajectory,
+// held to float64 by the tests' and the benchmark's gates.
 //
 // What bounds it on an H100, and the two regimes (the caller picks one by B:
 // ops/cuda_gl.regime):
-//   * Large B (replay: 180,000 blocks, 283 G FMA at 8 iterations under
-//     exp(angle), against 2 x 0.35 GB of inits and blocks): arithmetic,
-//     8.5 ms at the fp32 FMA peak (67 TFLOP/s), 3.4 ms at the 3xTF32 rate of
-//     the tensor cores (495/3 TFLOP/s).  gl_mma_kernel runs both products on
-//     the tensor cores with mma.sync.m16n8k8 TF32 in 3xTF32: with a = a_hi +
-//     a_lo and b = b_hi + b_lo, a*b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in
-//     fp32 accumulators (the dropped a_lo b_lo is ~2^-22 relative), so the
-//     products keep fp32 accuracy; single-pass TF32 is not used.  A CTA holds
-//     32 blocks (64 frames, the M of both products) in shared memory for all
-//     iterations.  Each of its 8 warps owns 16 bins of the forward product
-//     (their cos and sin columns, so the phase step runs on the accumulators
-//     in registers) and 32 output samples of the inverse.  The operands'
-//     hi/lo split is built once on the host (ops/cuda_gl.py) in mma fragment
-//     order; each warp streams its own k-slabs through a 4-stage cp.async
-//     ring in shared memory (a product's first slabs are issued before the
-//     barrier that precedes it), so every operand element leaves L2 once per
-//     64 frames (the fp32 kernel this replaces read it once per 16).  Frames
-//     are split in registers.  The tensor cores add into their accumulator
-//     rounding toward zero; summed over all k-steps in one accumulator, that
-//     puts the blocks 3-4x further from float64 than an fp32 product's
-//     (gl_kernel_probe.py).  So each k-step's three products go to a fresh
-//     accumulator that is added to the running sum in fp32.  The phase step, the Nyquist
-//     bin and the overlap-add stay fp32 on the CUDA cores.
+//   * Large B (replay: 180,000 blocks, 8 iterations): arithmetic.  As dense
+//     products the DFTs are 283 G FMA under exp(angle), 8.5 ms at the fp32
+//     FMA peak (67 TFLOP/s), 3.4 ms at the 3xTF32 rate of the tensor cores;
+//     as FFTs about a twentieth of that.  gl_fft_kernel gives each block one
+//     warp, 8 blocks a CTA, and keeps it in registers and a 2 KB exchange
+//     buffer of the warp's own for all iterations (tests/gl_fft_plan.py emulates
+//     the plan step for step).  The block's two windowed frames are one
+//     256-point complex FFT, z = f0 + i f1: X0[k] = (Z[k] + conj Z[256-k])/2
+//     and X1[k] = (Z[k] - conj Z[256-k])/2i are both frames' bins 0..128, the
+//     Nyquist bin included; the inverse takes W = Y0 + i Y1 of the corrected
+//     spectra extended Hermitian (make_rdft's weights w_k / 256 are that
+//     extension's), frame 0 its real part and frame 1 its imaginary part.
+//     The FFT is 8 x 8 x 4 in decimation in frequency, 8 complex values a
+//     lane: an 8-point DFT and twiddles in registers, an exchange through
+//     the buffer, again, another exchange, a 4-point DFT; the inverse is the
+//     same backwards (its adjoint).  The buffer's slots keep every exchange
+//     free of bank conflicts, and the last state gives each lane a bin's
+//     partner 256 - k with the bin, so unpacking, the phase step and packing
+//     stay in the lane; the first state holds samples n = lane + 32 b, so
+//     the in-block overlap-add (160 = 5 x 32) does too.  The twiddles are one
+//     table of cos and sin of 2 pi j / 256 rounded once from float64 (as the
+//     benchmark's reference computes its DFTs), not make_rdft's f32 matrix
+//     bytes.  The float32 FFT's rounding grows like log N where a dense
+//     product's grows like sqrt N, but at a bin near zero the two are alike,
+//     and there the phase step divides by the bin: where it is
+//     ill-conditioned (a bin small beside the block's norm, or under
+//     exp(angle) at the branch cut) those rare bins are summed again
+//     from the frames kept before their window in a second 2 KB buffer, in
+//     twice the precision (exact_bin; tests/test_torch_cuda.py::
+//     test_gl_kernel_tracks_float64 holds the kernel to float64).  No
+//     barrier but __syncwarp runs inside the iterations: the phase step's
+//     MUFU latency is hidden by the warps resident on an SM, not by barriers.
+//     The phase step is libdevice's atan2f and expf, as the cluster kernel's;
+//     the target magnitudes, exp(logmel) @ Minv in fp32, are computed once a
+//     block.  Resources (nvcc -Xptxas -v, sm_90a): 126-128 registers, no
+//     spills, 36,608 bytes of static shared memory a CTA: 2 CTAs (16 warps)
+//     an SM.  The phase step takes ~74% of an iteration's cycles
+//     (gl_kernel_probe.py's clock64 stamps; PERF.md).
 //   * Small B (the online step: 1-4 blocks, 8 frames, ~0.8 M FMA an
 //     iteration): latency.  One CTA on one SM walks 8 iterations of dependent
 //     L2 reads of 512 KB of operands.  gl_cluster_kernel spreads a group of
@@ -199,242 +213,388 @@ __device__ __forceinline__ float nyquist_phase(float x, float sp, int phase_bug)
   return phase_bug ? sp * expf(x < 0.f ? PI_F : 0.f) : sp * (x < 0.f ? -1.f : 1.f);
 }
 
-// ---- large B: 3xTF32 tensor-core products -----------------------------------
+// ---- large B: one warp a block, its DFTs as 256-point FFTs in fp32 ----------
 
-constexpr int MB = 32;             // audio blocks per CTA
-constexpr int MF = 2 * MB;         // frames per CTA: the M of both products
-constexpr int MWARPS = 8;
-constexpr int MTHREADS = 32 * MWARPS;
-constexpr int AS = FFT + 4;        // frame-buffer row stride: A fragment loads hit 32 banks
-constexpr int SS = NBIN + 4;       // target-magnitude row stride (129 used)
-constexpr int NT = 4;              // n-tiles of 8 columns per warp
-constexpr int MTL = MF / 16;       // m-tiles of 16 frames
-constexpr int STAGES = 4;          // cp.async ring depth per warp
-constexpr int KSTEPS = FFT / 8;    // k-steps of 8 (m16n8k8)
-static_assert(MTHREADS == FFT, "one thread per window sample");
+constexpr int FWARPS = 8;                  // warps a CTA, one audio block each
+constexpr int FTHREADS = 32 * FWARPS;
+constexpr int XSLOTS = 36 * 7 + 31 + 1;    // float2 slots of a warp's exchange buffer (gl_fft_plan.SLOTS)
+static_assert(2 * 256 <= 2 * XSLOTS, "exp(logmel) of two rows of up to 256 mel bins fits it");
 
-// The operand of a product is (KSTEPS, NT, 32 lanes) float4s, exactly each
-// lane's B fragments, so a lane copies and reads only its own ring slots (no
-// warp barrier): slot nt holds (hi[k][n], hi[k+4][n], lo[k][n], lo[k+4][n])
-// with k = 8 ks + lane%4 and n the tile's column lane/4.  mma_prefetch issues
-// a product's first STAGES-1 k-slabs; it runs ahead of the barrier before the
-// product, once the previous product has read the ring.
-__device__ __forceinline__ void mma_prefetch(const float4* __restrict__ bpk, float4* ring,
-                                             int lane) {
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+// a e^(-i theta), or a e^(+i theta) when INV; w = (cos theta, sin theta)
+template <bool INV>
+__device__ __forceinline__ float2 twiddle(float2 a, float2 w) {
+  return INV ? make_float2(fmaf(a.x, w.x, -a.y * w.y), fmaf(a.y, w.x, a.x * w.y))
+             : make_float2(fmaf(a.x, w.x, a.y * w.y), fmaf(a.y, w.x, -a.x * w.y));
+}
+
+// a times -i, or +i when INV
+template <bool INV>
+__device__ __forceinline__ float2 quarter(float2 a) {
+  return INV ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
+
+// 4-point DFT (inverse when INV, not divided by 4) in place
+template <bool INV>
+__device__ __forceinline__ void dft4(float2& y0, float2& y1, float2& y2, float2& y3) {
+  const float2 e0 = cadd(y0, y2), e1 = csub(y0, y2), e2 = cadd(y1, y3),
+               e3 = quarter<INV>(csub(y1, y3));
+  y0 = cadd(e0, e2);
+  y1 = cadd(e1, e3);
+  y2 = csub(e0, e2);
+  y3 = csub(e1, e3);
+}
+
+// 8-point DFT in place: a radix-2 step, the odd half times e^(-+i pi n / 4),
+// then 4-point DFTs of the even and the odd bins
+template <bool INV>
+__device__ __forceinline__ void dft8(float2 (&v)[8]) {
+  constexpr float C = 0.70710678118654752f;  // cos(pi / 4), the twiddle table's entry 32
+  float2 a[4], d[4];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int n = 0; n < 4; ++n) {
+    a[n] = cadd(v[n], v[n + 4]);
+    d[n] = csub(v[n], v[n + 4]);
+  }
+  d[1] = INV ? make_float2(C * (d[1].x - d[1].y), C * (d[1].x + d[1].y))
+             : make_float2(C * (d[1].x + d[1].y), C * (d[1].y - d[1].x));
+  d[2] = quarter<INV>(d[2]);
+  d[3] = INV ? make_float2(-C * (d[3].x + d[3].y), C * (d[3].x - d[3].y))
+             : make_float2(C * (d[3].y - d[3].x), -C * (d[3].x + d[3].y));
+  dft4<INV>(a[0], a[1], a[2], a[3]);
+  dft4<INV>(d[0], d[1], d[2], d[3]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      cp_async16(ring + (s * NT + j) * 32 + lane, bpk + (s * NT + j) * 32 + lane);
-    cp_async_commit();
+  for (int m = 0; m < 4; ++m) {
+    v[2 * m] = a[m];
+    v[2 * m + 1] = d[m];
   }
 }
 
-// acc[mt][nt] = a[16 mt .. 16 mt + 16, 0 .. 8 ksteps) x this warp's packed
-// operand, n-tile nt, after mma_prefetch(bpk, ring, lane).
-__device__ __forceinline__ void mma_product(const float* __restrict__ a,
-                                            const float4* __restrict__ bpk, float4* ring,
-                                            int ksteps, float (&acc)[MTL][NT][4], int lane) {
-  const int g = lane >> 2, q = lane & 3;
+// A lane's constants of the FFT plan (tests/gl_fft_plan.py): its twiddles in state
+// A (W256^(lane kb)) and B (W32^(ap kc), lane = ap + 4 kb), and its first
+// slots in the exchanges: B's (36 kb + ap, then + 4 b'; B -> C: 4 kb + ap,
+// then + 33 kc) and C's two groups' (4 kb + 33 kc, then + ka)
+struct FftLane {
+  float2 w1[8], w2[8];  // [0] (1, 0) is never read
+  int ab, bc, c0, c1;
+};
+
+// z (state A: v[b] = z[lane + 32 b]) -> Z (state C: v[4 g + ka] = Z[kb_g + 8 kc_g + 64 ka])
+__device__ __forceinline__ void fft_forward(float2 (&v)[8], float2* buf, const FftLane& f,
+                                            int lane) {
+  dft8<false>(v);
 #pragma unroll
-  for (int mt = 0; mt < MTL; ++mt)
+  for (int k = 1; k < 8; ++k) v[k] = twiddle<false>(v[k], f.w1[k]);
+  __syncwarp();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+  for (int k = 0; k < 8; ++k) buf[lane + 36 * k] = v[k];
+  __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    cp_async_wait<STAGES - 2>();  // k-step ks has landed
-    const int nx = ks + STAGES - 1;  // refill the slot that k-step ks-1 used
-    if (nx < ksteps)
+  for (int b = 0; b < 8; ++b) v[b] = buf[f.ab + 4 * b];
+  dft8<false>(v);
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        cp_async16(ring + ((nx % STAGES) * NT + j) * 32 + lane, bpk + (nx * NT + j) * 32 + lane);
-    cp_async_commit();
-    float4 b[NT];
+  for (int k = 1; k < 8; ++k) v[k] = twiddle<false>(v[k], f.w2[k]);
+  __syncwarp();
 #pragma unroll
-    for (int j = 0; j < NT; ++j) b[j] = ring[((ks % STAGES) * NT + j) * 32 + lane];
-    const float* ak = a + g * AS + 8 * ks + q;
+  for (int k = 0; k < 8; ++k) buf[f.bc + 33 * k] = v[k];
+  __syncwarp();
 #pragma unroll
-    for (int mt = 0; mt < MTL; ++mt) {
-      const float* r = ak + 16 * mt * AS;
-      const float v[4] = {r[0], r[8 * AS], r[4], r[8 * AS + 4]};
-      uint32_t hi[4], lo[4];  // the mma reads lo's top 10 mantissa bits
+  for (int ka = 0; ka < 4; ++ka) {
+    v[ka] = buf[f.c0 + ka];
+    v[4 + ka] = buf[f.c1 + ka];
+  }
+  dft4<false>(v[0], v[1], v[2], v[3]);
+  dft4<false>(v[4], v[5], v[6], v[7]);
+}
+
+// The adjoint: W (state C) -> sum_k W[k] e^(2 pi i n k / 256) (state A), not divided by 256
+__device__ __forceinline__ void fft_inverse(float2 (&v)[8], float2* buf, const FftLane& f,
+                                            int lane) {
+  dft4<true>(v[0], v[1], v[2], v[3]);
+  dft4<true>(v[4], v[5], v[6], v[7]);
+  __syncwarp();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        hi[i] = tf32_hi(v[i]);
-        lo[i] = __float_as_uint(v[i] - __uint_as_float(hi[i]));
-      }
-      // the tensor cores add into their accumulator rounding toward zero:
-      // each k-step sums into a fresh one, added to acc rounding to nearest
+  for (int ka = 0; ka < 4; ++ka) {
+    buf[f.c0 + ka] = v[ka];
+    buf[f.c1 + ka] = v[4 + ka];
+  }
+  __syncwarp();
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint32_t bh0 = __float_as_uint(b[nt].x), bh1 = __float_as_uint(b[nt].y);
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32(c, lo, bh0, bh1);
-        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-        mma_tf32(c, hi, bh0, bh1);
+  for (int k = 0; k < 8; ++k) v[k] = buf[f.bc + 33 * k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];
-      }
-    }
+  for (int k = 1; k < 8; ++k) v[k] = twiddle<true>(v[k], f.w2[k]);
+  dft8<true>(v);
+  __syncwarp();
+#pragma unroll
+  for (int b = 0; b < 8; ++b) buf[f.ab + 4 * b] = v[b];
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = buf[lane + 36 * k];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) v[k] = twiddle<true>(v[k], f.w1[k]);
+  dft8<true>(v);
+}
+
+// s + c += x (th + tl), the product split exactly by an FMA and the sum by an
+// error-free addition (Ogita, Rump and Oishi's Dot2): the rounding intrinsics
+// keep the compiler from fusing what the splits take apart
+__device__ __forceinline__ void dot2_add(float x, float th, float tl, float& s, float& c) {
+  const float p = __fmul_rn(x, th);
+  const float pe = fmaf(x, th, -p);
+  const float t = __fadd_rn(s, p), z = __fsub_rn(t, s);
+  const float se = __fadd_rn(__fsub_rn(s, __fsub_rn(t, z)), __fsub_rn(p, z));
+  s = t;
+  c += se + fmaf(x, tl, pe);
+}
+
+// (s, c) of every lane summed over the warp in the same way; every lane ends
+// with the same pair (an error-free addition does not depend on its order)
+__device__ __forceinline__ void dot2_reduce(float& s, float& c) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float so = __shfl_xor_sync(0xffffffffu, s, off), co = __shfl_xor_sync(0xffffffffu, c, off);
+    const float t = __fadd_rn(s, so), z = __fsub_rn(t, s);
+    const float e = __fadd_rn(__fsub_rn(s, __fsub_rn(t, z)), __fsub_rn(so, z));
+    s = t;
+    c = c + co + e;
   }
 }
 
-constexpr size_t MMA_SMEM = (size_t)(4 * MWARPS * STAGES * NT * 32 + MF * AS + MF * SS + 3 * FFT +
-                                     2 * MF) * sizeof(float);
+// Bin k of frame h of the warp's block as if computed in twice the precision
+// and rounded: sum_n u[n] w[n] e^(-2 pi i k n / 256) over the 256 samples,
+// n = lane + 32 b, from the frame before its window (frm: x frame 0, y frame
+// 1) and the lane's window values wn, each u w split exactly by an FMA, with
+// the twiddles' float32 parts and their remainders (twid: cos, sin,
+// cos - cos_f32, sin - sin_f32).  All lanes return it.
+__device__ __forceinline__ float2 exact_bin(const float2* frm, const float (&wn)[8],
+                                            const float4* __restrict__ twid, int k, int h,
+                                            int lane) {
+  float sr = 0.f, cr = 0.f, si = 0.f, ci = 0.f;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const int n = lane + 32 * b;
+    const float u = h ? frm[n].y : frm[n].x;
+    const float x = __fmul_rn(u, wn[b]), xe = fmaf(u, wn[b], -x);
+    const float4 t = __ldg(twid + ((k * n) & (FFT - 1)));
+    dot2_add(x, t.x, t.z, sr, cr);
+    dot2_add(-x, t.y, t.w, si, ci);
+    cr = fmaf(xe, t.x, cr);
+    ci = fmaf(-xe, t.y, ci);
+  }
+  dot2_reduce(sr, cr);
+  dot2_reduce(si, ci);
+  return make_float2(sr + cr, si + ci);
+}
 
-// The DFT products in 3xTF32 (fpk / ipk the operands' hi/lo fragments); the
-// target magnitudes, the Nyquist bin, the phase step and the overlap-add fp32.
-__global__ void __launch_bounds__(MTHREADS, 1) gl_mma_kernel(
+// Bins whose phase the float32 FFT leaves ill-conditioned are summed again by
+// exact_bin: |X| below 2^-12 of the block's norm sqrt(sum |z|^2) (the FFT's
+// rounding, ~1e-7 of the norm and 1e-6 at most, is then at most ~1e-3 of the
+// bin), and under exp(angle) those within 2^-18 of the norm of the branch
+// cut (X real and negative: angle +-pi, e^angle 23 or 0.04); DC and Nyquist,
+// whose angle is their sign, by the first rule.  Squares against the
+// squared norm; the unpacked bins are twice the frames' (TQ1, TQ2 say so).
+// Random inits put about 1 bin in 10^7 below the first; under exp(angle)
+// the spectra come out nearly real, and about 1 in 7,000 lie at the cut
+// (tests/gl_fft_plan.py emulates the rule).
+constexpr float TQ1 = 0x1p-22f, TQ2 = 0x1p-34f;
+
+// Griffin-Lim of one block a warp.  BUG: the exp(angle) estimator, else the
+// unit phasor.  twid: (256, 4) cos and sin of 2 pi j / 256 and their
+// remainders (ops/cuda_gl.twiddle_table).
+template <bool BUG>
+__global__ void __launch_bounds__(FTHREADS, 2) gl_fft_kernel(
     const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
-    const float4* __restrict__ fpk, const float4* __restrict__ ipk,
-    const float* __restrict__ fnyq, const float* __restrict__ inyq,
-    const float* __restrict__ win, float* __restrict__ G, int B, int NM, int iterations,
-    int phase_bug) {
-  extern __shared__ __align__(16) float smem[];
-  float4* ring = reinterpret_cast<float4*>(smem);  // (MWARPS, STAGES, NT, 32)
-  float* a = smem + 4 * MWARPS * STAGES * NT * 32; // (MF, AS): frames, Z, Y
-  float* spec = a + MF * AS;                       // (MF, SS) target magnitudes
-  float* w = spec + MF * SS;                       // (FFT) window
-  float* wn = w + FFT;                             // (FFT) forward Nyquist column
-  float* wi = wn + FFT;                            // (FFT) inverse Nyquist row
-  float* xn = wi + FFT;                            // (MF) Nyquist bin
-  float* zn = xn + MF;                             // (MF) Nyquist bin, phase-corrected
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int b0 = blockIdx.x * MB;
+    const float4* __restrict__ twid, const float* __restrict__ win, float* __restrict__ G, int B,
+    int NM, int iterations) {
+  __shared__ float2 tw[FFT];
+  __shared__ float2 xbuf[FWARPS][XSLOTS];
+  __shared__ float2 fbuf[FWARPS][FFT];  // the iteration's frames before the window, for exact_bin
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * FWARPS + warp;
+  const float* init = rnd + (size_t)b * BLK;
   if (iterations == 0) {
-    for (int i = t; i < MB * BLK; i += MTHREADS) {
-      const int b = b0 + i / BLK;
-      if (b < B) G[(size_t)b * BLK + i % BLK] = rnd[(size_t)b * BLK + i % BLK];
-    }
+    if (b < B)
+      for (int s = lane; s < BLK; s += 32) G[(size_t)b * BLK + s] = init[s];
     return;
   }
-  // the frames as 16-byte copies, all in flight while the target magnitudes
-  // are computed (exp(logmel) staged in the ring, free until the first product)
-  for (int i = t; i < MF * (FFT / 4); i += MTHREADS) {
-    const int f = i / (FFT / 4), c = 4 * (i % (FFT / 4)), b = b0 + (f >> 1);
-    if (b < B)
-      cp_async16(a + f * AS + c, rnd + (size_t)b * BLK + (f & 1) * HOP + c);
-    else
-      *reinterpret_cast<float4*>(a + f * AS + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  cp_async_commit();
-  w[t] = win[t];
-  wn[t] = fnyq[t];
-  wi[t] = inyq[t];
-  float* ex = reinterpret_cast<float*>(ring);  // (NM, MF), NM <= 256
-  for (int i = t; i < MF * NM; i += MTHREADS) {
-    const int f = i % MF, m = i / MF, b = b0 + (f >> 1);  // frame f: block f/2, mel row block + f%2
-    ex[i] = b < B ? expf(lm[(size_t)(b + (f & 1)) * NM + m]) : 0.f;
+  for (int i = threadIdx.x; i < FFT; i += FTHREADS) {
+    const float4 t = twid[i];
+    tw[i] = make_float2(t.x, t.y);
   }
   __syncthreads();
-  {  // thread (half, k): bin k of 32 frames, one Minv load per 32 FMAs;
-     // threads t < MF also the Nyquist bin of frame t
-    const int k = t & (NBIN - 1), f0 = (t >> 7) * (MF / 2);
-    float sk[MF / 2], sn = 0.f;
+  if (b >= B) return;
+  float2* buf = xbuf[warp];
+  float2* frm = fbuf[warp];
+  // the frames of the inits (state A), in flight while the target magnitudes are computed
+  float wn[8], f0[8], f1[8];
 #pragma unroll
-    for (int j = 0; j < MF / 2; ++j) sk[j] = 0.f;
-    for (int m = 0; m < NM; ++m) {
-      const float mv = __ldg(minv + m * (NBIN + 1) + k);
-      const float4* e4 = reinterpret_cast<const float4*>(ex + m * MF + f0);
+  for (int j = 0; j < 8; ++j) {
+    wn[j] = __ldg(win + lane + 32 * j);
+    f0[j] = __ldg(init + lane + 32 * j);
+    f1[j] = __ldg(init + HOP + lane + 32 * j);
+  }
+  FftLane f;
+  {
+    const int kb = lane >> 2, ap = lane & 3;
+    f.ab = 36 * kb + ap;
+    f.bc = 4 * kb + ap;
 #pragma unroll
-      for (int j = 0; j < MF / 8; ++j) {
-        const float4 v = e4[j];
-        sk[4 * j] = fmaf(v.x, mv, sk[4 * j]);
-        sk[4 * j + 1] = fmaf(v.y, mv, sk[4 * j + 1]);
-        sk[4 * j + 2] = fmaf(v.z, mv, sk[4 * j + 2]);
-        sk[4 * j + 3] = fmaf(v.w, mv, sk[4 * j + 3]);
-      }
-      if (t < MF) sn = fmaf(ex[m * MF + t], __ldg(minv + m * (NBIN + 1) + NBIN), sn);
+    for (int k = 0; k < 8; ++k) {
+      f.w1[k] = tw[lane * k];
+      f.w2[k] = tw[8 * ap * k];
     }
-#pragma unroll
-    for (int j = 0; j < MF / 2; ++j) spec[(f0 + j) * SS + k] = isfinite(sk[j]) ? sk[j] : 0.f;
-    if (t < MF) spec[t * SS + NBIN] = isfinite(sn) ? sn : 0.f;
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int i = t; i < MF * FFT; i += MTHREADS) a[(i / FFT) * AS + i % FFT] *= w[i % FFT];
-  __syncthreads();
-  float acc[MTL][NT][4];
-  float4* wring = ring + warp * STAGES * NT * 32;
-  const float4* wfpk = fpk + (size_t)warp * KSTEPS * NT * 32;
-  const float4* wipk = ipk + (size_t)warp * KSTEPS * NT * 32;
-  mma_prefetch(wfpk, wring, lane);
+  // state C: group 0 and its partner, whose bins are 256 - k of group 0's
+  int kb0 = (lane >> 2) & 3, kb1;
+  const int kc0 = (lane & 3) + 4 * (lane >> 4);
+  if (lane >= 16 && kb0 == 0) kb0 = 4;
+  int kc1;
+  if (kb0 == 0 && kc0 == 0) {
+    kb1 = 0;
+    kc1 = 4;
+  } else if (kb0 == 0 || kb0 == 4) {
+    kb1 = kb0;
+    kc1 = (kb0 == 0 ? 8 : 7) - kc0;
+  } else {
+    kb1 = 8 - kb0;
+    kc1 = 7 - kc0;
+  }
+  f.c0 = 4 * kb0 + 33 * kc0;
+  f.c1 = 4 * kb1 + 33 * kc1;
+  // the lane's 4 bins k < 128, at positions 0, 1, 5 and 4 of state C (gl_fft_plan.LO):
+  // group 0's ka = 0, 1 and group 1's ka = 1, 0
+  const int k0 = kb0 + 8 * kc0, k1 = kb1 + 8 * kc1;
+  const int bin[4] = {k0, k0 + 64, k1 + 64, k1};
+  // target magnitudes exp(logmel) @ Minv of the lane's bins and of Nyquist, both
+  // frames (log-mel rows b and b + 1); exp(logmel) staged in the exchange buffer
+  float* ex = reinterpret_cast<float*>(buf);
+  for (int i = lane; i < 2 * NM; i += 32) ex[i] = expf(lm[(size_t)b * NM + i]);
+  __syncwarp();
+  float sp0[4], sp1[4], sn0 = 0.f, sn1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sp0[j] = sp1[j] = 0.f;
+  for (int m = 0; m < NM; ++m) {
+    const float e0 = ex[m], e1 = ex[NM + m];
+    const float* row = minv + m * (NBIN + 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float mv = __ldg(row + bin[j]);
+      sp0[j] = fmaf(e0, mv, sp0[j]);
+      sp1[j] = fmaf(e1, mv, sp1[j]);
+    }
+    const float mn = __ldg(row + NBIN);
+    sn0 = fmaf(e0, mn, sn0);
+    sn1 = fmaf(e1, mn, sn1);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sp0[j] = isfinite(sp0[j]) ? sp0[j] : 0.f;
+    sp1[j] = isfinite(sp1[j]) ? sp1[j] : 0.f;
+  }
+  sn0 = isfinite(sn0) ? sn0 : 0.f;
+  sn1 = isfinite(sn1) ? sn1 : 0.f;
+  float2 v[8];  // the frames z = f0 + i f1 in state A, u w
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    frm[lane + 32 * j] = make_float2(f0[j], f1[j]);
+    v[j] = make_float2(f0[j] * wn[j], f1[j] * wn[j]);
+  }
+  const bool l0 = lane == 0;  // DC and Nyquist (group (0, 0)) and bins 64, 96, 32
   for (int it = 0; it < iterations; ++it) {
-    // forward: bins [16 warp, 16 warp + 16), cos columns in n-tiles 0-1, sin in 2-3
-    mma_product(a, wfpk, wring, KSTEPS, acc, lane);
-    mma_prefetch(wipk, wring, lane);
-    {  // Nyquist bin: 4 lanes per frame
-      const int f = t >> 2, part = t & 3;
-      float s = 0.f;
-      for (int n = part; n < FFT; n += 4) s = fmaf(a[f * AS + n], wn[n], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (part == 0) xn[f] = s;
+    float e = 0.f;  // sum |z|^2 over the block
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e = fmaf(v[j].x, v[j].x, fmaf(v[j].y, v[j].y, e));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
+    fft_forward(v, buf, f, lane);
+    // slot j: bin k (lo) and its partner 256 - k (hi, gl_fft_plan.HI; lane 0's
+    // slot 0 is DC, whose hi is itself).  Twice both frames' bins, frame h
+    // at 2 j + h: X0 = lo + conj hi, X1 = -i (lo - conj hi); the phase step
+    // is blind to the factor 2.  Nyquist (lane 0) is Z[128] itself
+    const float2 lo[4] = {v[0], v[1], v[5], v[4]};
+    const float2 hi[4] = {l0 ? v[0] : v[7], l0 ? v[3] : v[6], l0 ? v[6] : v[2],
+                          l0 ? v[7] : v[3]};
+    float xr[8], xi[8], xn[2] = {v[2].x, v[2].y};
+    unsigned flags = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      xr[2 * j] = lo[j].x + hi[j].x;
+      xi[2 * j] = lo[j].y - hi[j].y;
+      xr[2 * j + 1] = lo[j].y + hi[j].y;
+      xi[2 * j + 1] = hi[j].x - lo[j].x;
     }
-    __syncthreads();
-    // phase step on the accumulators; Z = [zr | zi] replaces the frames
 #pragma unroll
-    for (int mt = 0; mt < MTL; ++mt)
+    for (int q = 0; q < 8; ++q) {
+      const bool small = fmaf(xr[q], xr[q], xi[q] * xi[q]) < TQ1 * e;
+      const bool cut = BUG && !(l0 && q < 2) && xr[q] < 0.f && xi[q] * xi[q] < TQ2 * e;
+      flags |= (small || cut) ? 1u << q : 0u;
+    }
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) flags |= l0 && 4.f * xn[h] * xn[h] < TQ1 * e ? 1u << (8 + h) : 0u;
+    for (unsigned owners = __ballot_sync(0xffffffffu, flags != 0); owners; owners &= owners - 1) {
+      const int src = __ffs(owners) - 1;
+      for (unsigned fl = __shfl_sync(0xffffffffu, flags, src); fl; fl &= fl - 1) {
+        const int q = __ffs(fl) - 1, j = (q >> 1) & 3, h = q & 1;
+        const int kq = q >= 8 ? FFT / 2 : j == 0 ? k0 : j == 1 ? k0 + 64 : j == 2 ? k1 + 64 : k1;
+        const float2 x = exact_bin(frm, wn, twid, __shfl_sync(0xffffffffu, kq, src), h, lane);
+        if (lane == src) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int f = 16 * mt + g + 8 * (j >> 1);
-          const int k = 16 * warp + 8 * h + 2 * q + (j & 1);
-          float zr, zi;
-          phase_step(acc[mt][h][j], -acc[mt][h + 2][j], spec[f * SS + k], k == 0, phase_bug, zr,
-                     zi);
-          a[f * AS + k] = zr;
-          if (!phase_bug) a[f * AS + NBIN + k] = zi;
-        }
-    if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);
-    __syncthreads();
-    // inverse: output samples [32 warp, 32 warp + 32); the sin rows vanish under phase_bug
-    mma_product(a, wipk, wring, phase_bug ? KSTEPS / 2 : KSTEPS, acc, lane);
-    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);
-    __syncthreads();
-#pragma unroll
-    for (int mt = 0; mt < MTL; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int f = 16 * mt + g + 8 * (j >> 1);
-          const int n = 32 * warp + 8 * nt + 2 * q + (j & 1);
-          a[f * AS + n] = (acc[mt][nt][j] + zn[f] * wi[n]) * w[n];
-        }
-    __syncthreads();
-    // overlap-add within each block (warp-local): the next windowed frames,
-    // or after the last iteration the block itself (samples [416, 480) are 0)
-    for (int bl = warp; bl < MB; bl += MWARPS) {
-      float* y0 = a + 2 * bl * AS;
-      float* y1 = y0 + AS;
-      if (it + 1 < iterations) {
-        float n0[FFT / 32], n1[FFT / 32];
-#pragma unroll
-        for (int i = 0; i < FFT / 32; ++i) {
-          const int n = lane + 32 * i;
-          n0[i] = (y0[n] + (n >= HOP ? y1[n - HOP] : 0.f)) * w[n];
-          n1[i] = ((n < FFT - HOP ? y0[n + HOP] : 0.f) + y1[n]) * w[n];
-        }
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < FFT / 32; ++i) {
-          y0[lane + 32 * i] = n0[i];
-          y1[lane + 32 * i] = n1[i];
-        }
-      } else if (b0 + bl < B) {
-        for (int s = lane; s < BLK; s += 32) {
-          float v = 0.f;
-          if (s < FFT) v += y0[s];
-          if (s >= HOP && s < HOP + FFT) v += y1[s - HOP];
-          G[(size_t)(b0 + bl) * BLK + s] = v;
+          for (int r = 0; r < 8; ++r)
+            if (q == r) {
+              xr[r] = 2.f * x.x;
+              xi[r] = 2.f * x.y;
+            }
+          if (q == 8) xn[0] = x.x;
+          if (q == 9) xn[1] = x.x;
         }
       }
     }
-    __syncthreads();
+    // the phase step on both frames; W = Y0 + i Y1 at k and conj Y0 + i conj Y1 at 256 - k
+    float2 wl[4], wh[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float zr0, zi0, zr1, zi1;
+      phase_step(xr[2 * j], xi[2 * j], sp0[j], l0 && j == 0, BUG, zr0, zi0);
+      phase_step(xr[2 * j + 1], xi[2 * j + 1], sp1[j], l0 && j == 0, BUG, zr1, zi1);
+      wl[j] = make_float2(zr0 - zi1, zi0 + zr1);
+      wh[j] = make_float2(zr0 + zi1, zr1 - zi0);
+    }
+    const float2 wnyq = make_float2(nyquist_phase(xn[0], sn0, BUG), nyquist_phase(xn[1], sn1, BUG));
+    v[0] = wl[0];
+    v[1] = wl[1];
+    v[5] = wl[2];
+    v[4] = wl[3];
+    v[7] = l0 ? wh[3] : wh[0];
+    v[6] = l0 ? wh[2] : wh[1];
+    v[2] = l0 ? wnyq : wh[2];
+    v[3] = l0 ? wh[1] : wh[3];
+    fft_inverse(v, buf, f, lane);
+    // both frames times the window over 256 (a power of two: exact), then the
+    // in-block overlap-add (sample n of frame 1 is n + 160 of the block): the
+    // next windowed frames, or after the last iteration the block itself
+    // (samples [416, 480) are 0)
+    float t0[8], t1[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      t0[j] = v[j].x * wn[j] * (1.f / FFT);
+      t1[j] = v[j].y * wn[j] * (1.f / FFT);
+    }
+    if (it + 1 < iterations) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 u = make_float2(t0[j] + (j >= 5 ? t1[j - 5] : 0.f),
+                                     (j < 3 ? t0[j + 5] : 0.f) + t1[j]);
+        frm[lane + 32 * j] = u;
+        v[j] = make_float2(u.x * wn[j], u.y * wn[j]);
+      }
+    } else {
+      float* out = G + (size_t)b * BLK + lane;
+#pragma unroll
+      for (int j = 0; j < BLK / 32; ++j)
+        out[32 * j] = (j < 8 ? t0[j] : 0.f) + (j >= 5 && j < 13 ? t1[j - 5] : 0.f);
+    }
   }
 }
 
@@ -932,12 +1092,22 @@ cudaError_t launch_wgmma(const float* lm, const float* rnd, const float* minv,
   return cudaGetLastError();
 }
 
+// The FFT kernel on B blocks, 8 blocks a CTA.
+template <bool BUG>
+cudaError_t launch_fft(const float* lm, const float* rnd, const float* minv, const float4* twid,
+                       const float* win, float* G, int B, int NM, int iterations,
+                       cudaStream_t stream) {
+  gl_fft_kernel<BUG><<<(B + FWARPS - 1) / FWARPS, FTHREADS, 0, stream>>>(lm, rnd, minv, twid, win,
+                                                                         G, B, NM, iterations);
+  return cudaGetLastError();
+}
+
 // Griffin-Lim of B blocks into G: the cluster kernel when use_cluster, else
-// the tensor-core kernel (float32: gl_mma_kernel, 32 blocks a CTA; bf16:
-// gl_wgmma_kernel).
+// the large-B kernel (float32: gl_fft_kernel, `large` its twiddle table;
+// bf16: gl_wgmma_kernel, `large` the forward operand's image).
 cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
-                             const float* fm, const float* im, const float* fpk, const float* ipk,
-                             const float* fnyq, const float* inyq, const float* win, float* G,
+                             const float* fm, const float* im, const float* fnyq,
+                             const float* inyq, const float* win, const void* large, float* G,
                              int B, int NM, int iterations, int phase_bug, int use_cluster,
                              int bf16, cudaStream_t stream) {
   if (use_cluster)
@@ -946,45 +1116,39 @@ cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* min
                 : launch_cluster<false>(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
                                         iterations, phase_bug, stream);
   if (bf16) {
-    const uint8_t* image = reinterpret_cast<const uint8_t*>(fpk);
+    const uint8_t* image = static_cast<const uint8_t*>(large);
     return phase_bug ? launch_wgmma<true>(lm, rnd, minv, image, fnyq, inyq, win, G, B, NM,
                                           iterations, stream)
                      : launch_wgmma<false>(lm, rnd, minv, image, fnyq, inyq, win, G, B, NM,
                                            iterations, stream);
   }
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(gl_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)MMA_SMEM)) != cudaSuccess)
-    return err;
-  gl_mma_kernel<<<(B + MB - 1) / MB, MTHREADS, MMA_SMEM, stream>>>(
-      lm, rnd, minv, reinterpret_cast<const float4*>(fpk), reinterpret_cast<const float4*>(ipk),
-      fnyq, inyq, win, G, B, NM, iterations, phase_bug);
-  return cudaGetLastError();
+  const float4* twid = static_cast<const float4*>(large);
+  return phase_bug ? launch_fft<true>(lm, rnd, minv, twid, win, G, B, NM, iterations, stream)
+                   : launch_fft<false>(lm, rnd, minv, twid, win, G, B, NM, iterations, stream);
 }
 
 }  // namespace
 
-// bf16 = 0: fm / im the f32 DFT operands, fpk / ipk their 3xTF32 fragments;
-// bf16 = 1: fm / im the operands rounded to bf16 (as f32, the cluster
-// kernel's), fpk the forward operand's shared-memory image in bf16 (the
-// wgmma kernel's), ipk unused (ops/cuda_gl.make_gl_audio_ops builds both sets).
+// fm / im: the forward and inverse DFT operands (the cluster kernel's), f32,
+// or with bf16 = 1 rounded to bf16 (as f32); large: the large-B kernel's
+// operand, the FFT's twiddle table (f32) or the bf16 forward operand's
+// shared-memory image (ops/cuda_gl.make_gl_audio_ops builds both sets).
 extern "C" int gl_blocks(const float* lm, const float* rnd, const float* minv, const float* fm,
                          const float* im, const float* fnyq, const float* inyq, const float* win,
-                         const float* fpk, const float* ipk, float* G, int B, int NM,
-                         int iterations, int phase_bug, int use_cluster, int bf16,
-                         cudaStream_t stream) {
-  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, fpk, ipk, fnyq, inyq, win, G, B, NM,
+                         const void* large, float* G, int B, int NM, int iterations,
+                         int phase_bug, int use_cluster, int bf16, cudaStream_t stream) {
+  return (int)launch_gl_blocks(lm, rnd, minv, fm, im, fnyq, inyq, win, large, G, B, NM,
                                iterations, phase_bug, use_cluster, bf16, stream);
 }
 
 extern "C" int gl_audio(const float* lm, const float* rnd, const float* minv, const float* fm,
                         const float* im, const float* fnyq, const float* inyq, const float* win,
-                        const float* fpk, const float* ipk, const float* winv,
-                        const float* pmatT, const float* apow, const float* cpow, const float* h,
-                        float* G, float* CH, float* Q, short* out, int B, int NM, int S,
-                        int n_pow, int iterations, int phase_bug, int use_cluster, int bf16,
-                        float denom, cudaStream_t stream) {
-  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, fpk, ipk, fnyq, inyq, win, G, B, NM,
+                        const void* large, const float* winv, const float* pmatT,
+                        const float* apow, const float* cpow, const float* h, float* G, float* CH,
+                        float* Q, short* out, int B, int NM, int S, int n_pow, int iterations,
+                        int phase_bug, int use_cluster, int bf16, float denom,
+                        cudaStream_t stream) {
+  cudaError_t err = launch_gl_blocks(lm, rnd, minv, fm, im, fnyq, inyq, win, large, G, B, NM,
                                      iterations, phase_bug, use_cluster, bf16, stream);
   if (err != cudaSuccess) return (int)err;
   ola_kernel<<<B, HOP, 0, stream>>>(G, winv, pmatT, CH, Q, S);

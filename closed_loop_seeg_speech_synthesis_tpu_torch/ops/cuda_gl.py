@@ -15,9 +15,11 @@ The Griffin-Lim launch has two regimes, picked by the number of blocks B:
 up to ``CLUSTER_MAX_B`` blocks (the online step's 1-4; bf16:
 ``CLUSTER_MAX_B_BF16``) a thread-block
 cluster of 8 CTAs per 4 blocks computes the DFTs in fp32 FMA from the f32
-operands held in shared memory; above it (replay) a tensor-core kernel
-computes them in 3xTF32 from the operands' hi/lo split, which
-``make_gl_audio_ops`` builds once, in mma fragment order (``gl_tf32``).
+operands held in shared memory; above it (replay) one warp a block computes
+them as 256-point complex FFTs in fp32 FMA, from a table of twiddles that
+``make_gl_audio_ops`` builds once (``twiddle_table``, ``gl_twiddles``).  The
+wrappers count every float32 launch in ``launches`` and those of the FFT
+kernel also in ``launches_fft``.
 
 ``bf16=True`` (``DecoderConfig.gl_bf16``) is the JAX kernels' ``bf16=True``
 branch (``pallas_gl._gl_loop`` with ``mm_t = bfloat16``): the 128 clean-bin
@@ -41,14 +43,15 @@ import torch
 from . import _build, tf32, wgmma_layout
 from .griffinlim import BLOCK_SAMPLES, FFT_SIZE, HOP, StreamingGLOps, streaming_gl_blocks, to_int16
 from .iir import BlockedIIR, StateSpace, blocked_operators, make_blocked_iir
+from .stft import make_rdft
 
-# Largest B that the cluster kernel takes; above it the tensor-core kernel
-# (on an H100 the two cross between 448 and 512 blocks in float32; in bf16,
-# where the wgmma kernel takes about as long at any B up to a wave, between
-# 64 and 128: PERF.md).
-CLUSTER_MAX_B = 448
+# Largest B that the cluster kernel takes; above it the FFT kernel (float32)
+# or the wgmma kernel (bf16, which takes about as long at any B up to a wave:
+# the two cross between 64 and 128 blocks; PERF.md).  In float32 the FFT
+# kernel is the faster from 4 blocks on (gl_kernel_probe.py's sweep, PERF.md);
+# up to 8 blocks, which holds the online step's 1-4, stay on the cluster.
+CLUSTER_MAX_B = 8
 CLUSTER_MAX_B_BF16 = 64
-_MMA_WARPS = 8  # warps of a tensor-core CTA, each owning 4 n-tiles of 8 columns
 
 
 @dataclasses.dataclass
@@ -62,8 +65,8 @@ class GLAudioOps:
     apow: torch.Tensor    # (n_pow, S, S) powers (A^HOP)^p, p < n_pow
     winv: torch.Tensor    # (3, HOP) window-sum reciprocal of rows 0, 1 and >= 2
     gl_f32: tuple         # Griffin-Lim operands of K2 and K4 (_gl_operands)
-    gl_tf32: tuple        # forward and inverse DFT operands split hi/lo for 3xTF32,
-                          # in mma fragment order (_pack_fragments)
+    gl_twiddles: torch.Tensor  # (256, 4) float32 cos, sin of 2 pi j / 256 and their
+                               # remainders: the FFT kernel's (twiddle_table)
     gl_bf16: tuple        # the same two rounded to bf16, as float32 (the cluster
                           # kernel's and the plain version's), then the forward
                           # one's bf16 shared-memory image (the wgmma kernel's
@@ -89,20 +92,16 @@ def _gl_operands(gl: StreamingGLOps) -> tuple:
             _f32(rd.I_cos[Km]), _f32(gl.window))
 
 
-def fragment_columns(forward: bool) -> np.ndarray:
-    """(8 warps, 4 n-tiles) first column of each 8-column tile a warp of the
-    tensor-core kernel owns: forward, the cos and sin columns of bins
-    [16w, 16w + 16); inverse, output samples [32w, 32w + 32)."""
-    w = np.arange(_MMA_WARPS)[:, None]
-    if forward:
-        return 16 * w + np.array([0, 8, FFT_SIZE // 2, FFT_SIZE // 2 + 8])
-    return 32 * w + 8 * np.arange(4)
-
-
-def _pack_fragments(m: torch.Tensor, forward: bool) -> torch.Tensor:
-    """(256, 256) float32 operand -> its 3xTF32 B fragments (warp, k-step,
-    n-tile, lane, 4), the n-tiles of ``fragment_columns``."""
-    return tf32.pack_b_fragments(m, fragment_columns(forward))
+def twiddle_table(dtype=torch.float32, device=None) -> torch.Tensor:
+    """(256, 4): cos and sin of 2 pi j / 256, computed in float64 and rounded
+    once to ``dtype`` (make_rdft's entries are made the same way), then what
+    that rounding left of each, rounded (zero in float64): the FFT kernel's
+    twiddles, and the second parts with which its ``exact_bin`` sums."""
+    ang = 2.0 * np.pi * np.arange(FFT_SIZE) / FFT_SIZE
+    cs = np.stack([np.cos(ang), np.sin(ang)], 1)
+    hi = torch.as_tensor(cs, dtype=dtype)
+    lo = torch.as_tensor(cs - hi.double().numpy(), dtype=dtype)
+    return torch.cat([hi, lo], 1).to(device)
 
 
 def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float64,
@@ -121,7 +120,7 @@ def make_gl_audio_ops(gl: StreamingGLOps, lowpass: StateSpace, dtype=torch.float
     lp = make_blocked_iir(lowpass, HOP, dtype, device)
     gl_f32 = _gl_operands(gl)
     return GLAudioOps(gl=gl, lp=lp, apow=apow, winv=winv, gl_f32=gl_f32,
-                      gl_tf32=(_pack_fragments(gl_f32[1], True), _pack_fragments(gl_f32[2], False)),
+                      gl_twiddles=twiddle_table(torch.float32, gl_f32[0].device),
                       gl_bf16=(tf32.bf16_round(gl_f32[1]), tf32.bf16_round(gl_f32[2]),
                                wgmma_layout.sw128_image(gl_f32[1])),
                       tail_f32=(_f32(winv), _f32(lp.Pmat.T), _f32(apow), _f32(lp.Cpow),
@@ -151,7 +150,8 @@ def _check_inputs(what: str, dev: torch.device, log_mels: torch.Tensor,
 
 
 def _gl_loop_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
-                   iterations: int, phase_bug: bool, dtype=torch.float32) -> torch.Tensor:
+                   iterations: int, phase_bug: bool, dtype=torch.float32,
+                   bf16: bool = True) -> torch.Tensor:
     """Griffin-Lim blocks (B, 480) of the JAX kernels' bf16 branch, in
     float32: ``pallas_gl._gl_loop`` with ``mm_t = bfloat16`` in its split
     form.  Rounded to bf16 (nearest even): the windowed frames before the
@@ -160,11 +160,20 @@ def _gl_loop_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudio
     DFT matrices (``ops.gl_bf16``).  Not rounded: exp(logmel) @ Minv, the
     Nyquist bin (from the unrounded frames) and its inverse row, the phase
     step, the overlap-add.  ``dtype=torch.float64`` evaluates the same
-    rounded operands in float64 (the kernels' error budget)."""
+    rounded operands in float64 (the kernels' error budget).  Without
+    ``bf16`` nothing is rounded and the DFT matrices are make_rdft's in
+    ``dtype`` (in float64 the exact DFT on the float32 Minv and window: the
+    float32 kernels' error budget)."""
     dt, Km = dtype, FFT_SIZE // 2
     minv, _, _, fnyq, inyq, win = (t.to(dt) for t in ops.gl_f32)
-    fwd, inv = (t.to(dt) for t in ops.gl_bf16[:2])
-    rnd = lambda x: tf32.bf16_round(x).to(dt)
+    if bf16:
+        fwd, inv = (t.to(dt) for t in ops.gl_bf16[:2])
+        rnd = lambda x: tf32.bf16_round(x).to(dt)
+    else:
+        rd = make_rdft(FFT_SIZE, dt, win.device)
+        fwd = torch.cat([rd.F_cos[:, :Km], rd.F_sin[:, :Km]], 1)
+        inv = torch.cat([rd.I_cos[:Km], rd.I_sin[:Km]], 0)
+        rnd = lambda x: x
     e = torch.exp(log_mels.to(dt))
     spec_all = e @ minv                                          # (B+1, 129)
     spec_all = torch.where(torch.isfinite(spec_all), spec_all, torch.zeros_like(spec_all))
@@ -214,33 +223,35 @@ def gl_blocks_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudi
 
 
 def regime(B: int, bf16: bool = False) -> str:
-    """Which Griffin-Lim kernel a launch of B blocks runs (float32, or with
-    ``bf16`` the bf16 variants); the wrappers pass the choice to
+    """Which Griffin-Lim kernel a launch of B blocks runs: "cluster", else
+    "fft" (float32) or "wgmma" (``bf16``); the wrappers pass the choice to
     launch_gl_blocks in csrc/gl_audio.cu.  Reads CLUSTER_MAX_B (bf16:
     CLUSTER_MAX_B_BF16) at each call, so setting it forces a regime (0:
-    always the tensor cores)."""
-    return "cluster" if B <= (CLUSTER_MAX_B_BF16 if bf16 else CLUSTER_MAX_B) else "mma"
+    always the large-B kernel)."""
+    if B <= (CLUSTER_MAX_B_BF16 if bf16 else CLUSTER_MAX_B):
+        return "cluster"
+    return "wgmma" if bf16 else "fft"
 
 
 def _kernel_operands(ops: GLAudioOps, bf16: bool) -> tuple:
     """The Griffin-Lim launch's constants, in the C entries' order: Minv, the
-    forward and inverse DFT operands, the Nyquist column and row, the
-    window, then the tensor-core kernel's two operands: in f32 the 3xTF32
-    fragments of both; in bf16 the operands rounded (the cluster kernel's)
-    and the forward one's image in both places (the wgmma kernel reads the
-    first)."""
+    forward and inverse DFT operands (in bf16 rounded: the cluster kernel's),
+    the Nyquist column and row, the window, then the large-B kernel's
+    operand: the FFT's twiddle table, or the bf16 forward operand's image."""
     if not bf16:
-        return (*ops.gl_f32, *ops.gl_tf32)
+        return (*ops.gl_f32, ops.gl_twiddles)
     minv, _, _, fnyq, inyq, win = ops.gl_f32
     fwd, inv, image = ops.gl_bf16
-    return (minv, fwd, inv, fnyq, inyq, win, image, image)
+    return (minv, fwd, inv, fnyq, inyq, win, image)
 
 
-def _count(wrapper, bf16: bool) -> None:
+def _count(wrapper, kind: str, bf16: bool) -> None:
+    """Count a launch that ran the regime ``kind``."""
     if bf16:
         wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+        return
+    wrapper.launches += 1
+    wrapper.launches_fft += int(kind == "fft")
 
 
 def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
@@ -260,17 +271,18 @@ def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     G = torch.empty((B, BLOCK_SAMPLES), dtype=torch.float32, device=dev)
     if B == 0:
         return G
-    fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 11, 6)
+    fn = _build.bind(_build.load("gl_audio"), "gl_blocks", 10, 6)
     ptrs = (log_mels, rand_init, *_kernel_operands(ops, bf16), G)
+    kind = regime(B, bf16)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, int(iterations), int(bool(phase_bug)),
-             int(regime(B, bf16) == "cluster"), int(bool(bf16)),
-             torch.cuda.current_stream(dev).cuda_stream)
+             int(kind == "cluster"), int(bool(bf16)), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_blocks")
-    _count(gl_blocks, bf16)
+    _count(gl_blocks, kind, bf16)
     return G
 
 
 gl_blocks.launches = 0
+gl_blocks.launches_fft = 0
 gl_blocks.launches_bf16 = 0
 
 
@@ -327,15 +339,17 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     CH = torch.empty((B, HOP), dtype=torch.float32, device=dev)
     Q = torch.empty((B, S), dtype=torch.float32, device=dev)
     out = torch.empty(B * HOP, dtype=torch.int16, device=dev)
-    fn = _build.bind(_build.load("gl_audio"), "gl_audio", 19, 8, 1)
+    fn = _build.bind(_build.load("gl_audio"), "gl_audio", 18, 8, 1)
     ptrs = (log_mels, rand_init, *_kernel_operands(ops, bf16), *ops.tail_f32, G, CH, Q, out)
+    kind = regime(B, bf16)
     err = fn(*(a.data_ptr() for a in ptrs), B, NM, S, ops.n_pow, int(iterations),
-             int(bool(phase_bug)), int(regime(B, bf16) == "cluster"), int(bool(bf16)),
+             int(bool(phase_bug)), int(kind == "cluster"), int(bool(bf16)),
              float(norm * 1.01), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gl_audio")
-    _count(gl_audio, bf16)
+    _count(gl_audio, kind, bf16)
     return out
 
 
 gl_audio.launches = 0
+gl_audio.launches_fft = 0
 gl_audio.launches_bf16 = 0

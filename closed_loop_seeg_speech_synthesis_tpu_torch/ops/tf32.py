@@ -1,7 +1,7 @@
 """Host side of ``csrc/tf32_mma.cuh``: the TF32 hi/lo split of a float32
-operand and its packing into ``mma.sync.m16n8k8`` B fragments, which the
-tensor-core kernels (``gl_audio.cu``'s Griffin-Lim, ``frontend_decode.cu``'s
-LDA epilogue) stream in 3xTF32; and the bf16 rounding of an operand
+operand and its packing into ``mma.sync.m16n8k8`` B fragments, which
+``frontend_decode.cu``'s LDA epilogue streams in 3xTF32; and the bf16
+rounding of an operand
 (``gl_audio.cu``'s bf16 variants).  Torch on any device; the TF32 rounding
 is integer arithmetic and the bf16 one torch's round to nearest even, so the
 CPU and the card give the same bits.

@@ -6,23 +6,20 @@ one NVIDIA GPU.  Run from the repository root:
     python3 gl_kernel_probe.py
 
 1. Accuracy against float64: the f32 plain version, the cluster kernel and
-   the tensor-core kernel on the same blocks (converging estimator), and a
-   variant of the tensor-core kernel that sums every k-step's products in
-   one tensor-core accumulator (the design adds each k-step's sum in fp32).
-   In bf16 (one iteration, both estimators, against the bf16 branch in
+   the FFT kernel on the same blocks (converging estimator).  In bf16 (one iteration, both estimators, against the bf16 branch in
    float64): the plain bf16 version, the wgmma kernel (one fp32 accumulator
    over each product's 16 k-steps), its "grouped" variant (a fresh
    accumulator every 4 k-steps, added in fp32) and its "atan2f" variant
    (libdevice's atan2f in the exp(angle) phase step).
 2. The regime threshold: both kernels timed at B = 4 .. 4,224 blocks
    (``cuda_gl.CLUSTER_MAX_B`` is where they cross), in float32 and in bf16,
-   and the tensor-core kernels at 180,000 blocks (30 minutes) with both
+   and the large-B kernels at 180,000 blocks (30 minutes) with both
    estimators, the wgmma kernel beside its "grouped" and "atan2f" variants.
 3. Where each kernel's time goes: a copy of the source with clock64 stamps
-   at its phase boundaries (CTA 0, thread 0), the tensor-core kernel at one
-   wave (4,224 blocks), the cluster kernel at the online step's B = 4, the
-   bf16 wgmma kernel at 180,000 blocks (the last tile of CTA 0's first
-   warpgroup; its set-up is the tiles before it).
+   at its phase boundaries (CTA 0, thread 0), the FFT kernel at 180,000
+   blocks (block 0, in the first full wave), the cluster kernel at the
+   online step's B = 4, the bf16 wgmma kernel at 180,000 blocks (the last
+   tile of CTA 0's first warpgroup; its set-up is the tiles before it).
 
 The variants are copies of the source edited here (``variants``; its
 anchors are held to the source by tests/test_torch_gl_split.py) and built
@@ -47,14 +44,6 @@ import probe_tools  # noqa: E402
 SRC = "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/gl_audio.cu"
 HEADERS = ("closed_loop_seeg_speech_synthesis_tpu_torch/csrc/tf32_mma.cuh",  # included by SRC
            "closed_loop_seeg_speech_synthesis_tpu_torch/csrc/wgmma.cuh")
-ONE_ACC = ('''        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32(c, lo, bh0, bh1);
-        mma_tf32(c, hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-        mma_tf32(c, hi, bh0, bh1);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += c[j];''', '''        mma_tf32(acc[mt][nt], lo, bh0, bh1);
-        mma_tf32(acc[mt][nt], hi, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
-        mma_tf32(acc[mt][nt], hi, bh0, bh1);''')
 # gl_wgmma_kernel's exp(angle) phase step with libdevice's atan2f for the JAX
 # kernels' Cephes atan2 with fast reciprocals
 ATAN2F = (" : atan2_cephes(xi, xr));", " : atan2f(xi, xr));")
@@ -86,18 +75,14 @@ GROUPED = ('''  wg::fence();
     for (int i = 0; i < 128; ++i) d[i] = g4 ? d[i] + part[i] : part[i];
   }''')
 # (text the stamp follows, stamp) in each kernel; slot = 8 * iteration + stamp
-MMA_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n", 0),
-              ("    mma_prefetch(wipk, wring, lane);\n", 1),
-              ("      if (part == 0) xn[f] = s;\n    }\n    __syncthreads();\n", 2),
-              ("    if (t < MF) zn[t] = nyquist_phase(xn[t], spec[t * SS + NBIN], phase_bug);\n"
-               "    __syncthreads();\n", 3),
-              ("    if (it + 1 < iterations) mma_prefetch(wfpk, wring, lane);\n", 4),
-              ("          a[f * AS + n] = (acc[mt][nt][j] + zn[f] * wi[n]) * w[n];\n        }\n"
-               "    __syncthreads();\n", 5),
-              ("          G[(size_t)(b0 + bl) * BLK + s] = v;\n        }\n      }\n    }\n"
-               "    __syncthreads();\n", 6)]
-MMA_PHASES = ["forward product", "Nyquist + barrier", "phase step + barrier", "inverse product",
-              "barrier + epilogue + barrier", "overlap-add + barrier"]
+FFT_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n", 0),
+              ("    fft_forward(v, buf, f, lane);\n", 1),
+              ("    v[3] = l0 ? wh[1] : wh[3];\n", 2),
+              ("    fft_inverse(v, buf, f, lane);\n", 3),
+              ("        out[32 * j] = (j < 8 ? t0[j] : 0.f) + (j >= 5 && j < 13 ? t1[j - 5] : 0.f);\n"
+               "    }\n", 4)]
+FFT_PHASES = ["forward FFT", "unpack + phase step + pack", "inverse FFT",
+              "window + overlap-add"]
 WGMMA_STAMPS = [("    for (int it = 0; it < iterations; ++it) {\n", 0),
                 ("      product<0>(d, a, fdesc);  // forward: X = frames x [cos | sin]\n", 1),
                 ("          if constexpr (!BUG) z[KSTEPS16 / 2 + s][r] = wg::bf16x2(-zi0 * c0, -zi1 * c1);\n"
@@ -132,23 +117,21 @@ def stamped(src, kernel, stamps):
 
 
 def variants(src):
-    """The probe's copies of gl_audio.cu: "one_acc" sums every k-step of
-    gl_mma_kernel in one tensor-core accumulator; "grouped" gives
-    gl_wgmma_kernel's products a fresh accumulator every 4 k-steps, added in
-    fp32; "atan2f" gives its exp(angle) phase step libdevice's atan2f;
+    """The probe's copies of gl_audio.cu: "grouped" gives gl_wgmma_kernel's
+    products a fresh accumulator every 4 k-steps, added in fp32; "atan2f"
+    gives its exp(angle) phase step libdevice's atan2f;
     "stamps" records clock64 at the phase boundaries of the three
     Griffin-Lim kernels and adds ``probe_stamps_read``."""
-    one_acc = probe_tools.swap(src, *ONE_ACC)
     grouped = probe_tools.swap(src, *GROUPED)
     libdevice = probe_tools.swap(src, *ATAN2F)
     prelude = ("namespace {\n__device__ long long probe_stamps[%d];\n#define STAMP(i) do { if "
                "(blockIdx.x == 0 && threadIdx.x == 0) probe_stamps[(i)] = clock64(); } while (0)\n"
                % SLOTS)
     timed = src.replace("namespace {\n", prelude, 1)
-    for kernel, stamps in (("gl_mma_kernel", MMA_STAMPS), ("gl_cluster_kernel", CLUSTER_STAMPS),
+    for kernel, stamps in (("gl_fft_kernel", FFT_STAMPS), ("gl_cluster_kernel", CLUSTER_STAMPS),
                            ("gl_wgmma_kernel", WGMMA_STAMPS)):
         timed = stamped(timed, kernel, stamps)
-    return {"one_acc": one_acc, "grouped": grouped, "atan2f": libdevice,
+    return {"grouped": grouped, "atan2f": libdevice,
             "stamps": timed + probe_tools.reader("probe_stamps", "probe_stamps_read")}
 
 
@@ -165,7 +148,7 @@ def regime_threshold(cuda_gl, cluster_max_b):
 
 def build_variants(src):
     """name -> library of each copy in ``variants(src)``, built together,
-    each beside the package's tensor-core headers."""
+    each beside the package's headers."""
     root = os.path.dirname(os.path.abspath(__file__))
     headers = {os.path.basename(h): open(os.path.join(root, h)).read() for h in HEADERS}
     return probe_tools.build_all({name: {"gl_audio.cu": text, **headers}
@@ -226,11 +209,9 @@ def main():
     for B in (4, 203, 1001):
         lm, rand = frames(B)
         ref = cuda_gl.gl_blocks_plain(lm.cpu().double(), rand.cpu().double(), ops64, 8, False)
-        runs = [("plain f32", None), ("cluster", big), ("tensor cores", 0),
-                ("tensor cores, one accumulator", 0)]
+        runs = [("plain f32", None), ("cluster", big), ("fft", 0)]
         line = []
         for name, threshold in runs:
-            use("one_acc" if "one" in name else "kernel")
             if threshold is None:
                 out = cuda_gl.gl_blocks_plain(lm, rand, ops, 8, False)
             else:
@@ -238,7 +219,6 @@ def main():
                     out = cuda_gl.gl_blocks(lm, rand, ops, 8, False)
             e = (out.cpu().double() - ref).abs().reshape(-1)
             line.append(f"{name} {e.max().item():.3e} / {torch.quantile(e, 0.999).item():.3e}")
-        use("kernel")
         print(f"  B = {B}: " + "; ".join(line), flush=True)
     print("== bf16, 1 iteration, against the bf16 branch in float64 (max and 99.9th percentile "
           "of |error|)", flush=True)
@@ -257,7 +237,7 @@ def main():
         print(f"  B = 4224, phase_bug={bug}: " + "; ".join(line), flush=True)
 
     print(f"== time a launch, phase_bug, 8 iterations (CUDA events) [{card}]", flush=True)
-    for B in (4, 64, 128, 136, 192, 256, 384, 448, 512, 640, 1024, 4224):
+    for B in (4, 8, 12, 16, 24, 32, 48, 64, 128, 136, 192, 256, 384, 448, 512, 640, 1024, 4224):
         lm, rand = frames(B)
         n = 200 if B <= 1024 else 20
         with regime_threshold(cuda_gl, big):
@@ -268,7 +248,7 @@ def main():
             t_c16 = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True), n)
         with regime_threshold(cuda_gl, 0):
             t_w16 = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True), n)
-        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, tensor cores {t_m * 1e3:.2f} us; bf16: "
+        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, fft {t_m * 1e3:.2f} us; bf16: "
               f"cluster {t_c16 * 1e3:.2f} us, wgmma {t_w16 * 1e3:.2f} us; picked: "
               f"{cuda_gl.regime(B)}, bf16 {cuda_gl.regime(B, True)}", flush=True)
     lm, rand = frames(180_000)
@@ -278,7 +258,7 @@ def main():
             use(name)
             t16[name] = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, bug, bf16=True), 5)
         use("kernel")
-        print(f"  B = 180000, phase_bug={bug}: tensor cores "
+        print(f"  B = 180000, phase_bug={bug}: fft "
               f"{ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, bug), 5):.3f} ms; bf16 wgmma "
               f"{t16['kernel']:.3f} ms, grouped {t16['grouped']:.3f} ms, atan2f "
               f"{t16['atan2f']:.3f} ms", flush=True)
@@ -288,7 +268,7 @@ def main():
                            capture_output=True, text=True).stdout.strip()
     use("stamps")
     for label, B, cmax, bf16, phases in (
-            ("tensor cores, 4224 blocks", 4224, 0, False, MMA_PHASES),
+            ("fft, 180000 blocks (block 0)", 180_000, 0, False, FFT_PHASES),
             ("cluster, 4 blocks", 4, big, False, CLUSTER_PHASES),
             ("bf16 wgmma, 180000 blocks (CTA 0's last tile)", 180_000, 0, True, WGMMA_PHASES)):
         lm, rand = frames(B)

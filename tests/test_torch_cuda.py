@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import gl_fft_plan as plan
+
 from closed_loop_seeg_speech_synthesis_tpu_torch.models import lda
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_frontend, cuda_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as fd
@@ -88,9 +90,10 @@ def test_frontend_kernel_matches_plain(rs, cuda_device, sr, C, seconds):
 def test_gl_audio_kernel_matches_plain(rs, cuda_device, B, walk, iterations, phase_bug):
     """Without iterations every sample within 1 LSB; with the converging
     (phase_bug=False) estimator >= 99.9% of samples within 1 LSB.  B = 203
-    runs the cluster kernel, B = 1001 the tensor-core kernel; neither is a
-    multiple of its blocks per launch unit (4 and 32).  Frames from either
-    walk of _gl_inputs; the centred one only up to 203 blocks."""
+    and 1001 in the regimes their launches pick (B = 1001 the FFT kernel;
+    neither is a multiple of the cluster's 4 blocks or the FFT kernel's 8 a
+    CTA).  Frames from either walk of _gl_inputs; the centred one only up to
+    203 blocks."""
     lm, rand = _gl_inputs(rs, B, cuda_device, walk)
     rand[0, 0] = 0.0  # see test_torch_kernels.test_gl_audio_plain_matches_pallas_f32_no_iterations
     ops = _gl_ops(cuda_device)
@@ -219,11 +222,13 @@ _T = cuda_gl.CLUSTER_MAX_B
 @pytest.mark.cuda
 @pytest.mark.parametrize("iterations,phase_bug", [(0, True), (8, False), (8, True)])
 @pytest.mark.parametrize("B,walk", [(B, w) for B in (1, 2, 3, 4, 8, 203) for w in ("centred", "ar1")]
-                         + [(B, "ar1") for B in (_T - 1, _T, _T + 1, 1001)])
+                         + [(B, "ar1") for B in sorted({_T - 1, _T, _T + 1, 1001}
+                                                       - {1, 2, 3, 4, 8, 203})])
 def test_gl_blocks_kernel_matches_plain(rs, cuda_device, B, walk, iterations, phase_bug):
     """K4 vs its plain version in f32, in the regime its launch picks: the
     online step's 1-4 blocks, one cluster of 4 blocks and a ragged one, both
-    sides of the regime threshold and a ragged 1,001 (tensor cores); frames
+    sides of the regime threshold and a ragged 1,001 (the FFT kernel; the
+    launch counted in ``launches_fft`` too); frames
     from both walks of _gl_inputs up to 203 blocks, the "ar1" one above.
     Without iterations the inits come back exactly.  The converging
     estimator: within atol 2e-4 (the JAX package's gate,
@@ -235,10 +240,12 @@ def test_gl_blocks_kernel_matches_plain(rs, cuda_device, B, walk, iterations, ph
     target spectrogram within 10% of the plain version's."""
     lm, rand = _gl_inputs(rs, B, cuda_device, walk)
     ops = _gl_ops(cuda_device)
-    before = cuda_gl.gl_blocks.launches
+    before = (cuda_gl.gl_blocks.launches, cuda_gl.gl_blocks.launches_fft)
     re_k = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
     torch.cuda.synchronize()
-    assert cuda_gl.gl_blocks.launches == before + 1
+    fft = int(cuda_gl.regime(B) == "fft")
+    assert (cuda_gl.gl_blocks.launches, cuda_gl.gl_blocks.launches_fft) == (before[0] + 1,
+                                                                          before[1] + fft)
     re_p = cuda_gl.gl_blocks_plain(lm, rand, ops, iterations, phase_bug)
     assert re_k.shape == re_p.shape == (B, 480)
     err = (re_k - re_p).abs()
@@ -258,25 +265,25 @@ def test_gl_blocks_kernel_matches_plain(rs, cuda_device, B, walk, iterations, ph
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [4, 1001])
 def test_gl_blocks_regimes_agree(rs, cuda_device, monkeypatch, B):
-    """The tensor-core kernel (CLUSTER_MAX_B = 0) and the cluster kernel
+    """The FFT kernel (CLUSTER_MAX_B = 0) and the cluster kernel
     (CLUSTER_MAX_B = B) on the same blocks: identical without iterations;
     the converging estimator within 2e-4 on >= 99.9% of samples."""
     lm, rand = _gl_inputs(rs, B, cuda_device)
     ops = _gl_ops(cuda_device)
     for iterations, phase_bug in ((0, True), (8, False)):
         monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
-        mma = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
+        fft = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
         monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", B)
         cluster = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
         if iterations == 0:
-            assert torch.equal(mma, cluster)
+            assert torch.equal(fft, cluster)
         else:
-            assert ((mma - cluster).abs() <= 2e-4).double().mean().item() >= 0.999
+            assert ((fft - cluster).abs() <= 2e-4).double().mean().item() >= 0.999
 
 
 # The bf16 variants (DecoderConfig.gl_bf16): the online step's 1-4 blocks,
 # both sides of the bf16 threshold, exp2's sequential twin's 199 and the
-# float32 threshold, a ragged 1,001 on the tensor cores
+# float32 threshold, a ragged 1,001 on the wgmma kernel
 _T16 = cuda_gl.CLUSTER_MAX_B_BF16
 BF16_BLOCKS = [1, 2, 4, _T16 - 1, _T16, _T16 + 1, 199, _T - 1, _T, _T + 1, 1001]
 BF16_RUNS = [(0, True), (1, False), (1, True), (8, False), (8, True)]
@@ -373,7 +380,7 @@ def test_gl_audio_bf16_kernel_matches_plain(rs, cuda_device, B, iterations, phas
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [4, 1001])
 def test_gl_blocks_bf16_regimes_agree(rs, cuda_device, monkeypatch, B):
-    """The bf16 variants of the tensor-core kernel (CLUSTER_MAX_B_BF16 = 0)
+    """The bf16 variants of the wgmma kernel (CLUSTER_MAX_B_BF16 = 0)
     and the cluster kernel (CLUSTER_MAX_B_BF16 = B) on the same blocks:
     identical without iterations, within ``_bf16_blocks_ok``'s one-iteration
     gate of each other after one."""
@@ -399,7 +406,7 @@ def test_gl_bf16_kernel_tracks_float64(rs, cuda_device, B, phase_bug):
     |error| at most twice the plain bf16 version's (float32)."""
     lm, rand = _gl_inputs(rs, B, cuda_device)
     ops = _gl_ops(cuda_device)
-    assert cuda_gl.regime(B, bf16=True) == "mma"
+    assert cuda_gl.regime(B, bf16=True) == "wgmma"
     ref = cuda_gl._gl_loop_plain(lm, rand, ops, 1, phase_bug, torch.float64)
 
     def errors(out):
@@ -412,6 +419,67 @@ def test_gl_bf16_kernel_tracks_float64(rs, cuda_device, B, phase_bug):
     print(f"B = {B}, phase_bug={phase_bug}: |error| against float64, kernel max {max_k:.3e} "
           f"p99.9 {p999_k:.3e}; plain bf16 max {max_p:.3e} p99.9 {p999_p:.3e}")
     assert max_k <= 2 * max_p and p999_k <= 2 * p999_p, (max_k, p999_k, max_p, p999_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations,phase_bug", [(1, True), (1, False), (8, False)])
+@pytest.mark.parametrize("B", [4224, 179_999])
+@pytest.mark.parametrize("seed", [1234, 1, plan.CUT_SEED])
+def test_gl_kernel_tracks_float64(cuda_device, seed, B, iterations, phase_bug):
+    """The error budget of the FFT kernel (float32 FMA, its twiddles the
+    exact angles rounded once): against Griffin-Lim in float64 on the same
+    float32 inputs, Minv and window (``_gl_loop_plain(..., torch.float64,
+    bf16=False)``: the exact DFT), the kernel's max and p99.9 |error| at most
+    1.5x the plain float32 version's (the dense products with make_rdft's
+    float32 matrices); one iteration under both estimators, and 8 of the
+    converging one (exp(angle) is chaotic beyond the first).  Three seeds:
+    under exp(angle) the max is set by bins at the branch cut, which the
+    kernel sums again (seed 2 holds one that its FFT alone gets wrong:
+    test_gl_fft_kernel_matches_its_plan)."""
+    lm, rand = _gl_inputs(np.random.RandomState(seed), B, cuda_device)
+    ops = _gl_ops(cuda_device)
+    assert cuda_gl.regime(B) == "fft"
+    ref = cuda_gl._gl_loop_plain(lm, rand, ops, iterations, phase_bug, torch.float64, bf16=False)
+
+    def errors(out):
+        e = (out.double() - ref).abs().flatten().sort().values
+        return e[-1].item(), e[int(0.999 * (e.numel() - 1))].item()
+
+    before = cuda_gl.gl_blocks.launches_fft
+    out_k = cuda_gl.gl_blocks(lm, rand, ops, iterations, phase_bug)
+    assert cuda_gl.gl_blocks.launches_fft == before + 1
+    (max_k, p999_k), (max_p, p999_p) = (
+        errors(out_k), errors(cuda_gl.gl_blocks_plain(lm, rand, ops, iterations, phase_bug)))
+    print(f"B = {B}, {iterations} iteration(s), phase_bug={phase_bug}: |error| against float64, "
+          f"kernel max {max_k:.3e} p99.9 {p999_k:.3e}; plain f32 max {max_p:.3e} "
+          f"p99.9 {p999_p:.3e}")
+    assert max_k <= 1.5 * max_p and p999_k <= 1.5 * p999_p, (max_k, p999_k, max_p, p999_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase_bug", [True, False])
+def test_gl_fft_kernel_matches_its_plan(cuda_device, phase_bug):
+    """The FFT kernel's own blocks against its plan emulated step for step
+    (tests/gl_fft_plan.py) and against Griffin-Lim in float64, one
+    iteration, on the 32 blocks around a bin of the error-budget inputs that
+    lies at the branch cut (seed 2, block 61,350, where the FFT alone puts it
+    on the wrong side and is 2.3e-2 off): both within 2e-6 of the largest
+    |sample|, so the kernel sums that bin again as the plan does."""
+    lo = plan.CUT_BLOCK - 16
+    lm, rand = plan.walk_inputs(plan.CUT_SEED, plan.CUT_B, lo, 32)
+    ops = _gl_ops(cuda_device)
+    assert cuda_gl.regime(32) == "fft"
+    out = cuda_gl.gl_blocks(lm.to(cuda_device), rand.to(cuda_device), ops, 1, phase_bug).cpu()
+    cpu_ops = _gl_ops(torch.device("cpu"))
+    minv, win = cpu_ops.gl_f32[0], cpu_ops.gl_f32[5]
+    emu = plan.gl_blocks(lm, rand, minv, win, cuda_gl.twiddle_table(), 1, phase_bug)
+    ref = cuda_gl._gl_loop_plain(lm, rand, cpu_ops, 1, phase_bug, torch.float64, bf16=False)
+    top = ref.abs().max().item()
+    rel = lambda a, b: ((a.double() - b.double()).abs().max() / top).item()
+    print(f"phase_bug={phase_bug}: kernel against float64 {rel(out, ref):.3e}, against the "
+          f"plan {rel(out, emu):.3e}; the plan against float64 {rel(emu, ref):.3e} "
+          f"(relative to max |sample| {top:.3f})")
+    assert rel(out, ref) < 2e-6 and rel(out, emu) < 2e-6
 
 
 @pytest.mark.cuda
@@ -573,7 +641,7 @@ def test_gl_kernel_probe_variants_build(cuda_device):
     root = Path(__file__).resolve().parents[1]
     probe = _load_script(root / "gl_kernel_probe.py")
     libs = probe.build_variants((root / probe.SRC).read_text())
-    assert all(hasattr(libs[v], "gl_blocks") for v in ("one_acc", "grouped", "atan2f"))
+    assert all(hasattr(libs[v], "gl_blocks") for v in ("grouped", "atan2f"))
     assert hasattr(libs["stamps"], "probe_stamps_read")
 
 
@@ -835,7 +903,7 @@ def test_exp2_chance_segment_kernels_match_plain(rs, cuda_device, iterations, ph
     frames): K1 with the plan built once (``pipeline.mel_plan``, the
     batched chance level's path) gives K1 without it bit for bit and the
     plain f32 version on >= 99.9% of entries within rtol 1e-5 / atol 1e-6;
-    K2 on its frames runs B = 199 blocks in the cluster regime, within
+    K2 on its frames runs B = 199 blocks in the FFT regime, within
     1 LSB of its plain version without iterations and on >= 99.9% of
     samples with the converging estimator."""
     cfg, dec = _decoder(rs, cuda_device, 1024.0, 64)
@@ -853,7 +921,7 @@ def test_exp2_chance_segment_kernels_match_plain(rs, cuda_device, iterations, ph
     assert off < 0.001 * mel.numel(), off
 
     B = mel.shape[0] - 1
-    assert cuda_gl.regime(B) == "cluster"
+    assert cuda_gl.regime(B) == "fft"
     rand = gl.default_rand_init(B, 0, 0, torch.float32, cuda_device)
     rand[0, 0] = 0.0  # see test_gl_audio_kernel_matches_plain
     before = cuda_gl.gl_audio.launches
