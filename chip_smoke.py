@@ -56,14 +56,14 @@ on one NVIDIA GPU.  Run from the repository root:
    whose SASS must hold HGMMA instructions, cuobjdump, while the float32
    ``gl_fft_kernel`` holds none): each against its
    plain bf16 version on the replay's mel frames and inits, K4 at B = 4,
-   64-65 (the cluster and the bf16 crossing), 199, 447-449 and 179,999, K2
+   199, 447-449 and 179,999, K2
    at 199 and 179,999,
    under the ``BF16_*`` gates (one iteration, both estimators: max |diff|
    within 1e-3 of the blocks' max, from 199 blocks on 99% of samples within
    2e-5 of it, the f32 kernel outside; K2 within 1 LSB on 99.9%; 8
    iterations: converging 99.5% within 1e-3, the quirk by attainment and
    envelope r; K2 within 1 LSB of the plain tail on K4's bf16 blocks); times
-   each at 64, 199 and 179,999 blocks beside the f32 kernel in the same call,
+   each at 199 and 179,999 blocks beside the f32 kernel in the same call,
    with the bound at the bf16 rate (989 TFLOP/s) and the DFT products as
    bf16 ``torch.matmul``; then the fused and the split replay through
    ``pipeline.offline_decode`` with ``gl_bf16=True``, counts set to 0 just
@@ -298,18 +298,17 @@ PERSISTENT_GAP_S = 0.002  # the persistent phase's latency run: packets 2 ms apa
 # QUIRK_KEYS - 1 the share read 0.994601-0.996570, each run at most 3 hops
 # (PERF.md); the persistent phase holds every key, phase 7 key 0.
 QUIRK_WITHIN_MIN, QUIRK_MAX_RUN, QUIRK_KEYS, HOP = 0.99, 3, 5, 160
-# The bf16 variants of K2 / K4 (DecoderConfig.gl_bf16): K4 in the cluster
-# regime and across its bf16 threshold (cuda_gl.CLUSTER_MAX_B_BF16 = 64), at
-# 447-449, K2 at exp2's sequential twin's 199 blocks, both at
-# the replay's blocks on the wgmma kernel.  One iteration: a bf16
-# kernel and its plain version differ only where another summation order
-# moves a frame or Z value across a bf16 rounding boundary (one bf16 step of
-# it times an inverse-DFT entry): max |diff| within BF16_ONE_MAX of the
+# The bf16 variants of K2 / K4 (DecoderConfig.gl_bf16), the wgmma kernel at
+# every B: K4 at the online step's 4 blocks and at 199 and 447-449, K2 at
+# exp2's sequential twin's 199 blocks, both at the replay's blocks.  One
+# iteration: a bf16 kernel and its plain version differ only where another
+# summation order moves a frame or Z value across a bf16 rounding boundary
+# (one bf16 step of it times an inverse-DFT entry): max |diff| within BF16_ONE_MAX of the
 # blocks' max |value| (the f32 kernel is 0.4-34% off, PERF.md), and from 199
 # blocks on >= BF16_ONE_SHARE of the samples within BF16_ONE_ATOL of it.
 # 8 iterations, converging: tests/test_torch_gl_bf16.py's gate; under the
 # quirk, test_gl_bf16_quality's (attainment <= 1.1x, envelope r > 0.9).
-BF16_K4_BLOCKS, BF16_K2_BLOCKS = (4, 64, 65, 199, 447, 448, 449), (199,)
+BF16_K4_BLOCKS, BF16_K2_BLOCKS = (4, 199, 447, 448, 449), (199,)
 BF16_ONE_MAX, BF16_ONE_ATOL, BF16_ONE_SHARE = 1e-3, 2e-5, 0.99
 BF16_CONV_ATOL, BF16_CONV_MIN, BF16_ATTAIN, BF16_R = 1e-3, 0.995, 1.1, 0.9
 
@@ -334,26 +333,26 @@ def bound(fp32_flops, nbytes, tf32x3_flops=0.0, int32_ops=0.0, bf16_flops=0.0):
 
 @contextlib.contextmanager
 def regime_threshold(cuda_gl, cluster_max_b):
-    """Force the Griffin-Lim regime: launches of B <= cluster_max_b blocks
-    take the cluster kernel, larger ones the large-B kernel."""
-    saved = cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16
-    cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B_BF16 = cluster_max_b
+    """Force the float32 Griffin-Lim regime: launches of B <= cluster_max_b
+    blocks take the cluster kernel, larger ones the FFT kernel."""
+    saved = cuda_gl.CLUSTER_MAX_B
+    cuda_gl.CLUSTER_MAX_B = cluster_max_b
     try:
         yield
     finally:
-        cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16 = saved
+        cuda_gl.CLUSTER_MAX_B = saved
 
 
 def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False, bf16=False):
     """Bound of K4 (or, with ``tail``, K2) on B blocks in the regime its
     launch picks, all in fp32 FMA: the dense DFT products in the cluster
     regime, two 256-point complex FFTs (5 N log2 N operations each) a block
-    and iteration above CLUSTER_MAX_B; with ``bf16`` (threshold
-    CLUSTER_MAX_B_BF16) the products at the bf16 tensor-core rate in either
-    regime (one pass on bf16 operands).  The target magnitudes,
+    and iteration above CLUSTER_MAX_B; with ``bf16`` (the wgmma kernel at
+    every B) the products at the bf16 tensor-core rate (one pass on bf16
+    operands).  The target magnitudes,
     the Nyquist bin and K2's overlap-add and low-pass in fp32 FMA.  Bytes:
     the mel frames and inits read once, the blocks (K4) or int16 audio (K2)
-    written once, and the constants (bf16: the DFT operands as bf16)."""
+    written once, and the constants (bf16: the forward operand's image)."""
     frames, kin = 2 * B, 128 if phase_bug else 256
     large = cuda_gl.regime(B, bf16) != "cluster"
     if large and not bf16:
@@ -364,9 +363,9 @@ def gl_bound(cuda_gl, B, NM, iterations, phase_bug, ops, tail=False, bf16=False)
     # the operands the regime reads: the twiddle table or the f32 DFTs
     consts = sum(t.numel() * 4 for t in (ops.gl_f32[:1] + ops.gl_f32[3:] + (ops.gl_twiddles,)
                                          if large else ops.gl_f32))
-    if bf16:  # the wgmma kernel reads the bf16 image, the cluster kernel the rounded f32 operands
+    if bf16:  # the wgmma kernel reads the bf16 image
         consts = sum(t.numel() * t.element_size() for t in ops.gl_f32[:1] + ops.gl_f32[3:]
-                     + (ops.gl_bf16[2:] if large else ops.gl_bf16[:2]))
+                     + ops.gl_bf16[2:])
     nbytes = (B + 1) * NM * 4 + B * 480 * 4 + consts
     if tail:
         S, n_pow = ops.lp.dim, ops.n_pow
@@ -807,7 +806,7 @@ def bf16_phase(torch, card, dec, cfg, eeg, lm, rand, refs, zero_counts, read_cou
     for name, fig, tail in (("gl_blocks", k4, False), ("gl_audio", k2, True)):
         kernel, plain = getattr(cuda_gl, name), getattr(cuda_gl, name + "_plain")
         args = (GL_NORM,) if tail else ()
-        for B in (cuda_gl.CLUSTER_MAX_B_BF16, BF16_K2_BLOCKS[0], B_gl):
+        for B in (BF16_K2_BLOCKS[0], B_gl):
             l, r = lm[: B + 1].contiguous(), rand[:B].contiguous()
             t = {"ms": cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, True, bf16=True)),
                  "f32_ms": cuda_ms(torch, lambda: kernel(l, r, ops, *args, 8, True)),

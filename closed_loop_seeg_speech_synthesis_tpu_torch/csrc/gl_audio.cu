@@ -12,7 +12,7 @@
 //     _gl_kernel (entry gl_blocks_pallas).
 //   Both take bf16 = 1 for the kernels' bf16=True branch (DecoderConfig.gl_bf16;
 //   pallas_gl._gl_loop with mm_t = bfloat16), below.  Helpers: tf32_mma.cuh
-//   (cp.async, the bf16 rounding) and wgmma.cuh (wgmma, mbarrier, bulk copies).
+//   (cp.async) and wgmma.cuh (wgmma, mbarrier, bulk copies).
 //
 // Work.  Each iteration of each 480-sample block windows its two frames
 // (samples [0, 256) and [160, 416)), takes their forward 256-point real DFT,
@@ -28,17 +28,20 @@
 // another operand, or another order of summation, is another trajectory,
 // held to float64 by the tests' and the benchmark's gates.
 //
-// What bounds it on an H100, and the two regimes (the caller picks one by B:
-// ops/cuda_gl.regime):
+// What bounds it on an H100, and the kernels: float32 has two regimes (the
+// caller picks one by B: ops/cuda_gl.regime), bf16 one kernel at every B:
 //   * Large B (replay: 180,000 blocks, 8 iterations): arithmetic.  As dense
 //     products the DFTs are 283 G FMA under exp(angle), 8.5 ms at the fp32
 //     FMA peak (67 TFLOP/s), 3.4 ms at the 3xTF32 rate of the tensor cores;
 //     as FFTs about a twentieth of that.  gl_fft_kernel gives each block one
 //     warp, 8 blocks a CTA, and keeps it in registers and a 2 KB exchange
 //     buffer of the warp's own for all iterations (tests/gl_fft_plan.py emulates
-//     the plan step for step).  The block's two windowed frames are one
-//     256-point complex FFT, z = f0 + i f1: X0[k] = (Z[k] + conj Z[256-k])/2
-//     and X1[k] = (Z[k] - conj Z[256-k])/2i are both frames' bins 0..128, the
+//     the plan step for step).  A block's result reads nothing but its own
+//     two log-mel rows and init, so a launch over any B consecutive blocks
+//     gives those rows of a launch over the whole session bit for bit.  The
+//     block's two windowed frames are one 256-point complex FFT, z = f0 +
+//     i f1: X0[k] = (Z[k] + conj Z[256-k])/2 and X1[k] = (Z[k] - conj
+//     Z[256-k])/2i are both frames' bins 0..128, the
 //     Nyquist bin included; the inverse takes W = Y0 + i Y1 of the corrected
 //     spectra extended Hermitian (make_rdft's weights w_k / 256 are that
 //     extension's), frame 0 its real part and frame 1 its imaginary part.
@@ -77,7 +80,11 @@
 //     output samples [32r, 32r+32), <= 32 KB) and computes them in fp32 FMA.
 //     Each iteration the phase-corrected bins and the output samples are
 //     exchanged through distributed shared memory, with a cluster barrier
-//     after each product; no operand is read from L2 after the first.
+//     after each product; no operand is read from L2 after the first.  The
+//     FFT kernel is the faster at every B from 1 to 8 (PERF.md); this one
+//     stays for the online step because its products, in the plain
+//     version's operands and order of summation, keep the plain version's
+//     exp(angle) trajectories, which chip_smoke.py holds the online audio to.
 //   * bf16 (DecoderConfig.gl_bf16, the JAX kernels' bf16=True branch): the
 //     128 clean-bin DFT products take bf16 operands (round to nearest even,
 //     as JAX's astype(bfloat16)) and accumulate in fp32: the windowed frames
@@ -85,12 +92,10 @@
 //     before the inverse, and the four DFT matrices, which the host rounds
 //     once.  Unrounded: exp(logmel) @ Minv, the Nyquist bin (from the
 //     unrounded frames) and its inverse row, the phase step and everything
-//     after.  A product of two bf16 values is exact in fp32.  Above
-//     CLUSTER_MAX_B_BF16 blocks (ops/cuda_gl.regime) gl_wgmma_kernel; at or
-//     below it gl_cluster_kernel<true>, its fp32 FMA on the rounded operands.
-//     Bound at the replay (180,000 blocks, 8 iterations, exp(angle)): the
-//     products, 5.7e11 FLOP at the bf16 tensor-core rate (989 TFLOP/s),
-//     0.57 ms, plus the fp32 target magnitudes and Nyquist bins, 0.67 ms; the
+//     after.  A product of two bf16 values is exact in fp32.  gl_wgmma_kernel
+//     at every B.  Bound at the replay (180,000 blocks, 8 iterations,
+//     exp(angle)): the products, 5.7e11 FLOP at the bf16 tensor-core rate
+//     (989 TFLOP/s), 0.57 ms, plus the fp32 target magnitudes and Nyquist bins, 0.67 ms; the
 //     0.69 GB of inits and blocks take 0.21 ms.  gl_wgmma_kernel keeps every
 //     operand on chip.  One persistent CTA an SM, two warpgroups each walking
 //     its own tiles of 32 blocks (64 frames, the M of wgmma m64n256k16),
@@ -615,10 +620,6 @@ constexpr size_t cluster_smem(int NM) {
                   CF * CCOL + 2 * FFT + 2 * CF + CF * CSS + CF * NM) * sizeof(float);
 }
 
-// BF16: the same fp32 FMA products on bf16-rounded operands (fm, im rounded
-// on the host; frames and Z rounded as they are staged); the Nyquist bin
-// from the unrounded frames.
-template <bool BF16>
 __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
     const float* __restrict__ lm, const float* __restrict__ rnd, const float* __restrict__ minv,
     const float* __restrict__ fm, const float* __restrict__ im, const float* __restrict__ fnyq,
@@ -677,7 +678,7 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
     for (int i = t; i < CF * FFT; i += CTHREADS) {
       const int ff = i / FFT, n = i % FFT;
       const float v = wav[(ff >> 1) * BLK + (ff & 1) * HOP + n] * w[n];
-      frm[i] = BF16 ? bf16_round(v) : v;
+      frm[i] = v;
     }
     __syncthreads();
     {  // forward: thread (f, lane) = own column lane of frame f
@@ -693,9 +694,7 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
       }
       xl[f * 2 * CBIN + lane] = s;
       float sn = 0.f;  // Nyquist bin of frame f
-      for (int n = lane; n < FFT; n += 32)
-        sn = fmaf(BF16 ? wav[(f >> 1) * BLK + (f & 1) * HOP + n] * w[n] : frm[f * FFT + n], wn[n],
-                  sn);
+      for (int n = lane; n < FFT; n += 32) sn = fmaf(frm[f * FFT + n], wn[n], sn);
       for (int off = 16; off > 0; off >>= 1) sn += __shfl_xor_sync(0xffffffffu, sn, off);
       if (lane == 0) xn[f] = sn;
     }
@@ -714,7 +713,7 @@ __global__ void __launch_bounds__(CTHREADS) gl_cluster_kernel(
       const int ff = i / kin, kk = i % kin, k = kk % NBIN;
       const float* src = cluster.map_shared_rank(zl, k / CBIN);
       const float z = src[ff * 2 * CBIN + (kk / NBIN) * CBIN + k % CBIN];
-      zf[ff * FFT + kk] = BF16 ? bf16_round(z) : z;
+      zf[ff * FFT + kk] = z;
     }
     __syncthreads();
     {  // inverse: thread (f, lane) = own output sample lane of frame f
@@ -1041,16 +1040,14 @@ __global__ void __launch_bounds__(HOP) lowpass_kernel(
   out[(size_t)b * HOP + n] = (short)(int)v;  // C conversion truncates toward zero
 }
 
-// The cluster kernel on B blocks, 8 CTAs per 4 blocks; its bf16 variant when
-// BF16 (fm, im the operands rounded to bf16).
-template <bool BF16>
+// The cluster kernel on B blocks, 8 CTAs per 4 blocks.
 cudaError_t launch_cluster(const float* lm, const float* rnd, const float* minv, const float* fm,
                            const float* im, const float* fnyq, const float* inyq, const float* win,
                            float* G, int B, int NM, int iterations, int phase_bug,
                            cudaStream_t stream) {
   cudaError_t err;
   const size_t smem = cluster_smem(NM);
-  if ((err = cudaFuncSetAttribute(gl_cluster_kernel<BF16>,
+  if ((err = cudaFuncSetAttribute(gl_cluster_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return err;
@@ -1066,7 +1063,7 @@ cudaError_t launch_cluster(const float* lm, const float* rnd, const float* minv,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel<BF16>, lm, rnd, minv, fm, im, fnyq, inyq,
+  if ((err = cudaLaunchKernelEx(&cfg, gl_cluster_kernel, lm, rnd, minv, fm, im, fnyq, inyq,
                                 win, G, B, NM, iterations, phase_bug)) != cudaSuccess)
     return err;
   return cudaGetLastError();
@@ -1102,19 +1099,19 @@ cudaError_t launch_fft(const float* lm, const float* rnd, const float* minv, con
   return cudaGetLastError();
 }
 
-// Griffin-Lim of B blocks into G: the cluster kernel when use_cluster, else
-// the large-B kernel (float32: gl_fft_kernel, `large` its twiddle table;
-// bf16: gl_wgmma_kernel, `large` the forward operand's image).
+// Griffin-Lim of B blocks into G: float32, the cluster kernel when
+// use_cluster, else gl_fft_kernel (`large` its twiddle table); bf16,
+// gl_wgmma_kernel (`large` the forward operand's image; use_cluster is
+// refused).
 cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* minv,
                              const float* fm, const float* im, const float* fnyq,
                              const float* inyq, const float* win, const void* large, float* G,
                              int B, int NM, int iterations, int phase_bug, int use_cluster,
                              int bf16, cudaStream_t stream) {
   if (use_cluster)
-    return bf16 ? launch_cluster<true>(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
-                                       iterations, phase_bug, stream)
-                : launch_cluster<false>(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM,
-                                        iterations, phase_bug, stream);
+    return bf16 ? cudaErrorInvalidValue
+                : launch_cluster(lm, rnd, minv, fm, im, fnyq, inyq, win, G, B, NM, iterations,
+                                 phase_bug, stream);
   if (bf16) {
     const uint8_t* image = static_cast<const uint8_t*>(large);
     return phase_bug ? launch_wgmma<true>(lm, rnd, minv, image, fnyq, inyq, win, G, B, NM,
@@ -1129,10 +1126,9 @@ cudaError_t launch_gl_blocks(const float* lm, const float* rnd, const float* min
 
 }  // namespace
 
-// fm / im: the forward and inverse DFT operands (the cluster kernel's), f32,
-// or with bf16 = 1 rounded to bf16 (as f32); large: the large-B kernel's
-// operand, the FFT's twiddle table (f32) or the bf16 forward operand's
-// shared-memory image (ops/cuda_gl.make_gl_audio_ops builds both sets).
+// fm / im: the cluster kernel's forward and inverse DFT operands (f32);
+// large: the FFT's twiddle table (f32) or the bf16 forward operand's
+// shared-memory image (ops/cuda_gl.make_gl_audio_ops builds them all).
 extern "C" int gl_blocks(const float* lm, const float* rnd, const float* minv, const float* fm,
                          const float* im, const float* fnyq, const float* inyq, const float* win,
                          const void* large, float* G, int B, int NM, int iterations,

@@ -1,5 +1,5 @@
 // Tensor-core helpers for sm_90a: mma.sync.m16n8k8 TF32 with hi/lo operand
-// splits (3xTF32), the bf16 rounding of a value, and cp.async copies.
+// splits (3xTF32) and cp.async copies.
 // With a = a_hi + a_lo and b = b_hi + b_lo, a*b ~ a_lo b_hi + a_hi b_lo +
 // a_hi b_hi in fp32 (the dropped a_lo b_lo is ~2^-22 relative), so a product
 // keeps fp32 accuracy.  The tensor cores add into their accumulator rounding
@@ -14,7 +14,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,11 +36,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x rounded to bf16 (nearest, ties to even) and back: astype(bfloat16) in JAX
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // acc += A B for one k-step in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi in

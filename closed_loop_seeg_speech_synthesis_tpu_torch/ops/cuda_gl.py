@@ -11,26 +11,24 @@ source of both is ``csrc/gl_audio.cu``; ``gl_audio_plain`` and
 ``gl_blocks_plain`` are the same functions in plain torch, the former with
 the low-pass boundary states from the same 16-term truncated power sum.
 
-The Griffin-Lim launch has two regimes, picked by the number of blocks B:
-up to ``CLUSTER_MAX_B`` blocks (the online step's 1-4; bf16:
-``CLUSTER_MAX_B_BF16``) a thread-block
-cluster of 8 CTAs per 4 blocks computes the DFTs in fp32 FMA from the f32
-operands held in shared memory; above it (replay) one warp a block computes
-them as 256-point complex FFTs in fp32 FMA, from a table of twiddles that
-``make_gl_audio_ops`` builds once (``twiddle_table``, ``gl_twiddles``).  The
-wrappers count every float32 launch in ``launches`` and those of the FFT
-kernel also in ``launches_fft``.
+The float32 Griffin-Lim launch has two regimes, picked by the number of
+blocks B: up to ``CLUSTER_MAX_B`` blocks (the online step's 1-4) a
+thread-block cluster of 8 CTAs per 4 blocks computes the DFTs in fp32 FMA
+from make_rdft's f32 operands held in shared memory, as the plain version
+does; above it (replay) one warp a block computes them as 256-point complex
+FFTs in fp32 FMA, from a table of twiddles that ``make_gl_audio_ops`` builds
+once (``twiddle_table``, ``gl_twiddles``).  The wrappers count every float32
+launch in ``launches`` and those of the FFT kernel also in ``launches_fft``.
 
 ``bf16=True`` (``DecoderConfig.gl_bf16``) is the JAX kernels' ``bf16=True``
 branch (``pallas_gl._gl_loop`` with ``mm_t = bfloat16``): the 128 clean-bin
 DFT products take bf16 operands and accumulate in float32; everything else
 stays float32.  Its plain version is ``_gl_loop_plain``, float32 whatever
-the constants' dtype.  On the card both regimes have a bf16 variant: above
-``CLUSTER_MAX_B_BF16`` the ``wgmma`` kernel, whose two products read one
-shared-memory image of the bf16 forward operand (``wgmma_layout``; the
-inverse is that operand transposed, times powers of two), or the cluster's
-fp32 FMA on bf16-rounded operands (``gl_bf16``).  The wrappers count its
-launches in ``launches_bf16``, apart from the float32 ones.
+the constants' dtype.  On the card it is the ``wgmma`` kernel at every B,
+whose two products read one shared-memory image of the bf16 forward operand
+(``wgmma_layout``; the inverse is that operand transposed, times powers of
+two).  The wrappers count its launches in ``launches_bf16``, apart from the
+float32 ones.
 """
 
 from __future__ import annotations
@@ -45,13 +43,13 @@ from .griffinlim import BLOCK_SAMPLES, FFT_SIZE, HOP, StreamingGLOps, streaming_
 from .iir import BlockedIIR, StateSpace, blocked_operators, make_blocked_iir
 from .stft import make_rdft
 
-# Largest B that the cluster kernel takes; above it the FFT kernel (float32)
-# or the wgmma kernel (bf16, which takes about as long at any B up to a wave:
-# the two cross between 64 and 128 blocks; PERF.md).  In float32 the FFT
-# kernel is the faster from 4 blocks on (gl_kernel_probe.py's sweep, PERF.md);
-# up to 8 blocks, which holds the online step's 1-4, stay on the cluster.
+# Largest B that the float32 cluster kernel takes; above it the FFT kernel.
+# The FFT kernel is the faster at every B (PERF.md), but the online step's
+# 1-4 blocks stay on the cluster: its dense products, in the plain version's
+# operands and order, keep the plain version's exp(angle) trajectories, which
+# chip_smoke.py holds the online audio to (the FFT kernel's decohere from
+# them in 84 of the 29,995 blocks of its session's five init keys; PERF.md).
 CLUSTER_MAX_B = 8
-CLUSTER_MAX_B_BF16 = 64
 
 
 @dataclasses.dataclass
@@ -67,8 +65,8 @@ class GLAudioOps:
     gl_f32: tuple         # Griffin-Lim operands of K2 and K4 (_gl_operands)
     gl_twiddles: torch.Tensor  # (256, 4) float32 cos, sin of 2 pi j / 256 and their
                                # remainders: the FFT kernel's (twiddle_table)
-    gl_bf16: tuple        # the same two rounded to bf16, as float32 (the cluster
-                          # kernel's and the plain version's), then the forward
+    gl_bf16: tuple        # the same two rounded to bf16, as float32 (the plain
+                          # bf16 version's), then the forward
                           # one's bf16 shared-memory image (the wgmma kernel's
                           # operand for both products: wgmma_layout.sw128_image)
     tail_f32: tuple       # K2's tail: winv, Pmat^T, apow, Cpow, Tmat[:, 0]
@@ -223,26 +221,22 @@ def gl_blocks_plain(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudi
 
 
 def regime(B: int, bf16: bool = False) -> str:
-    """Which Griffin-Lim kernel a launch of B blocks runs: "cluster", else
-    "fft" (float32) or "wgmma" (``bf16``); the wrappers pass the choice to
-    launch_gl_blocks in csrc/gl_audio.cu.  Reads CLUSTER_MAX_B (bf16:
-    CLUSTER_MAX_B_BF16) at each call, so setting it forces a regime (0:
-    always the large-B kernel)."""
-    if B <= (CLUSTER_MAX_B_BF16 if bf16 else CLUSTER_MAX_B):
-        return "cluster"
-    return "wgmma" if bf16 else "fft"
+    """Which Griffin-Lim kernel a launch of B blocks runs: "wgmma" (``bf16``,
+    at every B), else "cluster" up to CLUSTER_MAX_B blocks and "fft" above;
+    the wrappers pass the choice to launch_gl_blocks in csrc/gl_audio.cu.
+    Reads CLUSTER_MAX_B at each call, so setting it forces a regime (0:
+    always the FFT kernel)."""
+    if bf16:
+        return "wgmma"
+    return "cluster" if B <= CLUSTER_MAX_B else "fft"
 
 
 def _kernel_operands(ops: GLAudioOps, bf16: bool) -> tuple:
     """The Griffin-Lim launch's constants, in the C entries' order: Minv, the
-    forward and inverse DFT operands (in bf16 rounded: the cluster kernel's),
-    the Nyquist column and row, the window, then the large-B kernel's
-    operand: the FFT's twiddle table, or the bf16 forward operand's image."""
-    if not bf16:
-        return (*ops.gl_f32, ops.gl_twiddles)
-    minv, _, _, fnyq, inyq, win = ops.gl_f32
-    fwd, inv, image = ops.gl_bf16
-    return (minv, fwd, inv, fnyq, inyq, win, image)
+    cluster kernel's forward and inverse DFT operands, the Nyquist column
+    and row, the window (``gl_f32``), then the FFT's twiddle table or, in
+    bf16, the forward operand's image."""
+    return (*ops.gl_f32, ops.gl_bf16[2] if bf16 else ops.gl_twiddles)
 
 
 def _count(wrapper, kind: str, bf16: bool) -> None:
@@ -259,8 +253,8 @@ def gl_blocks(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
     """Kernel K4: log_mels (B+1, n_mel), rand_init (B, 480) -> Griffin-Lim
     blocks (B, 480) before the overlap-add; block b uses frames b and b+1.
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/gl_audio.cu`` (float32; with ``bf16`` its bf16 variant) in the
-    regime ``regime(B, bf16)`` names, or raises."""
+    ``csrc/gl_audio.cu`` (float32; with ``bf16`` its bf16 variant), the
+    kernel ``regime(B, bf16)`` names, or raises."""
     if log_mels.device.type == "cpu":
         return gl_blocks_plain(log_mels, rand_init, ops, iterations, phase_bug, bf16)
     dev = log_mels.device
@@ -319,8 +313,8 @@ def gl_audio(log_mels: torch.Tensor, rand_init: torch.Tensor, ops: GLAudioOps,
              bf16: bool = False) -> torch.Tensor:
     """log_mels (B+1, n_mel), rand_init (B, 480) -> int16 audio (B*160,).
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/gl_audio.cu`` (float32, Griffin-Lim in the regime ``regime(B, bf16)``
-    names; with ``bf16`` its bf16 variant) or raises."""
+    ``csrc/gl_audio.cu`` (float32; with ``bf16`` its bf16 Griffin-Lim; the
+    kernel ``regime(B, bf16)`` names) or raises."""
     if log_mels.device.type == "cpu":
         return gl_audio_plain(log_mels, rand_init, ops, norm, iterations, phase_bug, bf16)
     dev = log_mels.device

@@ -6,15 +6,17 @@ one NVIDIA GPU.  Run from the repository root:
     python3 gl_kernel_probe.py
 
 1. Accuracy against float64: the f32 plain version, the cluster kernel and
-   the FFT kernel on the same blocks (converging estimator).  In bf16 (one iteration, both estimators, against the bf16 branch in
-   float64): the plain bf16 version, the wgmma kernel (one fp32 accumulator
-   over each product's 16 k-steps), its "grouped" variant (a fresh
-   accumulator every 4 k-steps, added in fp32) and its "atan2f" variant
-   (libdevice's atan2f in the exp(angle) phase step).
-2. The regime threshold: both kernels timed at B = 4 .. 4,224 blocks
-   (``cuda_gl.CLUSTER_MAX_B`` is where they cross), in float32 and in bf16,
-   and the large-B kernels at 180,000 blocks (30 minutes) with both
-   estimators, the wgmma kernel beside its "grouped" and "atan2f" variants.
+   the FFT kernel on the same blocks (converging estimator).  In bf16 (one
+   iteration, both estimators, against the bf16 branch in float64): the
+   plain bf16 version, the wgmma kernel (one fp32 accumulator over each
+   product's 16 k-steps), its "grouped" variant (a fresh accumulator every
+   4 k-steps, added in fp32) and its "atan2f" variant (libdevice's atan2f
+   in the exp(angle) phase step).
+2. The float32 regimes: the cluster and the FFT kernel timed at B = 1 ..
+   4,224 blocks (``cuda_gl.CLUSTER_MAX_B`` is the largest B the cluster
+   takes), and the FFT and bf16 wgmma kernels at 180,000 blocks (30
+   minutes) with both estimators, the wgmma kernel beside its "grouped" and
+   "atan2f" variants.
 3. Where each kernel's time goes: a copy of the source with clock64 stamps
    at its phase boundaries (CTA 0, thread 0), the FFT kernel at 180,000
    blocks (block 0, in the first full wave), the cluster kernel at the
@@ -92,10 +94,10 @@ WGMMA_STAMPS = [("    for (int it = 0; it < iterations; ++it) {\n", 0),
                  "make_float2(v[0], v[1]);\n        }\n      }\n", 4)]
 WGMMA_PHASES = ["forward product", "phase step", "inverse product", "epilogue + overlap-add"]
 CLUSTER_STAMPS = [("  for (int it = 0; it < iterations; ++it) {\n    __syncthreads();\n", 0),
-                  ("      frm[i] = BF16 ? bf16_round(v) : v;\n    }\n    __syncthreads();\n", 1),
+                  ("      frm[i] = v;\n    }\n    __syncthreads();\n", 1),
                   ("      if (lane == 0) xn[f] = sn;\n    }\n    __syncthreads();\n", 2),
                   ("    cluster.sync();  // every CTA's zl is written\n", 3),
-                  ("      zf[ff * FFT + kk] = BF16 ? bf16_round(z) : z;\n    }\n    __syncthreads();\n", 4),
+                  ("      zf[ff * FFT + kk] = z;\n    }\n    __syncthreads();\n", 4),
                   ("    cluster.sync();  // every CTA's yl is written; every zl read\n", 5),
                   ("      wav[i] = v;\n    }\n", 6)]
 CLUSTER_PHASES = ["frames + barrier", "forward + Nyquist + barrier", "phase + cluster barrier",
@@ -137,13 +139,13 @@ def variants(src):
 
 @contextlib.contextmanager
 def regime_threshold(cuda_gl, cluster_max_b):
-    """Launches of B <= cluster_max_b blocks take the cluster kernel."""
-    saved = cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16
-    cuda_gl.CLUSTER_MAX_B = cuda_gl.CLUSTER_MAX_B_BF16 = cluster_max_b
+    """Float32 launches of B <= cluster_max_b blocks take the cluster kernel."""
+    saved = cuda_gl.CLUSTER_MAX_B
+    cuda_gl.CLUSTER_MAX_B = cluster_max_b
     try:
         yield
     finally:
-        cuda_gl.CLUSTER_MAX_B, cuda_gl.CLUSTER_MAX_B_BF16 = saved
+        cuda_gl.CLUSTER_MAX_B = saved
 
 
 def build_variants(src):
@@ -228,29 +230,23 @@ def main():
         line = []
         for name in ("plain bf16", "wgmma", "wgmma, grouped", "wgmma, atan2f"):
             use(name.split(", ")[1] if ", " in name else "kernel")
-            with regime_threshold(cuda_gl, 0):
-                out = (cuda_gl.gl_blocks_plain(lm, rand, ops, 1, bug, bf16=True) if "plain" in name
-                       else cuda_gl.gl_blocks(lm, rand, ops, 1, bug, bf16=True))
+            out = (cuda_gl.gl_blocks_plain(lm, rand, ops, 1, bug, bf16=True) if "plain" in name
+                   else cuda_gl.gl_blocks(lm, rand, ops, 1, bug, bf16=True))
             e = (out.double() - ref).abs().reshape(-1)
             line.append(f"{name} {e.max().item():.3e} / {torch.quantile(e, 0.999).item():.3e}")
         use("kernel")
         print(f"  B = 4224, phase_bug={bug}: " + "; ".join(line), flush=True)
 
     print(f"== time a launch, phase_bug, 8 iterations (CUDA events) [{card}]", flush=True)
-    for B in (4, 8, 12, 16, 24, 32, 48, 64, 128, 136, 192, 256, 384, 448, 512, 640, 1024, 4224):
+    for B in (1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4224):
         lm, rand = frames(B)
         n = 200 if B <= 1024 else 20
         with regime_threshold(cuda_gl, big):
             t_c = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True), n)
         with regime_threshold(cuda_gl, 0):
             t_m = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True), n)
-        with regime_threshold(cuda_gl, big):
-            t_c16 = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True), n)
-        with regime_threshold(cuda_gl, 0):
-            t_w16 = ms(lambda: cuda_gl.gl_blocks(lm, rand, ops, 8, True, bf16=True), n)
-        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, fft {t_m * 1e3:.2f} us; bf16: "
-              f"cluster {t_c16 * 1e3:.2f} us, wgmma {t_w16 * 1e3:.2f} us; picked: "
-              f"{cuda_gl.regime(B)}, bf16 {cuda_gl.regime(B, True)}", flush=True)
+        print(f"  B = {B}: cluster {t_c * 1e3:.2f} us, fft {t_m * 1e3:.2f} us; picked: "
+              f"{cuda_gl.regime(B)}", flush=True)
     lm, rand = frames(180_000)
     for bug in (True, False):
         t16 = {}

@@ -281,11 +281,32 @@ def test_gl_blocks_regimes_agree(rs, cuda_device, monkeypatch, B):
             assert ((fft - cluster).abs() <= 2e-4).double().mean().item() >= 0.999
 
 
-# The bf16 variants (DecoderConfig.gl_bf16): the online step's 1-4 blocks,
-# both sides of the bf16 threshold, exp2's sequential twin's 199 and the
-# float32 threshold, a ragged 1,001 on the wgmma kernel
-_T16 = cuda_gl.CLUSTER_MAX_B_BF16
-BF16_BLOCKS = [1, 2, 4, _T16 - 1, _T16, _T16 + 1, 199, _T - 1, _T, _T + 1, 1001]
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase_bug", [True, False])
+def test_gl_fft_kernel_on_4_blocks_gives_rows_of_the_whole_launch(rs, cuda_device, monkeypatch,
+                                                                  phase_bug):
+    """Each block's Griffin-Lim in the FFT kernel is one warp's, from its own
+    two log-mel rows and init: the kernel on the 4 blocks [b, b + 4) (forced
+    with CLUSTER_MAX_B = 0; the online step's launch size) gives, bit for
+    bit, rows [b, b + 4) of the kernel over 1,001 blocks (a replay's
+    launch), wherever the 4 start: at a CTA's first warp or inside it,
+    across two CTAs, at either end."""
+    monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
+    lm, rand = _gl_inputs(rs, 1001, cuda_device, "ar1")
+    ops = _gl_ops(cuda_device)
+    before = cuda_gl.gl_blocks.launches_fft
+    whole = cuda_gl.gl_blocks(lm, rand, ops, 8, phase_bug)
+    for b in (0, 1, 6, 8, 502, 997):
+        part = cuda_gl.gl_blocks(lm[b : b + 5].contiguous(), rand[b : b + 4].contiguous(), ops, 8,
+                                 phase_bug)
+        assert torch.equal(part, whole[b : b + 4]), b
+    assert cuda_gl.gl_blocks.launches_fft == before + 7
+
+
+# The bf16 variants (DecoderConfig.gl_bf16), all on the wgmma kernel: 1-4
+# blocks, 63-65 (two of its 32-block tiles, ragged, whole and with one block
+# over), exp2's sequential twin's 199 and a ragged 1,001
+BF16_BLOCKS = [1, 2, 4, 63, 64, 65, 199, 1001]
 BF16_RUNS = [(0, True), (1, False), (1, True), (8, False), (8, True)]
 
 
@@ -336,8 +357,8 @@ def _bf16_blocks_ok(re_k, re_p, re_32, lm, rand, ops, iterations, phase_bug):
 @pytest.mark.parametrize("iterations,phase_bug", BF16_RUNS)
 @pytest.mark.parametrize("B", BF16_BLOCKS)
 def test_gl_blocks_bf16_kernel_matches_plain(rs, cuda_device, B, iterations, phase_bug):
-    """K4's bf16 variant against the plain bf16 version (``_bf16_blocks_ok``),
-    in the regime its launch picks; counted in ``launches_bf16`` only."""
+    """K4's bf16 variant against the plain bf16 version (``_bf16_blocks_ok``);
+    counted in ``launches_bf16`` only."""
     lm, rand = _gl_inputs(rs, B, cuda_device)
     ops = _gl_ops(cuda_device)
     before = (cuda_gl.gl_blocks.launches, cuda_gl.gl_blocks.launches_bf16)
@@ -378,23 +399,6 @@ def test_gl_audio_bf16_kernel_matches_plain(rs, cuda_device, B, iterations, phas
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [4, 1001])
-def test_gl_blocks_bf16_regimes_agree(rs, cuda_device, monkeypatch, B):
-    """The bf16 variants of the wgmma kernel (CLUSTER_MAX_B_BF16 = 0)
-    and the cluster kernel (CLUSTER_MAX_B_BF16 = B) on the same blocks:
-    identical without iterations, within ``_bf16_blocks_ok``'s one-iteration
-    gate of each other after one."""
-    lm, rand = _gl_inputs(rs, B, cuda_device)
-    ops = _gl_ops(cuda_device)
-    for iterations in (0, 1):
-        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", 0)
-        mma = cuda_gl.gl_blocks(lm, rand, ops, iterations, False, bf16=True)
-        monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", B)
-        cluster = cuda_gl.gl_blocks(lm, rand, ops, iterations, False, bf16=True)
-        _bf16_blocks_ok(mma, cluster, None, lm, rand, ops, iterations, False)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("phase_bug", [False, True])
 @pytest.mark.parametrize("B", [4224, 179_999])
 def test_gl_bf16_kernel_tracks_float64(rs, cuda_device, B, phase_bug):
@@ -406,7 +410,6 @@ def test_gl_bf16_kernel_tracks_float64(rs, cuda_device, B, phase_bug):
     |error| at most twice the plain bf16 version's (float32)."""
     lm, rand = _gl_inputs(rs, B, cuda_device)
     ops = _gl_ops(cuda_device)
-    assert cuda_gl.regime(B, bf16=True) == "wgmma"
     ref = cuda_gl._gl_loop_plain(lm, rand, ops, 1, phase_bug, torch.float64)
 
     def errors(out):

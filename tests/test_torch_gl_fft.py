@@ -119,19 +119,20 @@ def _gl_inputs(rng, B):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("phase_bug", [True, False])
-def test_gl_iteration_matches_dense(ops, rng, dtype, phase_bug):
-    """One Griffin-Lim iteration of 5 blocks as the kernel computes it (the
+@pytest.mark.parametrize("B", [1, 4, 5])
+def test_gl_iteration_matches_dense(ops, rng, B, dtype, phase_bug):
+    """One Griffin-Lim iteration of B blocks as the kernel computes it (the
     lanes' slots, the phase step, the overlap-add), on the float32 Minv and
     window, against the dense products of ``_gl_loop_plain`` in float64
     (exact DFT): the float64 emulation within 1e-12 of the largest |sample|,
     the float32 one within F32_REL (and no further off than twice the plain
     float32 version)."""
     rdt, _ = DTYPES[dtype]
-    lm, rand = _gl_inputs(rng, 5)
+    lm, rand = _gl_inputs(rng, B)
     minv, _, _, _, _, win = ops.gl_f32
     ref = cuda_gl._gl_loop_plain(lm, rand, ops, 1, phase_bug, torch.float64, bf16=False)
     out = plan.gl_blocks(lm, rand, minv, win.to(rdt), cuda_gl.twiddle_table(rdt), 1, phase_bug)
-    assert out.dtype == rdt and out.shape == (5, 480)
+    assert out.dtype == rdt and out.shape == (B, 480)
     if rdt == torch.float64:
         assert _rel(out, ref) < 1e-12
     else:

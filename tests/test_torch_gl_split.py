@@ -1,19 +1,26 @@
-"""The Griffin-Lim kernels' DFT operands (K2/K4), the choice of regime, and
-the TF32 rounding helpers (``ops/tf32.py``, K1's).  Also the text anchors by
+"""The Griffin-Lim kernels' DFT operands (K2/K4), the choice of regime, the
+TF32 rounding helpers (``ops/tf32.py``, K1's), and the ctypes bindings of
+the kernels' C entries against the entries' parameters in their ``.cu``
+files.  Also the text anchors by
 which gl_kernel_probe.py builds its variants of the kernel source (the bf16
 wgmma kernel with a fresh accumulator every 4 k-steps or libdevice's atan2f,
 the clock64 stamps).  The large-B float32 kernel's FFT plan is held in
 tests/test_torch_gl_fft.py.
 """
 
+import ast
+import ctypes
 import importlib.util
+import inspect
+import re
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from closed_loop_seeg_speech_synthesis_tpu_torch.ops import cuda_gl
+from closed_loop_seeg_speech_synthesis_tpu_torch.ops import _build, cuda_frontend, cuda_gl, cuda_prng
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import filter_design as t_fd
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import griffinlim as t_gl
 from closed_loop_seeg_speech_synthesis_tpu_torch.ops import iir as t_iir
@@ -61,27 +68,63 @@ def test_regime_by_number_of_blocks(B, expected):
     assert cuda_gl.regime(B) == expected
 
 
-@pytest.mark.parametrize("B,expected", [(1, "cluster"), (cuda_gl.CLUSTER_MAX_B_BF16, "cluster"),
-                                        (cuda_gl.CLUSTER_MAX_B_BF16 + 1, "wgmma"),
-                                        (448, "wgmma"), (180_000, "wgmma")])
-def test_bf16_regime_by_number_of_blocks(B, expected):
-    """The bf16 variants have their own threshold (the wgmma kernel takes
-    about as long at any B up to a wave); the float32 one does not apply."""
-    assert cuda_gl.regime(B, bf16=True) == expected
-
-
-def test_bf16_regime_threshold_is_read_at_each_call(monkeypatch):
-    monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", 0)
-    assert cuda_gl.regime(1, bf16=True) == "wgmma" and cuda_gl.regime(1) == "cluster"
-    monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B_BF16", 10**9)
-    assert cuda_gl.regime(180_000, bf16=True) == "cluster" and cuda_gl.regime(180_000) == "fft"
-
-
 def test_regime_threshold_is_read_at_each_call(monkeypatch):
+    """CLUSTER_MAX_B forces a float32 regime; bf16 launches run the wgmma
+    kernel whatever it is."""
     monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 0)
     assert cuda_gl.regime(1) == "fft"
     monkeypatch.setattr(cuda_gl, "CLUSTER_MAX_B", 10**9)
     assert cuda_gl.regime(180_000) == "cluster"
+    assert cuda_gl.regime(1, bf16=True) == cuda_gl.regime(180_000, bf16=True) == "wgmma"
+
+
+# The C type of each parameter of an extern "C" entry, as ctypes declares it
+C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
+           "uint32_t": ctypes.c_uint32, "cudaStream_t": ctypes.c_void_p}
+
+
+def _c_entries(src):
+    """name -> ctypes types of the parameters of each extern "C" entry."""
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        kinds = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            kinds.append(ctypes.c_void_p if "*" in p
+                         else C_TYPES[p.rsplit(" ", 1)[0].removeprefix("const ")])
+        entries[name] = kinds
+    return entries
+
+
+# entry -> the module that binds it, the source that defines it
+ENTRIES = {"gl_blocks": (cuda_gl, "gl_audio.cu"), "gl_audio": (cuda_gl, "gl_audio.cu"),
+           "frontend_logpower": (cuda_frontend, "frontend_decode.cu"),
+           "frontend_decode_mels": (cuda_frontend, "frontend_decode.cu"),
+           "block_inits": (cuda_prng, "prng.cu")}
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_kernel_bindings_match_the_c_entries(monkeypatch, entry):
+    """The argument types each wrapper declares for its C entry (the counts
+    of pointers, ints and floats it hands ``_build.bind``, or cuda_prng's own
+    ``argtypes``) are the entry's parameters in its .cu file, in order, and
+    every extern "C" entry of that file is bound by the module: a launch
+    through a stale binding would pass its arguments to the wrong
+    parameters, which no CPU run would show."""
+    module, source = ENTRIES[entry]
+    entries = _c_entries((_build.CSRC / source).read_text())
+    fake = types.SimpleNamespace(**{entry: types.SimpleNamespace()})
+    if module is cuda_prng:
+        monkeypatch.setattr(_build, "load", lambda name: fake)
+        fn = cuda_prng._entry.__wrapped__()
+        bound = {"block_inits"}
+    else:
+        calls = {node.args[1].value: node for node in ast.walk(ast.parse(inspect.getsource(module)))
+                 if isinstance(node, ast.Call) and ast.unparse(node.func) == "_build.bind"}
+        bound = set(calls)
+        fn = _build.bind(fake, entry, *(a.value for a in calls[entry].args[2:]))
+    assert bound == set(entries)
+    assert fn.argtypes == entries[entry] and fn.restype is ctypes.c_int
 
 
 ROOT = Path(__file__).resolve().parents[1]
